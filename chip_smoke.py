@@ -1,0 +1,446 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, one JSON line each:
+  1. device   the card's name and power limit (``nvidia-smi``); fails
+              without a CUDA device;
+  2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
+  3. kernels  each kernel of the main path against its plain PyTorch
+              version at the flagship shapes, in bfloat16 and float32, with
+              the tolerance stated; times the kernel, the plain version and
+              the bound from bytes and flops;
+  4. tiny     a depth-18 model on 64x96 frames through the whole x1
+              streaming path, once on the card through the kernels and
+              once on the CPU through the plain versions, same weights and
+              noise, float32, TF32 off;
+  5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
+              random weights from ``--seed``, bfloat16: ``start_video`` on
+              24 global frames then 3 chunks of 8 frames at 608x1024; checks
+              finite outputs and the kernels' launch counts, prints fps and
+              peak memory.
+Then the ``kernels`` line (every kernel with its launches on the main path,
+error against its plain version, times and bound), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+check exits nonzero before that line.  Needs the repository beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory and compute rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+FLAGSHIP = dict(frames=8, h=608, w=1024, props=300, c=256)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(phase: str, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def require(cond: bool, what: str):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(got, want, atol: float, rtol: float, what: str) -> dict:
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
+    bad = err > atol + rtol * want.abs()
+    res = {"max_abs_err": float(err.max()),
+           "max_rel_err": float(err.max() / want.abs().max().clamp(min=1e-12)),
+           "atol": atol, "rtol": rtol, "n_over": int(bad.sum())}
+    if res["n_over"]:
+        idx = bad.nonzero()[:8]
+        emit("mismatch", what=what, index=idx.tolist(),
+             got=got[tuple(idx.T)].tolist(), want=want[tuple(idx.T)].tolist())
+    require(res["n_over"] == 0, f"{what}: {res['n_over']} elements over "
+            f"atol {atol} + rtol {rtol}·|ref| (max abs err {res['max_abs_err']})")
+    return res
+
+
+# ---------------------------------------------------------------- kernels
+
+def flagship_rois(gen, b: int, r: int, h: int, w: int):
+    """ROIs over all three levels, crossing the image border, and some
+    zero-width or zero-height boxes."""
+    side = torch.exp(torch.empty(b, r, 2).uniform_(2.5, 6.9, generator=gen))
+    ctr = torch.rand(b, r, 2, generator=gen) * torch.tensor([w * 1.2, h * 1.2]) \
+        - torch.tensor([w * 0.1, h * 0.1])
+    boxes = torch.cat([ctr - side / 2, ctr + side / 2], -1)
+    boxes[:, ::17, 2] = boxes[:, ::17, 0]          # zero width
+    boxes[:, 5::23, 3] = boxes[:, 5::23, 1]        # zero height
+    return boxes.contiguous()
+
+
+def kernel_k1(gen, dev, dtype, timing: bool):
+    from diffusionvid_torch.ops.roi_align import (
+        multilevel_roi_align, multilevel_roi_align_ref, _levels)
+    f, c = FLAGSHIP["frames"], FLAGSHIP["c"]
+    h, w = FLAGSHIP["h"], FLAGSHIP["w"]
+    scales = (1 / 8, 1 / 16, 1 / 32)
+    feats = [torch.randn(f, -(-h // s), -(-w // s), c, generator=gen).to(dev, dtype)
+             for s in (8, 16, 32)]
+    rois = flagship_rois(gen, f, FLAGSHIP["props"], h, w).to(dev)
+    lv = _levels(feats, rois, scales)
+    counts = [int((lv == i).sum()) for i in range(3)]
+    require(min(counts) > 0, f"K1 test rois miss a level: {counts}")
+    got = multilevel_roi_align(feats, rois, scales)
+    want = multilevel_roi_align_ref(feats, rois, scales)
+    torch.cuda.synchronize()
+    # bf16: kernel and plain version both sum in fp32 (in another order) and
+    # round once, so an element may differ by one bf16 ulp, 2^-7 relative
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2 ** -6)
+    res = compare(got, want, *tol, f"K1 {dtype}")
+    res["rois_per_level"] = counts
+    if timing:
+        elt = feats[0].element_size()
+        nbytes = (sum(t.numel() for t in feats) * elt + rois.numel() * 4
+                  + lv.numel() * 4 + got.numel() * elt)
+        flops = got.numel() * 4 * 4 * 2
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
+        res["ms"] = cuda_time_ms(lambda: multilevel_roi_align(feats, rois, scales))
+        res["plain_ms"] = cuda_time_ms(
+            lambda: multilevel_roi_align_ref(feats, rois, scales), iters=5)
+    return res
+
+
+def kernel_k2(gen, dev, dtype, timing: bool):
+    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
+    s = FLAGSHIP["frames"] * FLAGSHIP["props"]
+    p, e, d = 49, 64, 256
+    roi = torch.randn(s, p, d, generator=gen).to(dev, dtype)
+    p1t = (torch.randn(s, e, d, generator=gen) * 0.1).to(dev, dtype)
+    p2e = (torch.randn(s, e, d, generator=gen) * 0.1).to(dev, dtype)
+    lns = [(1 + 0.1 * torch.randn(e, generator=gen)).to(dev),
+           (0.1 * torch.randn(e, generator=gen)).to(dev),
+           (1 + 0.1 * torch.randn(d, generator=gen)).to(dev),
+           (0.1 * torch.randn(d, generator=gen)).to(dev)]
+    got = dynamic_conv_fused(roi, p1t, p2e, *lns)
+    want = dynamic_conv_ref(roi, p1t, p2e, *lns)
+    torch.cuda.synchronize()
+    # bf16: the tolerance of tests/test_dynamic_conv_pallas.py (three
+    # roundings to bf16 whose fp32 inputs differ in summation order)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+    res = compare(got, want, *tol, f"K2 {dtype}")
+    if dtype == torch.float32:
+        # the autograd.Function's backward recomputes through the plain version
+        args = [t[:64].clone().requires_grad_() for t in (roi, p1t, p2e)] \
+            + [t.clone().requires_grad_() for t in lns]
+        ref = [a.detach().clone().requires_grad_() for a in args]
+        (dynamic_conv_fused(*args) ** 2).sum().backward()
+        (dynamic_conv_ref(*ref) ** 2).sum().backward()
+        res["grad_max_rel_err"] = max(
+            float((a.grad - r.grad).abs().max() / r.grad.abs().max()) for a, r in zip(args, ref))
+        require(res["grad_max_rel_err"] < 1e-4,
+                f"K2 backward: rel err {res['grad_max_rel_err']} over 1e-4")
+    if timing:
+        elt = roi.element_size()
+        nbytes = (roi.numel() + p1t.numel() + p2e.numel() + got.numel()) * elt \
+            + sum(t.numel() for t in lns) * 4
+        flops = 2 * s * (p * d * e) * 2
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
+        res["ms"] = cuda_time_ms(lambda: dynamic_conv_fused(roi, p1t, p2e, *lns))
+        res["plain_ms"] = cuda_time_ms(lambda: dynamic_conv_ref(roi, p1t, p2e, *lns))
+    return res
+
+
+KERNELS = {
+    "roi_align_fwd": dict(
+        route="cuda", source="diffusionvid_torch/csrc/roi_align_fwd.cu",
+        replaces="diffusionvid_tpu/ops/roi_align_pallas.py:518", check=kernel_k1),
+    "dynamic_conv": dict(
+        route="cuda", source="diffusionvid_torch/csrc/dynamic_conv.cu",
+        replaces="diffusionvid_tpu/ops/dynamic_conv_pallas.py:148", check=kernel_k2),
+}
+
+
+def launch_counters():
+    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused
+    from diffusionvid_torch.ops.roi_align import multilevel_roi_align
+    return {"roi_align_fwd": multilevel_roi_align,
+            "dynamic_conv": dynamic_conv_fused}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def phase_kernels(seed: int) -> dict:
+    """bf16 (the main path's dtype) is timed; fp32 is checked."""
+    dev = torch.device("cuda")
+    rows = {}
+    for name, spec in KERNELS.items():
+        rows[name] = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator().manual_seed(seed)
+            res = spec["check"](gen, dev, dtype, timing=dtype == torch.bfloat16)
+            rows[name][str(dtype).split(".")[1]] = res
+            emit("kernels", kernel=name, dtype=str(dtype), **res)
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- model paths
+
+def _run_stream(det, noise, gframes, chunks, whwh):
+    """start_video + process_chunk over ``chunks``, with ``noise`` (a list
+    of CPU tensors) as the proposal noise in call order."""
+    draws = iter(noise)
+    det.noise = lambda state, shape: next(draws).to(det.device).reshape(shape)
+    state = det.start_video(0, gframes, whwh)
+    outs = []
+    for c in chunks:
+        state, dets = det.process_chunk(state, c, whwh)
+        outs.append(dets)
+    return state, outs
+
+
+def phase_tiny(seed: int):
+    """Depth 18, 16 proposals, 64x96 frames, float32, TF32 off: the card
+    (kernels) against the CPU (plain versions), same weights and noise."""
+    import copy
+
+    from diffusionvid_torch.engine.streaming import StreamingDetector
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    h, w, props = 64, 96, 16
+    cpu = DiffusionDetArch(depth=18, num_classes=5, num_proposals=props, num_heads=1,
+                           num_heads_local=1, compute_dtype=torch.float32)
+    cpu.reset_parameters(gen)
+    with torch.no_grad():   # varied LayerNorm affines: proposal features of unequal norm
+        for name, p in cpu.head.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    cpu.eval()
+    card = copy.deepcopy(cpu).cuda()
+    kw = dict(infer_batch=2, mem_size=64, mem_dis_size=32, num_proposals=props,
+              detections_per_img=props)
+    gframes = torch.rand(4, h, w, 3, generator=gen) * 255
+    chunks = [torch.rand(2, h, w, 3, generator=gen) * 255 for _ in range(2)]
+    whwh = torch.tensor([w, h, w, h], dtype=torch.float32)
+    noise = [torch.randn(2, props, 4, generator=gen) for _ in range(4)]
+
+    reset_launches()
+    c_state, c_out = _run_stream(StreamingDetector(card, **kw), noise, gframes,
+                                 chunks, whwh)
+    torch.cuda.synchronize()
+    used = read_launches()
+    require(all(n > 0 for n in used.values()), f"tiny card run missed a kernel: {used}")
+    p_state, p_out = _run_stream(StreamingDetector(cpu, **kw), noise, gframes,
+                                 chunks, whwh)
+    require(c_state.mem.count == p_state.mem.count
+            and c_state.mem_dis.count == p_state.mem_dis.count, "memory counts differ")
+    res = {"rtol": 1e-3, "launches": used}
+    errs = {"scores": 0.0, "boxes": 0.0, "memory": 0.0}
+    for cd, pd in zip(c_out, p_out):
+        for key in ("scores", "boxes"):
+            g, r = getattr(cd, key).cpu().double(), getattr(pd, key).double()
+            errs[key] = max(errs[key], float((g - r).abs().max() / r.abs().max()))
+        require(torch.equal(cd.labels.cpu(), pd.labels), "tiny: labels differ")
+        require(torch.equal(cd.valid.cpu(), pd.valid), "tiny: NMS keep masks differ")
+    for cm, pm in ((c_state.mem, p_state.mem), (c_state.mem_dis, p_state.mem_dis)):
+        errs["memory"] = max(errs["memory"], float(
+            (cm.feats.cpu() - pm.feats).abs().max() / pm.feats.abs().max()))
+    res.update({f"max_rel_err_{k}": v for k, v in errs.items()})
+    emit("tiny", **res)
+    require(max(errs.values()) < res["rtol"], f"tiny: card vs CPU over rtol: {errs}")
+
+
+def phase_flagship(seed: int) -> dict:
+    """R-101 x1 at full width, bf16: 24 global frames, 3 chunks of 8 at
+    608x1024.  A first pass warms up; the launch counts and times are of
+    the second."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine.streaming import StreamingDetector
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+
+    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    t0 = time.perf_counter()
+    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    mega = cfg.MODEL.VID.MEGA
+    det = StreamingDetector(
+        model, infer_batch=cfg.INPUT.INFER_BATCH,
+        mem_size=mega.MEMORY_MANAGEMENT_SIZE_TEST, mem_dis_size=150,
+        num_proposals=cfg.MODEL.DiffusionDet.NUM_PROPOSALS,
+        use_nms=cfg.MODEL.DiffusionDet.USE_NMS,
+        detections_per_img=cfg.TEST.DETECTIONS_PER_IMG,
+        stop_update_after_init=mega.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST)
+    build_s = time.perf_counter() - t0
+    f, h, w = cfg.INPUT.INFER_BATCH, FLAGSHIP["h"], FLAGSHIP["w"]
+    n_global, n_chunks = mega.GLOBAL.SIZE, 3
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gframes = torch.rand(n_global, h, w, 3, generator=gen, device="cuda") * 255
+    chunks = [torch.rand(f, h, w, 3, generator=gen, device="cuda") * 255
+              for _ in range(n_chunks)]
+    whwh = torch.tensor([w, h, w, h], dtype=torch.float32, device="cuda")
+
+    def drive():
+        state = det.start_video(seed, gframes, whwh)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        outs = []
+        for c in chunks:
+            state, dets = det.process_chunk(state, c, whwh)
+            outs.append(dets)
+        torch.cuda.synchronize()
+        return state, outs, t_start
+
+    drive()                                   # warm-up: allocator, cuDNN plans
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, outs, t_chunks = drive()
+    t1 = time.perf_counter()
+    launches = read_launches()
+
+    want = n_chunks * (len(model.head.head_series) + len(model.head.head_series_cond)) \
+        + -(-n_global // f) * len(model.head.head_series)
+    for name, n in launches.items():
+        require(n == want, f"flagship: {name} launched {n} times, expected {want}")
+    require(state.mem.count == det.mem_size and state.mem_dis.count == det.mem_dis_size,
+            f"flagship: memory not filled ({state.mem.count}, {state.mem_dis.count})")
+    require(bool(torch.isfinite(state.mem.feats).all()), "flagship: non-finite memory")
+    for dets in outs:
+        require(tuple(dets.boxes.shape) == (f, det.detections_per_img, 4),
+                f"flagship: boxes shape {tuple(dets.boxes.shape)}")
+        for key in ("boxes", "scores"):
+            require(bool(torch.isfinite(getattr(dets, key)).all()),
+                    f"flagship: non-finite {key}")
+        require(int(dets.labels.min()) >= 1
+                and int(dets.labels.max()) <= cfg.MODEL.DiffusionDet.NUM_CLASSES,
+                "flagship: labels out of range")
+        require(int(dets.valid.sum()) > 0, "flagship: NMS kept nothing")
+    res = {"config": "configs/vid_R_101_DiffusionVID.yaml", "dtype": "bfloat16",
+           "frames": [n_global, n_chunks * f], "hw": [h, w],
+           "launches": launches, "expected_launches": want,
+           "model_build_s": build_s, "start_video_s": t_chunks - t0,
+           "chunks_s": t1 - t_chunks, "fps": n_chunks * f / (t1 - t_chunks),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kept_per_frame": float(outs[-1].valid.sum(-1).float().mean()),
+           "card": torch.cuda.get_device_name(0)}
+    res.update(profile_chunk(det, state, chunks[0], whwh))
+    emit("flagship", **res)
+    return launches
+
+
+def profile_chunk(det, state, frames, whwh) -> dict:
+    """Device time of one chunk by kernel name (``torch.profiler``); the
+    full table goes to ``build/chip_smoke/flagship_chunk_profile.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        det.process_chunk(state, frames, whwh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "flagship_chunk_profile.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return {"profiled_chunk_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+
+
+# ---------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffusionvid_torch.ops import _build   # fails here without the repository
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    emit("build", seconds=time.perf_counter() - t0,
+         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+                for k, v in reports.items()})
+
+    kernel_rows = phase_kernels(args.seed)
+    phase_tiny(args.seed)
+    launches = phase_flagship(args.seed)
+
+    line = []
+    for name, spec in KERNELS.items():
+        bf = kernel_rows[name]["bfloat16"]
+        line.append({"name": name, "route": spec["route"], "source": spec["source"],
+                     "replaces": spec["replaces"], "launches": launches[name],
+                     "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
+                     "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+                     "bound_by": bf["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": line}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Default configuration tree of the PyTorch port.
+
+The key names are those of the reference's yacs tree
+(``mega_core/config/defaults.py`` plus the DiffusionDet additions), so the
+experiment YAMLs under ``configs/`` load unmodified.  This copy holds the
+branches the port reads; a YAML may add keys the defaults do not name
+(``CfgNode.merge_from_other`` accepts new keys).  ``TPU.COMPUTE_DTYPE`` keeps
+its name because the YAMLs set it: it is the activation dtype on any device.
+"""
+
+from .node import CfgNode
+
+
+def get_default_cfg() -> CfgNode:
+    _C = CfgNode()
+
+    _C.MODEL = CfgNode()
+    _C.MODEL.META_ARCHITECTURE = "DiffusionDet"
+    _C.MODEL.DEVICE = "cuda"
+    _C.MODEL.WEIGHT = ""
+    _C.MODEL.PIXEL_MEAN = (123.675, 116.280, 103.530)
+    _C.MODEL.PIXEL_STD = (58.395, 57.120, 57.375)
+
+    _C.MODEL.BACKBONE = CfgNode()
+    _C.MODEL.BACKBONE.NAME = "build_resnet_fpn_backbone"
+    _C.MODEL.BACKBONE.CONV_BODY = "R-101-torchvision"
+    _C.MODEL.BACKBONE.FREEZE_AT = 2
+
+    _C.MODEL.RESNETS = CfgNode()
+    _C.MODEL.RESNETS.DEPTH = 101
+    _C.MODEL.RESNETS.NUM_GROUPS = 1
+    _C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
+    _C.MODEL.RESNETS.STRIDE_IN_1X1 = False
+    _C.MODEL.RESNETS.RES5_DILATION = 1
+    _C.MODEL.RESNETS.NORM = "FrozenBN"
+    _C.MODEL.RESNETS.OUT_FEATURES = ("res2", "res3", "res4", "res5")
+
+    _C.MODEL.FPN = CfgNode()
+    _C.MODEL.FPN.IN_FEATURES = ("res3", "res4", "res5")
+    _C.MODEL.FPN.OUT_CHANNELS = 256
+    _C.MODEL.FPN.NORM = ""
+    _C.MODEL.FPN.FUSE_TYPE = "sum"
+
+    _C.MODEL.ROI_HEADS = CfgNode()
+    _C.MODEL.ROI_HEADS.IN_FEATURES = ("p3", "p4", "p5")
+    _C.MODEL.ROI_BOX_HEAD = CfgNode()
+    _C.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIAlignV2"
+    _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    _C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+
+    # DiffusionDet head (reference add_diffusiondet_config)
+    _C.MODEL.DiffusionDet = CfgNode()
+    _C.MODEL.DiffusionDet.NUM_CLASSES = 30
+    _C.MODEL.DiffusionDet.NUM_PROPOSALS = 300
+    _C.MODEL.DiffusionDet.NHEADS = 8
+    _C.MODEL.DiffusionDet.DROPOUT = 0.0
+    _C.MODEL.DiffusionDet.DIM_FEEDFORWARD = 2048
+    _C.MODEL.DiffusionDet.ACTIVATION = "relu"
+    _C.MODEL.DiffusionDet.HIDDEN_DIM = 256
+    _C.MODEL.DiffusionDet.NUM_CLS = 1
+    _C.MODEL.DiffusionDet.NUM_REG = 3
+    _C.MODEL.DiffusionDet.NUM_HEADS = 6
+    _C.MODEL.DiffusionDet.NUM_HEADS_LOCAL = 0
+    _C.MODEL.DiffusionDet.NUM_DYNAMIC = 2
+    _C.MODEL.DiffusionDet.DIM_DYNAMIC = 64
+    _C.MODEL.DiffusionDet.PRIOR_PROB = 0.01
+    _C.MODEL.DiffusionDet.SNR_SCALE = 2.0
+    _C.MODEL.DiffusionDet.SAMPLE_STEP = 1
+    _C.MODEL.DiffusionDet.USE_NMS = True
+
+    _C.MODEL.VID = CfgNode()
+    _C.MODEL.VID.ENABLE = False
+    _C.MODEL.VID.METHOD = "base"
+    _C.MODEL.VID.ROI_BOX_HEAD = CfgNode()
+    _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION = CfgNode()
+    _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE = False
+    _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION.STAGE = 2
+    _C.MODEL.VID.MEGA = CfgNode()
+    _C.MODEL.VID.MEGA.MIN_OFFSET = -12
+    _C.MODEL.VID.MEGA.MAX_OFFSET = 12
+    _C.MODEL.VID.MEGA.ALL_FRAME_INTERVAL = 25
+    _C.MODEL.VID.MEGA.KEY_FRAME_LOCATION = 12
+    _C.MODEL.VID.MEGA.SHUFFLED_CUR_TEST = False
+    _C.MODEL.VID.MEGA.LOCAL = CfgNode()
+    _C.MODEL.VID.MEGA.LOCAL.ENABLE = True
+    _C.MODEL.VID.MEGA.GLOBAL = CfgNode()
+    _C.MODEL.VID.MEGA.GLOBAL.ENABLE = True
+    _C.MODEL.VID.MEGA.GLOBAL.RES_STAGE = 1
+    _C.MODEL.VID.MEGA.GLOBAL.SIZE = 50
+    _C.MODEL.VID.MEGA.GLOBAL.SHUFFLE = True
+    _C.MODEL.VID.MEGA.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST = True
+    _C.MODEL.VID.MEGA.REF_NUM_GLOBAL = 4
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_METRIC = "distance"
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_TYPE = "greedy"
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST = 750
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TRAIN = 300
+
+    _C.INPUT = CfgNode()
+    _C.INPUT.MIN_SIZE_TEST = 600
+    _C.INPUT.MAX_SIZE_TEST = 1000
+    _C.INPUT.PIXEL_MEAN = (123.675, 116.280, 103.530)
+    _C.INPUT.PIXEL_STD = (58.395, 57.120, 57.375)
+    _C.INPUT.TO_BGR255 = False
+    _C.INPUT.INFER_BATCH = 1
+
+    _C.DATASETS = CfgNode()
+    _C.DATASETS.TRAIN = ()
+    _C.DATASETS.TEST = ()
+    _C.DATALOADER = CfgNode()
+    _C.DATALOADER.SIZE_DIVISIBILITY = 32
+
+    _C.TEST = CfgNode()
+    _C.TEST.DETECTIONS_PER_IMG = 300
+
+    _C.TPU = CfgNode()
+    _C.TPU.COMPUTE_DTYPE = "bfloat16"
+
+    _C.OUTPUT_DIR = "."
+    return _C

@@ -1,0 +1,8 @@
+from .diffusion_det import (
+    DiffusionDetArch, boxes_to_signal, ddim_times, make_schedule, signal_to_boxes,
+)
+from .heads import DynamicHead, RCNNHead
+from .resnet import ResNet
+
+__all__ = ["DiffusionDetArch", "DynamicHead", "RCNNHead", "ResNet",
+           "boxes_to_signal", "ddim_times", "make_schedule", "signal_to_boxes"]

@@ -1,0 +1,178 @@
+"""DiffusionDet / DiffusionVID meta-architecture in PyTorch.
+
+Port of ``diffusionvid_tpu/models/diffusion_det.py``: the cosine schedule
+(buffers derived in float64, cast at the end), DDIM time pairs, the
+signal-space ↔ box-space transforms and ``DiffusionDetArch`` (ResNet + FPN
++ DynamicHead) with the streaming sub-entrypoints ``extract_features``,
+``extract_proposals`` and ``refine``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..structures.boxes import cxcywh_to_xyxy, xyxy_to_cxcywh
+from ..utils.device import resolve_device
+from .fpn import FPN
+from .heads import DynamicHead
+from .resnet import ResNet
+
+_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
+
+
+class DiffusionSchedule(NamedTuple):
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    num_timesteps: int
+    scale: float
+
+
+def cosine_beta_schedule(timesteps: int = 1000, s: float = 0.008) -> np.ndarray:
+    """Nichol & Dhariwal cosine schedule (diffusion_det.py:50-61), float64."""
+    x = np.linspace(0, timesteps, timesteps + 1, dtype=np.float64)
+    ac = np.cos(((x / timesteps) + s) / (1 + s) * math.pi * 0.5) ** 2
+    ac = ac / ac[0]
+    return np.clip(1 - (ac[1:] / ac[:-1]), 0, 0.999)
+
+
+def make_schedule(timesteps: int = 1000, scale: float = 2.0,
+                  device="cpu") -> DiffusionSchedule:
+    """Every buffer is derived in float64 and cast to float32 at the end
+    (computing 1/ac - 1 in float32 loses about 3 digits at small t)."""
+    betas = cosine_beta_schedule(timesteps)
+    ac = np.cumprod(1.0 - betas)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return DiffusionSchedule(
+        betas=f32(betas), alphas_cumprod=f32(ac),
+        sqrt_alphas_cumprod=f32(np.sqrt(ac)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - ac)),
+        sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / ac)),
+        sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / ac - 1.0)),
+        num_timesteps=timesteps, scale=scale)
+
+
+def ddim_times(num_timesteps: int, sampling_steps: int):
+    """[(T-1 → next), ...] time pairs (diffusion_det.py:536-539)."""
+    times = np.linspace(-1, num_timesteps - 1, sampling_steps + 1).astype(int)
+    times = list(reversed(times.tolist()))
+    return list(zip(times[:-1], times[1:]))
+
+
+def signal_to_boxes(x, whwh, scale: float):
+    """Clamp to ±scale, map to [0,1] cxcywh, then absolute xyxy."""
+    x = x.clamp(-scale, scale)
+    x = ((x / scale) + 1.0) / 2.0
+    return cxcywh_to_xyxy(x) * whwh[..., None, :]
+
+
+def boxes_to_signal(boxes_xyxy, whwh, scale: float):
+    """Absolute xyxy → clamped signal space."""
+    x = xyxy_to_cxcywh(boxes_xyxy / whwh[..., None, :])
+    return ((x * 2.0 - 1.0) * scale).clamp(-scale, scale)
+
+
+class DiffusionDetArch(nn.Module):
+    """ResNet + FPN + DynamicHead.  ``backbone`` is detectron2's FPN module
+    (``backbone.bottom_up`` the trunk) and ``head`` the decoder, so the
+    state dict has the reference checkpoint's names.
+
+    Parameters are float32; activations run in ``compute_dtype``.  Build
+    with ``from_config``, which places the model on the card unless
+    ``device`` says otherwise."""
+
+    def __init__(self, depth: int = 101, num_classes: int = 30,
+                 num_proposals: int = 300, hidden_dim: int = 256,
+                 num_heads: int = 3, num_heads_local: int = 1,
+                 res_stage: int = 1, global_enable: bool = True,
+                 fpn_in=("res3", "res4", "res5"), head_levels=("p3", "p4", "p5"),
+                 pixel_mean=(123.675, 116.280, 103.530),
+                 pixel_std=(58.395, 57.120, 57.375),
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.num_classes, self.num_proposals = num_classes, num_proposals
+        self.hidden_dim, self.num_heads_local = hidden_dim, num_heads_local
+        self.res_stage = res_stage
+        self.head_levels = tuple(head_levels)
+        self.compute_dtype = compute_dtype
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
+        self.backbone = FPN(ResNet(depth, out_features=fpn_in), fpn_in,
+                            [_CHANNELS[k] for k in fpn_in], hidden_dim)
+        self.head = DynamicHead(
+            num_classes=num_classes, d_model=hidden_dim, num_heads=num_heads,
+            num_heads_local=num_heads_local, global_stages=res_stage,
+            global_enable=global_enable,
+            top_k=(min(75, num_proposals), min(25, num_proposals)),
+            dtype=compute_dtype)
+
+    @classmethod
+    def from_config(cls, cfg, device=None, dtype=None, seed: int = 0):
+        """Build from a config tree with random weights drawn from ``seed``
+        (load a checkpoint over them with ``load_state_dict``).  ``device``
+        None means the card, and raises without one."""
+        device = resolve_device(device)
+        dd = cfg.MODEL.DiffusionDet
+        if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
+            raise NotImplementedError("the Swin backbone is not ported yet")
+        if cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE:
+            raise NotImplementedError("the local temporal attention is not ported yet")
+        if dtype is None:
+            dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+                     else torch.float32)
+        model = cls(
+            depth=cfg.MODEL.RESNETS.DEPTH, num_classes=dd.NUM_CLASSES,
+            num_proposals=dd.NUM_PROPOSALS, hidden_dim=dd.HIDDEN_DIM,
+            num_heads=dd.NUM_HEADS, num_heads_local=dd.NUM_HEADS_LOCAL,
+            res_stage=cfg.MODEL.VID.MEGA.GLOBAL.RES_STAGE,
+            global_enable=bool(cfg.MODEL.VID.MEGA.GLOBAL.ENABLE),
+            fpn_in=tuple(cfg.MODEL.FPN.IN_FEATURES),
+            head_levels=tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES),
+            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+            pixel_std=tuple(cfg.MODEL.PIXEL_STD), compute_dtype=dtype)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        return model.to(device).eval()
+
+    def reset_parameters(self, gen: torch.Generator):
+        self.backbone.reset_parameters(gen)
+        self.head.reset_parameters(gen)
+
+    @property
+    def spatial_scales(self):
+        return tuple(1.0 / (2 ** int(lvl[1:])) for lvl in self.head_levels)
+
+    def extract_features(self, images):
+        """images [B, H, W, 3] in 0..255 → list of NHWC head-level maps.
+        The NCHW view of NHWC frames is channels-last, so the convolutions
+        run channels-last and the NHWC view of each output is contiguous."""
+        x = ((images - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
+        pyr = self.backbone(x.permute(0, 3, 1, 2))
+        return [pyr[lvl].permute(0, 2, 3, 1).contiguous() for lvl in self.head_levels]
+
+    def extract_proposals(self, feats, boxes_init, t):
+        """Shared stages + top-k on ready FPN maps (the per-chunk
+        feature-extraction pass, diffusion_det.py:436-460)."""
+        inter_logits, inter_boxes, pro, _ = self.head.shared_stages(
+            feats, self.spatial_scales, boxes_init, t)
+        k1, k2 = self.head.topk_features(inter_logits[-1], pro)
+        return inter_logits[-1].float(), inter_boxes[-1].float(), pro, k1, k2
+
+    def refine(self, feats, bboxes, pro_features, t, memory, memory_mask,
+               memory_dis=None, memory_dis_mask=None):
+        """Global cross-attention + the conditioned stage (one DDIM model
+        call on the chunk, diffusion_det.py:551-557)."""
+        logits, boxes, pro = self.head.condition(
+            feats, self.spatial_scales, bboxes, pro_features, t, memory,
+            memory_mask, memory_dis=memory_dis, memory_dis_mask=memory_dis_mask)
+        return logits[-1].float(), boxes[-1].float(), pro

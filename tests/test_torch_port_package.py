@@ -1,0 +1,99 @@
+"""The port stands alone: no JAX import anywhere in it, it imports with JAX
+blocked, its config loads the repository's YAMLs as the JAX package does,
+and its entry points refuse to fall back to the CPU without being asked."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from diffusionvid_tpu.config import load_config as jax_load_config
+
+from diffusionvid_torch.config import load_config
+from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+from diffusionvid_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffusionvid_tpu")
+PORT_FILES = sorted((ROOT / "diffusionvid_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthetic.yaml"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_imports_with_jax_blocked():
+    mods = sorted("diffusionvid_torch." + ".".join(p.relative_to(ROOT / "diffusionvid_torch")
+                                                   .with_suffix("").parts)
+                  for p in (ROOT / "diffusionvid_torch").rglob("*.py")
+                  if p.name != "__init__.py")
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+            f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _leaves(node, prefix=""):
+    for k, v in node.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.parametrize("cfg_file", CONFIGS)
+def test_config_matches_jax_package(cfg_file):
+    cfg = load_config(str(ROOT / cfg_file))
+    ref = dict(_leaves(jax_load_config(str(ROOT / cfg_file))))
+    shared = {k: v for k, v in _leaves(cfg) if k in ref and k != "MODEL.DEVICE"}
+    assert len(shared) > 50
+    for k, v in shared.items():
+        assert v == ref[k], k
+
+
+def test_entry_point_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(str(ROOT / CONFIGS[1]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiffusionDetArch.from_config(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DiffusionDetArch.from_config(cfg, device="cuda")
+
+
+def test_from_config_on_cpu():
+    cfg = load_config(str(ROOT / CONFIGS[1]))
+    model = DiffusionDetArch.from_config(cfg, device="cpu")
+    assert model.compute_dtype == torch.float32
+    assert len(model.head.head_series) == 1 and len(model.head.head_series_cond) == 1
+    assert model.head.top_k == (50, 25)
+    flagship = load_config(str(ROOT / CONFIGS[0]))
+    assert flagship.TPU.COMPUTE_DTYPE == "bfloat16"
+    assert flagship.MODEL.DiffusionDet.NUM_HEADS == 3
+
+
+def test_kernel_sources_and_build_target():
+    """Every kernel source has its library name keyed by a content hash,
+    inside the repository's git-ignored build directory."""
+    assert _build.sources() == ["dynamic_conv", "roi_align_fwd"]
+    for name in _build.sources():
+        target = _build._target(name)
+        assert target.parent == ROOT / "build" / "diffusionvid_torch"
+        assert target.name.startswith(f"lib{name}-") and target.suffix == ".so"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()

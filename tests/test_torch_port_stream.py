@@ -1,0 +1,113 @@
+"""The whole x1 streaming slice against the JAX ``StreamingDetector``.
+
+A depth-18 model (16 proposals, 1 shared + 1 conditioned stage) on 64x96
+frames, infer_batch 2, memories of 16/8 slots.  The weights are carried with
+``state_dict_from_jax``; the port's noise method is handed the JAX
+package's own draws, recomputed from its key splits (``split(state.rng)``
+per global chunk in ``_update_memory``, ``split(state.rng, 4)`` per chunk in
+``_detect_chunk``).  The JAX side runs under ``jax.disable_jit()``.  Frame by
+frame, boxes and scores agree to < 1e-3 relative, labels and keep masks are
+equal, and both memories agree after ``start_video``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from diffusionvid_tpu.engine.streaming import StreamingDetector as JaxDetector
+
+from diffusionvid_torch.engine.streaming import StreamingDetector
+from test_torch_port_weights import H, PROPS, W, jax_model_and_params, port_model, rel_err
+
+KW = dict(infer_batch=2, mem_size=16, mem_dis_size=8, num_proposals=PROPS,
+          detections_per_img=PROPS)
+SEED = 7
+
+
+def _jax_draws(n_global_chunks: int, n_chunks: int, f: int):
+    """The box noise the JAX detector draws, in call order."""
+    key = jax.random.PRNGKey(SEED)
+    draws = []
+    for _ in range(n_global_chunks):
+        key, r = jax.random.split(key)
+        draws.append(np.asarray(jax.random.normal(r, (f, PROPS, 4))))
+    for _ in range(n_chunks):
+        key, r_extract, _, _ = jax.random.split(key, 4)
+        draws.append(np.asarray(jax.random.normal(r_extract, (f, PROPS, 4))))
+    return draws
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jmodel, variables = jax_model_and_params()
+    rng = np.random.RandomState(5)
+    gframes = rng.uniform(0, 255, (3, H, W, 3)).astype(np.float32)   # 2 chunks, tail padded
+    chunks = [rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32) for _ in range(2)]
+    whwh = np.asarray([W, H, W, H], np.float32)
+
+    jdet = JaxDetector(jmodel, variables, **KW)
+    with jax.disable_jit():
+        jstate = jdet.start_video(jax.random.PRNGKey(SEED), jnp.asarray(gframes),
+                                  jnp.asarray(whwh))
+        jmem = (jstate.mem, jstate.mem_dis)
+        jdets = []
+        for c in chunks:
+            jstate, d = jdet.process_chunk(jstate, jnp.asarray(c), jnp.asarray(whwh))
+            jdets.append(d)
+
+    det = StreamingDetector(port_model(jmodel, variables), **KW)
+    draws = iter(_jax_draws(2, len(chunks), 2))
+    det.noise = lambda state, shape: torch.from_numpy(np.array(next(draws))).reshape(shape)
+    state = det.start_video(SEED, gframes, whwh)
+    mem = (state.mem, state.mem_dis)
+    dets = []
+    for c in chunks:
+        state, d = det.process_chunk(state, c, whwh)
+        dets.append(d)
+    return jmem, jdets, mem, dets
+
+
+def test_memory_after_start_video(runs):
+    jmem, _, mem, _ = runs
+    for (jm, m) in zip(jmem, mem):
+        assert m.count == int(jm.count)
+        assert rel_err(m.feats.numpy(), jm.feats) < 1e-3
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_detections_frame_by_frame(runs, chunk):
+    _, jdets, _, dets = runs
+    jd, d = jdets[chunk], dets[chunk]
+    for f in range(d.boxes.shape[0]):
+        assert rel_err(d.scores[f], jd.scores[f]) < 1e-3, f"frame {f} scores"
+        assert rel_err(d.boxes[f], jd.boxes[f]) < 1e-3, f"frame {f} boxes"
+        np.testing.assert_array_equal(d.labels[f].numpy(), np.asarray(jd.labels[f]))
+        np.testing.assert_array_equal(d.valid[f].numpy(), np.asarray(jd.valid[f]))
+
+
+def test_fold_topk_vs_jax():
+    """With STOP_UPDATE_AFTER_INIT_TEST off, each chunk's top-k features of
+    the valid frames fold into both memories (``_fold_topk``)."""
+    from diffusionvid_tpu.engine.streaming import StreamState as JaxState
+    from diffusionvid_tpu.ops.memory import FeatureMemory as JaxMemory
+
+    from diffusionvid_torch.engine.streaming import StreamState
+    from diffusionvid_torch.ops.memory import FeatureMemory
+
+    rng = np.random.RandomState(9)
+    k1, k2 = rng.randn(2, 16, 32).astype(np.float32), rng.randn(2, 8, 32).astype(np.float32)
+    mems = [(np.pad(rng.randn(n, 32), ((0, cap - n), (0, 0))).astype(np.float32), n)
+            for cap, n in ((16, 5), (8, 3))]
+    want = JaxDetector._fold_topk(
+        None, JaxState(*[JaxMemory(jnp.asarray(m), jnp.asarray(n, jnp.int32)) for m, n in mems],
+                       jax.random.PRNGKey(0)),
+        jnp.asarray(k1), jnp.asarray(k2), 1)
+    got = StreamingDetector._fold_topk(
+        None, StreamState(*[FeatureMemory(torch.from_numpy(m), n) for m, n in mems], None),
+        torch.from_numpy(k1), torch.from_numpy(k2), 1)
+    for g, w in ((got.mem, want.mem), (got.mem_dis, want.mem_dis)):
+        assert g.count == int(w.count)
+        np.testing.assert_allclose(g.feats.numpy(), np.asarray(w.feats), atol=1e-6)

@@ -1,0 +1,101 @@
+"""The port's weight carry-over: JAX parameter tree → the port's state dict.
+
+``convert_torch_state_dict(state_dict_from_jax(tree))`` must give back the
+tree leaf for leaf with nothing unmatched, and the port's model must load
+the state dict with ``strict=True``.  ``jax_model_and_params`` and
+``port_model`` build the small JAX/port pair the other port tests share.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from diffusionvid_tpu.models.diffusion_det import DiffusionDetArch as JaxArch
+from diffusionvid_tpu.utils.torch_convert import convert_torch_state_dict
+
+from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+from diffusionvid_torch.utils.convert import state_dict_from_jax
+
+H, W, PROPS = 64, 96, 16
+
+
+def jax_model_and_params(depth=18, num_classes=5, num_heads=1,
+                         num_heads_local=1, res_stage=1, seed=0):
+    """A small fp32 JAX DiffusionDetArch initialised with ``jax.jit``."""
+    model = JaxArch(depth=depth, num_classes=num_classes, num_proposals=PROPS,
+                    num_heads=num_heads, num_heads_local=num_heads_local,
+                    res_stage=res_stage, compute_dtype=jnp.float32)
+    noisy = jnp.tile(jnp.asarray([8.0, 8.0, 60.0, 40.0]), (2, PROPS, 1))
+    init = jax.jit(lambda r: model.init(
+        {"params": r, "cfg": jax.random.PRNGKey(1)}, jnp.zeros((2, H, W, 3)),
+        noisy, jnp.zeros((2,), jnp.int32), num_global=1, train=False))
+    # He fan-out init shrinks the trunk's activations stage by stage, and
+    # near-zero FPN maps make every proposal's features alike (the memory's
+    # FPS then chooses between near-ties).  Rescale each conv to fan-in
+    # variance so the maps stay O(1); both sides get the same weights.
+    # The head's biases and LayerNorm affines start at zeros/ones, so every
+    # proposal feature would have the norm sqrt(D) and the FPS step from the
+    # empty memory's zero slot would pick among exact ties; perturb them.
+    noise = np.random.RandomState(seed)
+
+    def rescale(path, a):
+        a = np.array(a)
+        if a.ndim == 4:
+            return a * np.float32(np.sqrt(a.shape[0] / a.shape[1]))
+        if a.ndim == 1 and "head" in str(path[1]):
+            return a + np.float32(0.2) * noise.randn(*a.shape).astype(np.float32)
+        return a
+
+    return model, jax.tree_util.tree_map_with_path(rescale, init(jax.random.PRNGKey(seed)))
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-6)
+
+
+def port_model(jmodel, variables):
+    """The port's CPU fp32 model with the JAX weights loaded strictly."""
+    model = DiffusionDetArch(
+        depth=jmodel.depth, num_classes=jmodel.num_classes, num_proposals=jmodel.num_proposals,
+        num_heads=jmodel.num_heads, num_heads_local=jmodel.num_heads_local,
+        res_stage=jmodel.res_stage, compute_dtype=torch.float32)
+    model.load_state_dict(state_dict_from_jax(variables["params"]), strict=True)
+    return model.eval()
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["res_stage1", "res_stage2"])
+def pair(request):
+    return jax_model_and_params(res_stage=request.param)
+
+
+def test_round_trip_leaf_for_leaf(pair):
+    _, variables = pair
+    tree = variables["params"]
+    state = {k: v.numpy() for k, v in state_dict_from_jax(tree).items()}
+    back = convert_torch_state_dict(state)["params"]
+    assert "_unmatched" not in back, back.get("_unmatched")
+    want = jax.tree_util.tree_flatten_with_path(tree)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(want)
+    for path, leaf in want:
+        assert path in got, path
+        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
+
+
+def test_strict_load_and_names(pair):
+    jmodel, variables = pair
+    model = port_model(jmodel, variables)
+    names = set(model.state_dict())
+    assert "backbone.bottom_up.stem.conv1.norm.running_var" in names
+    assert "backbone.bottom_up.res5.0.shortcut.weight" in names
+    assert "backbone.fpn_output3.bias" in names
+    assert "head.head_series.0.inst_interact.dynamic_layer.weight" in names
+    assert "head.head_series_cond.0.c_mlp.1.weight" in names
+    assert "head.head_series.0.reg_module.7.bias" in names
+    assert f"head.global_attention.{jmodel.res_stage - 1}.0.out_proj.weight" in names
+    assert "head.time_mlp.3.weight" in names
