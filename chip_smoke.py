@@ -6,28 +6,36 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (``nvidia-smi``); fails
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
-  3. kernels  each kernel of the main path against its plain PyTorch
-              version at the flagship shapes, in bfloat16 and float32, with
-              the tolerance stated; times the kernel, the plain version and
-              the bound from bytes and flops;
-  4. tiny     a depth-18 model on 64x96 frames through the whole x1
-              streaming path, once on the card through the kernels and
-              once on the CPU through the plain versions, same weights and
-              noise, float32, TF32 off;
+  3. kernels  each kernel against its plain PyTorch version at the shapes
+              of the flagship paths, in bfloat16 and float32, with the
+              tolerance stated; times the kernel, the plain version and the
+              bound from bytes and flops.  The Swin half-blocks (K4, K5) run
+              at the four Swin-B stage maps of 608x1024, 4 frames, with
+              shift 0 and 3 (masked) and the true valid sizes; their line
+              holds the per-stage numbers, and their ``ms`` and ``bound_ms``
+              are means per launch over one backbone pass (stage depths
+              2, 2, 18, 2);
+  4. tiny     a depth-18 model, then a Swin-T model, on 64x96 frames
+              through the whole x1 streaming path, once on the card through
+              the kernels and once on the CPU through the plain versions,
+              same weights and noise, float32, TF32 off;
   5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
-              finite outputs and the kernels' launch counts, prints fps and
-              peak memory.
-Then the ``kernels`` line (every kernel with its launches on the main path,
-error against its plain version, times and bound), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
-check exits nonzero before that line.  Needs the repository beside it.
+              finite outputs and the kernels' launch counts, prints fps,
+              peak memory and one chunk's device time by kernel;
+  6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
+              24 global frames then 6 chunks of 4 frames at 608x1024.
+Then the ``kernels`` line (every kernel with its launches on its flagship
+path, error against its plain version, times and bound), the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
+failed check exits nonzero before that line.  Needs the repository beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -44,6 +52,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 FLAGSHIP = dict(frames=8, h=608, w=1024, props=300, c=256)
+# Swin-B at 608x1024 over a 4-frame chunk: per stage the valid map, the
+# channels, the heads and the blocks
+SWIN_B_STAGES = [dict(hw=(152, 256), c=128, heads=4, depth=2),
+                 dict(hw=(76, 128), c=256, heads=8, depth=2),
+                 dict(hw=(38, 64), c=512, heads=16, depth=18),
+                 dict(hw=(19, 32), c=1024, heads=32, depth=2)]
+SWIN_FRAMES = 4
+# Swin-T's stage maps at 64x96 over 2 frames: the other widths the kernels
+# are built for, checked but not timed
+SWIN_T_STAGES = [dict(hw=(16, 24), c=96, heads=3), dict(hw=(8, 12), c=192, heads=6),
+                 dict(hw=(4, 6), c=384, heads=12), dict(hw=(2, 3), c=768, heads=24)]
 
 
 class SmokeFailure(RuntimeError):
@@ -189,6 +208,114 @@ def kernel_k2(gen, dev, dtype, timing: bool):
     return res
 
 
+def _swin_inputs(gen, dev, dtype, st, frames):
+    """One stage's residual map (random over the pad region too) and
+    half-block weights; the matrices already in ``dtype``."""
+    h, w = st["hw"]
+    c, heads = st["c"], st["heads"]
+    hp, wp = -(-h // 7) * 7, -(-w // 7) * 7
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    x = rn(frames, hp, wp, c).to(dev, dtype)
+    attn = [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(3 * c, c, scale=c ** -0.5),
+            rn(3 * c, scale=0.1), rn(heads, 49, 49, scale=0.5), rn(c, c, scale=c ** -0.5),
+            rn(c, scale=0.1)]
+    mlp = [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(4 * c, c, scale=c ** -0.5),
+           rn(4 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1)]
+    attn = [t.to(dev, dtype if t.dim() == 2 else torch.float32) for t in attn]
+    mlp = [t.to(dev, dtype if t.dim() == 2 else torch.float32) for t in mlp]
+    return x, attn, mlp, (hp, wp)
+
+
+def _pass_means(rows, keys):
+    """Means per launch over one backbone pass: each row weighted by the
+    blocks of the pass it stands for."""
+    total = sum(r["blocks"] for r in rows)
+    return {k: sum(r[k] * r["blocks"] for r in rows) / total for k in keys}
+
+
+def _swin_check(name, gen, dev, dtype, timing: bool):
+    """K4 or K5 at the four Swin-B stage maps, then at Swin-T's, against
+    the plain version; K4 with shift 0 and 3.  Returns the worst error, the
+    per-stage rows and, with ``timing``, the means of ms, plain ms and
+    bound over one Swin-B pass."""
+    from diffusionvid_torch.models.swin import shift_attn_mask
+    from diffusionvid_torch.ops.swin_attention import (
+        swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+    # fp32: the same fp32 sums in another order, over up to 4096 terms.
+    # bf16: TOLERANCE_BF16 below.
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    rows, worst = [], 0.0
+    stages = [(st, SWIN_FRAMES) for st in SWIN_B_STAGES] + [(st, 2) for st in SWIN_T_STAGES]
+    for s, (st, frames) in enumerate(stages):
+        timed = timing and s < len(SWIN_B_STAGES)
+        x, attn, mlp, (hp, wp) = _swin_inputs(gen, dev, dtype, st, frames)
+        c, heads = st["c"], st["heads"]
+        m = x.numel() // c
+        shifts = (0, 3) if name == "swin_block_attn" else (0,)
+        for shift in shifts:
+            if name == "swin_block_attn":
+                mask = None
+                if shift:
+                    mask = torch.from_numpy(shift_attn_mask(hp, wp, 7, shift)).to(dev).reshape(
+                        hp // 7, wp // 7, 49, 49)
+                args = (x, *attn[:5], mask, *attn[5:], 7, heads, st["hw"], shift)
+                fn, ref = swin_block_attn, swin_block_attn_ref
+                flops = 2 * m * c * 4 * c + 4 * m * 49 * c
+                nbytes = (2 * x.numel() + 4 * c * c) * elt + (6 * c + heads * 2401) * 4 \
+                    + (0 if mask is None else mask.numel() * 4)
+            else:
+                args = (x, *mlp)
+                fn, ref = swin_block_mlp, swin_block_mlp_ref
+                flops = 16 * m * c * c
+                nbytes = (2 * x.numel() + 8 * c * c) * elt + 7 * c * 4
+            got = fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            what = f"{name} {dtype} stage {s} shift {shift}"
+            res = compare(got, want, *tol, what)
+            res["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
+            require(res["mean_abs_err"] < MEAN_ERR[dtype],
+                    f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
+            res.update(stage=s, shape=list(x.shape), shift=shift)
+            worst = max(worst, res["max_abs_err"])
+            del got, want
+            if timed:
+                # half of a stage's blocks shift, the other half do not
+                res["blocks"] = st["depth"] / len(shifts)
+                res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
+                res["bound_ms_bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+                res["gflop"] = flops / 1e9
+                res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
+                res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
+            rows.append(res)
+        del x, attn, mlp
+        torch.cuda.empty_cache()
+    out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows}
+    if timing:
+        out.update(_pass_means([r for r in rows if "blocks" in r],
+                               ("ms", "plain_ms", "bound_ms", "bound_ms_bytes")))
+        out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
+                           else "operations")
+    return out
+
+
+# bf16 kernel vs plain version on the card, same inputs: both round at the
+# same points, but their fp32 sums run in other orders, so an intermediate
+# next to a bf16 rounding boundary (an LN output, a score, a probability, a
+# hidden activation) may round the other way and carry a one-step change
+# downstream.  The output, of magnitude up to about 6, then differs by one
+# or two bf16 steps (2^-5 at 4 to 8) at a few elements: 6e-2 abs + 2^-6 rel
+# allows two.  The mean error over a map stays far below one step (about
+# 1e-5 measured); a mean bound of 1e-3 catches an error that is small but
+# everywhere, as a misplaced bias would be.
+TOLERANCE_BF16 = {"swin_block_attn": (6e-2, 2 ** -6), "swin_block_mlp": (6e-2, 2 ** -6)}
+MEAN_ERR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
 KERNELS = {
     "roi_align_fwd": dict(
         route="cuda", source="diffusionvid_torch/csrc/roi_align_fwd.cu",
@@ -196,14 +323,25 @@ KERNELS = {
     "dynamic_conv": dict(
         route="cuda", source="diffusionvid_torch/csrc/dynamic_conv.cu",
         replaces="diffusionvid_tpu/ops/dynamic_conv_pallas.py:148", check=kernel_k2),
+    "swin_block_attn": dict(
+        route="cuda", source="diffusionvid_torch/csrc/swin_block_attn.cu",
+        replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:372",
+        check=functools.partial(_swin_check, "swin_block_attn")),
+    "swin_block_mlp": dict(
+        route="cuda", source="diffusionvid_torch/csrc/swin_block_mlp.cu",
+        replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:424",
+        check=functools.partial(_swin_check, "swin_block_mlp")),
 }
 
 
 def launch_counters():
     from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused
     from diffusionvid_torch.ops.roi_align import multilevel_roi_align
+    from diffusionvid_torch.ops.swin_attention import swin_block_attn, swin_block_mlp
     return {"roi_align_fwd": multilevel_roi_align,
-            "dynamic_conv": dynamic_conv_fused}
+            "dynamic_conv": dynamic_conv_fused,
+            "swin_block_attn": swin_block_attn,
+            "swin_block_mlp": swin_block_mlp}
 
 
 def reset_launches():
@@ -245,26 +383,37 @@ def _run_stream(det, noise, gframes, chunks, whwh):
     return state, outs
 
 
-def phase_tiny(seed: int):
-    """Depth 18, 16 proposals, 64x96 frames, float32, TF32 off: the card
-    (kernels) against the CPU (plain versions), same weights and noise."""
+def _tiny_model(kind: str, gen, props: int):
+    """A small fp32 model: depth-18 ResNet or Swin-T, 5 classes."""
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    kw = dict(num_classes=5, num_proposals=props, num_heads=1, num_heads_local=1,
+              compute_dtype=torch.float32)
+    if kind == "swin":
+        kw.update(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
+    model = DiffusionDetArch(depth=18, **kw)
+    model.reset_parameters(gen)
+    with torch.no_grad():   # varied LayerNorm affines and biases: proposal
+        for name, p in model.named_parameters():   # features of unequal norm
+            if p.dim() == 1 and (name.startswith("head.") or kind == "swin"):
+                p.add_(0.2 * torch.randn(p.shape, generator=gen))
+            if name.endswith("relative_position_bias_table"):
+                p.mul_(25.0)
+    return model.eval()
+
+
+def phase_tiny(seed: int, kind: str):
+    """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, 16
+    proposals, 64x96 frames, float32, TF32 off: the card (kernels) against
+    the CPU (plain versions), same weights and noise."""
     import copy
 
     from diffusionvid_torch.engine.streaming import StreamingDetector
-    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(seed)
     h, w, props = 64, 96, 16
-    cpu = DiffusionDetArch(depth=18, num_classes=5, num_proposals=props, num_heads=1,
-                           num_heads_local=1, compute_dtype=torch.float32)
-    cpu.reset_parameters(gen)
-    with torch.no_grad():   # varied LayerNorm affines: proposal features of unequal norm
-        for name, p in cpu.head.named_parameters():
-            if p.dim() == 1:
-                p.add_(0.2 * torch.randn(p.shape, generator=gen))
-    cpu.eval()
+    cpu = _tiny_model(kind, gen, props)
     card = copy.deepcopy(cpu).cuda()
     kw = dict(infer_batch=2, mem_size=64, mem_dis_size=32, num_proposals=props,
               detections_per_img=props)
@@ -278,36 +427,38 @@ def phase_tiny(seed: int):
                                  chunks, whwh)
     torch.cuda.synchronize()
     used = read_launches()
-    require(all(n > 0 for n in used.values()), f"tiny card run missed a kernel: {used}")
+    path = ["roi_align_fwd", "dynamic_conv"] + (
+        ["swin_block_attn", "swin_block_mlp"] if kind == "swin" else [])
+    require(all(used[k] > 0 for k in path), f"tiny {kind} card run missed a kernel: {used}")
     p_state, p_out = _run_stream(StreamingDetector(cpu, **kw), noise, gframes,
                                  chunks, whwh)
     require(c_state.mem.count == p_state.mem.count
             and c_state.mem_dis.count == p_state.mem_dis.count, "memory counts differ")
-    res = {"rtol": 1e-3, "launches": used}
+    res = {"backbone": kind, "rtol": 1e-3, "launches": used}
     errs = {"scores": 0.0, "boxes": 0.0, "memory": 0.0}
     for cd, pd in zip(c_out, p_out):
         for key in ("scores", "boxes"):
             g, r = getattr(cd, key).cpu().double(), getattr(pd, key).double()
             errs[key] = max(errs[key], float((g - r).abs().max() / r.abs().max()))
-        require(torch.equal(cd.labels.cpu(), pd.labels), "tiny: labels differ")
-        require(torch.equal(cd.valid.cpu(), pd.valid), "tiny: NMS keep masks differ")
+        require(torch.equal(cd.labels.cpu(), pd.labels), f"tiny {kind}: labels differ")
+        require(torch.equal(cd.valid.cpu(), pd.valid), f"tiny {kind}: NMS keep masks differ")
     for cm, pm in ((c_state.mem, p_state.mem), (c_state.mem_dis, p_state.mem_dis)):
         errs["memory"] = max(errs["memory"], float(
             (cm.feats.cpu() - pm.feats).abs().max() / pm.feats.abs().max()))
     res.update({f"max_rel_err_{k}": v for k, v in errs.items()})
     emit("tiny", **res)
-    require(max(errs.values()) < res["rtol"], f"tiny: card vs CPU over rtol: {errs}")
+    require(max(errs.values()) < res["rtol"], f"tiny {kind}: card vs CPU over rtol: {errs}")
 
 
-def phase_flagship(seed: int) -> dict:
-    """R-101 x1 at full width, bf16: 24 global frames, 3 chunks of 8 at
-    608x1024.  A first pass warms up; the launch counts and times are of
-    the second."""
+def phase_flagship(seed: int, config: str, n_chunks: int, phase: str) -> dict:
+    """A flagship config at full width, bf16: 24 global frames, then
+    ``n_chunks`` chunks of INFER_BATCH frames at 608x1024.  A first pass
+    warms up; the launch counts and times are of the second."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.streaming import StreamingDetector
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
-    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    cfg = load_config(str(ROOT / "configs" / config))
     t0 = time.perf_counter()
     model = DiffusionDetArch.from_config(cfg, seed=seed)
     mega = cfg.MODEL.VID.MEGA
@@ -320,7 +471,7 @@ def phase_flagship(seed: int) -> dict:
         stop_update_after_init=mega.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST)
     build_s = time.perf_counter() - t0
     f, h, w = cfg.INPUT.INFER_BATCH, FLAGSHIP["h"], FLAGSHIP["w"]
-    n_global, n_chunks = mega.GLOBAL.SIZE, 3
+    n_global = mega.GLOBAL.SIZE
     gen = torch.Generator(device="cuda").manual_seed(seed)
     gframes = torch.rand(n_global, h, w, 3, generator=gen, device="cuda") * 255
     chunks = [torch.rand(f, h, w, 3, generator=gen, device="cuda") * 255
@@ -346,24 +497,31 @@ def phase_flagship(seed: int) -> dict:
     t1 = time.perf_counter()
     launches = read_launches()
 
-    want = n_chunks * (len(model.head.head_series) + len(model.head.head_series_cond)) \
-        + -(-n_global // f) * len(model.head.head_series)
+    passes = n_chunks + -(-n_global // f)     # backbone passes
+    want = {"roi_align_fwd": n_chunks * (len(model.head.head_series)
+                                         + len(model.head.head_series_cond))
+            + -(-n_global // f) * len(model.head.head_series)}
+    want["dynamic_conv"] = want["roi_align_fwd"]
+    if model.backbone_type == "swin":
+        blocks = sum(len(layer.blocks) for layer in model.backbone.bottom_up.layers)
+        want["swin_block_attn"] = want["swin_block_mlp"] = blocks * passes
     for name, n in launches.items():
-        require(n == want, f"flagship: {name} launched {n} times, expected {want}")
+        require(n == want.get(name, 0),
+                f"{phase}: {name} launched {n} times, expected {want.get(name, 0)}")
     require(state.mem.count == det.mem_size and state.mem_dis.count == det.mem_dis_size,
-            f"flagship: memory not filled ({state.mem.count}, {state.mem_dis.count})")
-    require(bool(torch.isfinite(state.mem.feats).all()), "flagship: non-finite memory")
+            f"{phase}: memory not filled ({state.mem.count}, {state.mem_dis.count})")
+    require(bool(torch.isfinite(state.mem.feats).all()), f"{phase}: non-finite memory")
     for dets in outs:
         require(tuple(dets.boxes.shape) == (f, det.detections_per_img, 4),
-                f"flagship: boxes shape {tuple(dets.boxes.shape)}")
+                f"{phase}: boxes shape {tuple(dets.boxes.shape)}")
         for key in ("boxes", "scores"):
             require(bool(torch.isfinite(getattr(dets, key)).all()),
-                    f"flagship: non-finite {key}")
+                    f"{phase}: non-finite {key}")
         require(int(dets.labels.min()) >= 1
                 and int(dets.labels.max()) <= cfg.MODEL.DiffusionDet.NUM_CLASSES,
-                "flagship: labels out of range")
-        require(int(dets.valid.sum()) > 0, "flagship: NMS kept nothing")
-    res = {"config": "configs/vid_R_101_DiffusionVID.yaml", "dtype": "bfloat16",
+                f"{phase}: labels out of range")
+        require(int(dets.valid.sum()) > 0, f"{phase}: NMS kept nothing")
+    res = {"config": f"configs/{config}", "dtype": "bfloat16",
            "frames": [n_global, n_chunks * f], "hw": [h, w],
            "launches": launches, "expected_launches": want,
            "model_build_s": build_s, "start_video_s": t_chunks - t0,
@@ -371,14 +529,16 @@ def phase_flagship(seed: int) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "kept_per_frame": float(outs[-1].valid.sum(-1).float().mean()),
            "card": torch.cuda.get_device_name(0)}
-    res.update(profile_chunk(det, state, chunks[0], whwh))
-    emit("flagship", **res)
+    res.update(profile_chunk(det, state, chunks[0], whwh, phase))
+    emit(phase, **res)
+    del det, model, state, outs
+    torch.cuda.empty_cache()
     return launches
 
 
-def profile_chunk(det, state, frames, whwh) -> dict:
+def profile_chunk(det, state, frames, whwh, phase: str) -> dict:
     """Device time of one chunk by kernel name (``torch.profiler``); the
-    full table goes to ``build/chip_smoke/flagship_chunk_profile.txt``."""
+    full table goes to ``build/chip_smoke/<phase>_chunk_profile.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -393,7 +553,7 @@ def profile_chunk(det, state, frames, whwh) -> dict:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "flagship_chunk_profile.txt").write_text(
+    (out_dir / f"{phase}_chunk_profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     return {"profiled_chunk_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
@@ -424,8 +584,12 @@ def main(argv=None) -> int:
                 for k, v in reports.items()})
 
     kernel_rows = phase_kernels(args.seed)
-    phase_tiny(args.seed)
-    launches = phase_flagship(args.seed)
+    phase_tiny(args.seed, "resnet")
+    phase_tiny(args.seed, "swin")
+    launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship")
+    swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
+    for name in ("swin_block_attn", "swin_block_mlp"):
+        launches[name] = swin[name]
 
     line = []
     for name, spec in KERNELS.items():

@@ -35,6 +35,11 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.RESNETS.NORM = "FrozenBN"
     _C.MODEL.RESNETS.OUT_FEATURES = ("res2", "res3", "res4", "res5")
 
+    _C.MODEL.SWIN = CfgNode()
+    _C.MODEL.SWIN.SIZE = "B"
+    _C.MODEL.SWIN.USE_CHECKPOINT = False
+    _C.MODEL.SWIN.OUT_FEATURES = (0, 1, 2, 3)
+
     _C.MODEL.FPN = CfgNode()
     _C.MODEL.FPN.IN_FEATURES = ("res3", "res4", "res5")
     _C.MODEL.FPN.OUT_CHANNELS = 256

@@ -2,9 +2,9 @@
 
 Port of ``diffusionvid_tpu/models/diffusion_det.py``: the cosine schedule
 (buffers derived in float64, cast at the end), DDIM time pairs, the
-signal-space ↔ box-space transforms and ``DiffusionDetArch`` (ResNet + FPN
-+ DynamicHead) with the streaming sub-entrypoints ``extract_features``,
-``extract_proposals`` and ``refine``.
+signal-space ↔ box-space transforms and ``DiffusionDetArch`` (ResNet or
+Swin + FPN + DynamicHead) with the streaming sub-entrypoints
+``extract_features``, ``extract_proposals`` and ``refine``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..utils.device import resolve_device
 from .fpn import FPN
 from .heads import DynamicHead
 from .resnet import ResNet
+from .swin import SwinTransformer
 
 _CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
@@ -84,9 +85,9 @@ def boxes_to_signal(boxes_xyxy, whwh, scale: float):
 
 
 class DiffusionDetArch(nn.Module):
-    """ResNet + FPN + DynamicHead.  ``backbone`` is detectron2's FPN module
-    (``backbone.bottom_up`` the trunk) and ``head`` the decoder, so the
-    state dict has the reference checkpoint's names.
+    """ResNet or Swin + FPN + DynamicHead.  ``backbone`` is detectron2's FPN
+    module (``backbone.bottom_up`` the trunk) and ``head`` the decoder, so
+    the state dict has the reference checkpoint's names.
 
     Parameters are float32; activations run in ``compute_dtype``.  Build
     with ``from_config``, which places the model on the card unless
@@ -96,6 +97,7 @@ class DiffusionDetArch(nn.Module):
                  num_proposals: int = 300, hidden_dim: int = 256,
                  num_heads: int = 3, num_heads_local: int = 1,
                  res_stage: int = 1, global_enable: bool = True,
+                 backbone_type: str = "resnet", swin_size: str = "B-22k",
                  fpn_in=("res3", "res4", "res5"), head_levels=("p3", "p4", "p5"),
                  pixel_mean=(123.675, 116.280, 103.530),
                  pixel_std=(58.395, 57.120, 57.375),
@@ -108,8 +110,15 @@ class DiffusionDetArch(nn.Module):
         self.compute_dtype = compute_dtype
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
-        self.backbone = FPN(ResNet(depth, out_features=fpn_in), fpn_in,
-                            [_CHANNELS[k] for k in fpn_in], hidden_dim)
+        self.backbone_type = backbone_type
+        if backbone_type == "swin":
+            trunk = SwinTransformer.from_size(
+                swin_size, out_indices=tuple(sorted(int(k[4:]) for k in fpn_in)))
+            channels = [trunk.dims[int(k[4:])] for k in fpn_in]
+        else:
+            trunk = ResNet(depth, out_features=fpn_in)
+            channels = [_CHANNELS[k] for k in fpn_in]
+        self.backbone = FPN(trunk, fpn_in, channels, hidden_dim)
         self.head = DynamicHead(
             num_classes=num_classes, d_model=hidden_dim, num_heads=num_heads,
             num_heads_local=num_heads_local, global_stages=res_stage,
@@ -124,8 +133,7 @@ class DiffusionDetArch(nn.Module):
         None means the card, and raises without one."""
         device = resolve_device(device)
         dd = cfg.MODEL.DiffusionDet
-        if "swin" in cfg.MODEL.BACKBONE.NAME.lower():
-            raise NotImplementedError("the Swin backbone is not ported yet")
+        is_swin = "swin" in cfg.MODEL.BACKBONE.NAME.lower()
         if cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE:
             raise NotImplementedError("the local temporal attention is not ported yet")
         if dtype is None:
@@ -137,6 +145,8 @@ class DiffusionDetArch(nn.Module):
             num_heads=dd.NUM_HEADS, num_heads_local=dd.NUM_HEADS_LOCAL,
             res_stage=cfg.MODEL.VID.MEGA.GLOBAL.RES_STAGE,
             global_enable=bool(cfg.MODEL.VID.MEGA.GLOBAL.ENABLE),
+            backbone_type="swin" if is_swin else "resnet",
+            swin_size=cfg.MODEL.SWIN.SIZE if is_swin else "B-22k",
             fpn_in=tuple(cfg.MODEL.FPN.IN_FEATURES),
             head_levels=tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES),
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
@@ -154,10 +164,16 @@ class DiffusionDetArch(nn.Module):
 
     def extract_features(self, images):
         """images [B, H, W, 3] in 0..255 → list of NHWC head-level maps.
-        The NCHW view of NHWC frames is channels-last, so the convolutions
-        run channels-last and the NHWC view of each output is contiguous."""
+        The NCHW view of NHWC maps is channels-last, so the convolutions
+        run channels-last and the NHWC view of each output is contiguous.
+        The Swin trunk takes and gives NHWC maps; the FPN their NCHW views."""
         x = ((images - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
-        pyr = self.backbone(x.permute(0, 3, 1, 2))
+        trunk = self.backbone.bottom_up
+        if self.backbone_type == "swin":
+            feats = {k: v.permute(0, 3, 1, 2) for k, v in trunk(x).items()}
+        else:
+            feats = trunk(x.permute(0, 3, 1, 2))
+        pyr = self.backbone(feats)
         return [pyr[lvl].permute(0, 2, 3, 1).contiguous() for lvl in self.head_levels]
 
     def extract_proposals(self, feats, boxes_init, t):

@@ -1,9 +1,9 @@
-"""Feature Pyramid Network over the ResNet trunk (detectron2 layout).
+"""Feature Pyramid Network over a ResNet or Swin trunk (detectron2 layout).
 
 Port of ``diffusionvid_tpu/models/fpn.py``: lateral 1x1 + nearest-2x
-top-down sum + 3x3 output, p3–p5 from res3–res5.  Like detectron2's FPN
-module it owns the trunk as ``bottom_up``, so its tensors are named
-``backbone.bottom_up.*`` and ``backbone.fpn_{lateral,output}{level}.*``.
+top-down sum + 3x3 output, p3–p5 from res3–res5 or swin1–swin3.  Like
+detectron2's FPN module it owns the trunk as ``bottom_up``, so its tensors
+are named ``backbone.bottom_up.*`` and ``backbone.fpn_{lateral,output}{level}.*``.
 The LastLevelMaxPool p6 is not built: the head reads p3–p5 only.
 """
 
@@ -15,16 +15,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import RESNET_FEATURE_STRIDES, Conv2d, ResNet
+from .resnet import RESNET_FEATURE_STRIDES, Conv2d
+from .swin import SWIN_FEATURE_STRIDES
+
+FEATURE_STRIDES = {**RESNET_FEATURE_STRIDES, **SWIN_FEATURE_STRIDES}
 
 
 class FPN(nn.Module):
-    def __init__(self, bottom_up: ResNet, in_features=("res3", "res4", "res5"),
+    def __init__(self, bottom_up: nn.Module, in_features=("res3", "res4", "res5"),
                  in_channels=(512, 1024, 2048), out_channels: int = 256):
         super().__init__()
         self.bottom_up = bottom_up
         self.in_features = tuple(in_features)
-        self.levels = [int(math.log2(RESNET_FEATURE_STRIDES[k])) for k in self.in_features]
+        self.levels = [int(math.log2(FEATURE_STRIDES[k])) for k in self.in_features]
         for lvl, cin in zip(self.levels, in_channels):
             self.add_module(f"fpn_lateral{lvl}", Conv2d(cin, out_channels, 1, bias=True))
             self.add_module(f"fpn_output{lvl}",
@@ -40,9 +43,8 @@ class FPN(nn.Module):
                     conv.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
                     conv.bias.zero_()
 
-    def forward(self, x) -> dict:
-        """x NCHW → {"p<level>": NCHW map}."""
-        feats = self.bottom_up(x)
+    def forward(self, feats: dict) -> dict:
+        """The trunk's NCHW maps by name → {"p<level>": NCHW map}."""
         xs = [feats[k] for k in self.in_features]
         outs = [None] * len(xs)
         prev = getattr(self, f"fpn_lateral{self.levels[-1]}")(xs[-1])

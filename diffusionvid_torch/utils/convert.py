@@ -5,15 +5,24 @@ The JAX package stores every parameter in torch layout (conv weights
 carry-over is renaming only: the inverse of the JAX package's
 ``utils/torch_convert.py: convert_torch_state_dict``, onto the reference's
 detectron2/DiffusionDet names that the port's modules carry.
+
+The reference's Swin checkpoints also hold each block's
+``attn.relative_position_index``, a buffer the JAX package recomputes
+instead of storing.  ``state_dict_from_jax`` fills it from the index
+function, so the port's state dict has every tensor of a reference
+checkpoint and both load with ``strict=True``.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict
 
 import numpy as np
 import torch
+
+from ..models.swin import relative_position_index
 
 
 def _flatten(tree, prefix=()):
@@ -41,9 +50,45 @@ def _rcnn_head_name(path) -> str:
     return ".".join(path)   # inst_interact.*, linear1/2, norm1..3, bboxes_delta
 
 
+_SWIN_ATTN = {"qkv_weight": "qkv.weight", "qkv_bias": "qkv.bias",
+              "proj_weight": "proj.weight", "proj_bias": "proj.bias",
+              "relative_position_bias_table": "relative_position_bias_table"}
+
+
+def _swin_name(path) -> str | None:
+    """One Swin-trunk tree path (below ``backbone``) → its name below
+    ``backbone.bottom_up``, or None."""
+    mod = path[0]
+    if mod in ("patch_embed_weight", "patch_embed_bias"):
+        return f"patch_embed.proj.{mod[len('patch_embed_'):]}"
+    if mod == "patch_norm":
+        return f"patch_embed.norm.{path[1]}"
+    if re.fullmatch(r"norm\d", mod):
+        return f"{mod}.{path[1]}"
+    m = re.fullmatch(r"layers(\d)\.downsample", mod)
+    if m:
+        leaf = "reduction.weight" if path[1] == "reduction_weight" else f"norm.{path[2]}"
+        return f"layers.{m.group(1)}.downsample.{leaf}"
+    m = re.fullmatch(r"layers(\d)\.blocks(\d+)", mod)
+    if m:
+        block = f"layers.{m.group(1)}.blocks.{m.group(2)}"
+        sub = path[1]
+        if sub in ("norm1", "norm2"):
+            return f"{block}.{sub}.{path[2]}"
+        if sub == "attn":
+            return f"{block}.attn.{_SWIN_ATTN[path[2]]}"
+        mm = re.fullmatch(r"mlp_(fc[12])_(weight|bias)", sub)
+        if mm:
+            return f"{block}.mlp.{mm.group(1)}.{mm.group(2)}"
+    return None
+
+
 def _torch_name(path, fpn_levels) -> str:
     top = path[0]
     if top == "backbone":
+        swin = _swin_name(path[1:])
+        if swin is not None:
+            return "backbone.bottom_up." + swin
         mod = path[1]
         if mod in ("conv1", "bn1"):
             leaf = path[2]
@@ -77,7 +122,15 @@ def _torch_name(path, fpn_levels) -> str:
 
 def state_dict_from_jax(params, fpn_levels=(3, 4, 5)) -> Dict[str, torch.Tensor]:
     """JAX ``DiffusionDetArch`` parameter tree (``{"params": ...}`` or the
-    bare tree, leaves array-like) → the port's state dict (float32)."""
+    bare tree, leaves array-like) → the port's state dict (float32 tensors,
+    and each Swin block's int64 ``relative_position_index``)."""
     tree = params.get("params", params)
-    return {_torch_name(path, fpn_levels): torch.from_numpy(np.array(v, np.float32))
-            for path, v in _flatten(tree)}
+    state = {}
+    for path, v in _flatten(tree):
+        name = _torch_name(path, fpn_levels)
+        state[name] = torch.from_numpy(np.array(v, np.float32))
+        if name.endswith(".attn.relative_position_bias_table"):
+            window = (math.isqrt(v.shape[0]) + 1) // 2
+            state[name.replace("_bias_table", "_index")] = torch.from_numpy(
+                relative_position_index(window))
+    return state

@@ -19,7 +19,8 @@ from diffusionvid_torch.ops import _build
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffusionvid_tpu")
 PORT_FILES = sorted((ROOT / "diffusionvid_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthetic.yaml"]
+CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthetic.yaml",
+           "configs/vid_Swin_B_DiffusionVID.yaml"]
 
 
 def _imported_roots(path: Path):
@@ -88,10 +89,29 @@ def test_from_config_on_cpu():
     assert flagship.MODEL.DiffusionDet.NUM_HEADS == 3
 
 
+def test_from_config_builds_swin_b_on_cpu():
+    """The Swin-B flagship: Swin-B trunk (embed 128, depths 2/2/18/2),
+    FPN over swin1..3 into p3..p5, bf16 activations."""
+    from diffusionvid_torch.models.swin import SwinTransformer
+    cfg = load_config(str(ROOT / CONFIGS[2]))
+    model = DiffusionDetArch.from_config(cfg, device="cpu")
+    trunk = model.backbone.bottom_up
+    assert isinstance(trunk, SwinTransformer) and model.backbone_type == "swin"
+    assert [len(layer.blocks) for layer in trunk.layers] == [2, 2, 18, 2]
+    assert trunk.dims == [128, 256, 512, 1024] and trunk.out_indices == (1, 2, 3)
+    assert model.backbone.levels == [3, 4, 5]
+    assert [getattr(model.backbone, f"fpn_lateral{lvl}").weight.shape[1]
+            for lvl in (3, 4, 5)] == [256, 512, 1024]
+    assert model.compute_dtype == torch.bfloat16
+    assert next(model.parameters()).device.type == "cpu"
+    assert cfg.INPUT.INFER_BATCH == 4
+
+
 def test_kernel_sources_and_build_target():
     """Every kernel source has its library name keyed by a content hash,
     inside the repository's git-ignored build directory."""
-    assert _build.sources() == ["dynamic_conv", "roi_align_fwd"]
+    assert _build.sources() == ["dynamic_conv", "roi_align_fwd", "swin_block_attn",
+                                "swin_block_mlp"]
     for name in _build.sources():
         target = _build._target(name)
         assert target.parent == ROOT / "build" / "diffusionvid_torch"

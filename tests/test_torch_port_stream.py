@@ -40,9 +40,9 @@ def _jax_draws(n_global_chunks: int, n_chunks: int, f: int):
     return draws
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jmodel, variables = jax_model_and_params()
+def run_both(jmodel, variables):
+    """Both detectors over 3 global frames and 2 chunks: (JAX memories,
+    JAX detections, port memories, port detections)."""
     rng = np.random.RandomState(5)
     gframes = rng.uniform(0, 255, (3, H, W, 3)).astype(np.float32)   # 2 chunks, tail padded
     chunks = [rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32) for _ in range(2)]
@@ -68,6 +68,11 @@ def runs():
         state, d = det.process_chunk(state, c, whwh)
         dets.append(d)
     return jmem, jdets, mem, dets
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_both(*jax_model_and_params())
 
 
 def test_memory_after_start_video(runs):

@@ -1,0 +1,253 @@
+"""Kernels K4 and K5 (the Swin half-blocks): plain versions against the
+Pallas kernels, and the wrappers' routing.
+
+The plain versions of ``ops/swin_attention.py`` against
+``fused_swin_block_attn`` / ``fused_swin_block_mlp`` in interpret mode, as
+tests/test_swin.py runs them: a padded map (valid 12x19 → 14x21) whose pad
+region holds nonzero values, shift 0 and 3 (with the SW-MSA mask), 32
+channels per head, in float32 and bfloat16.
+
+Tolerances: float32 holds to tests/test_swin.py's 5e-5 abs + 1e-4 rel.
+bfloat16 holds to 1e-2 abs + 2^-7 rel: both sides round at the same points
+and sum their fp32 products in other orders, so a value that lands next to
+a rounding boundary of an intermediate (the LN output, a score, a
+probability) may round the other way, and the output, near 1 in magnitude,
+moves by about one bf16 step (2^-8 to 2^-7).
+
+The CUDA kernels run only on the card (``chip_smoke.py``); here meta tensors
+stand in for CUDA tensors to check each wrapper's input checks and that it
+goes to its kernel, never to the plain version, for a tensor off the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from diffusionvid_tpu.models.swin import _relative_position_index, _shift_attn_mask
+from diffusionvid_tpu.ops.swin_attention_pallas import (
+    fused_swin_block_attn, fused_swin_block_mlp)
+
+from diffusionvid_torch.models.swin import relative_position_index, shift_attn_mask
+from diffusionvid_torch.ops import _build
+from diffusionvid_torch.ops.swin_attention import (
+    swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+
+B, C, HEADS, WIN = 2, 64, 2, 7
+HV, WV, HP, WP = 12, 19, 14, 21
+N = WIN * WIN
+DTYPES = {"float32": (torch.float32, jnp.float32, 5e-5, 1e-4),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 1e-2, 2 ** -7)}
+
+
+def _params(seed, c=C, heads=HEADS):
+    r = np.random.RandomState(seed)
+
+    def f(*shape, scale=1.0):
+        return (r.randn(*shape) * scale).astype(np.float32)
+
+    # the whole map is random: the pad region of the residual stream holds
+    # values from earlier blocks, and only LN1's output is zeroed there
+    x = f(B, HP, WP, c)
+    attn = dict(ln_g=1 + f(c, scale=0.1), ln_b=f(c, scale=0.1),
+                wqkv=f(3 * c, c, scale=0.1), bqkv=f(3 * c, scale=0.1),
+                bias=f(heads, N, N), wproj=f(c, c, scale=0.1), bproj=f(c, scale=0.1))
+    mlp = dict(ln_g=1 + f(c, scale=0.1), ln_b=f(c, scale=0.1),
+               w1=f(4 * c, c, scale=0.1), b1=f(4 * c, scale=0.1),
+               w2=f(c, 4 * c, scale=0.1), b2=f(c, scale=0.1))
+    return x, attn, mlp
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _close(got, want, atol, rtol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=atol, rtol=rtol)
+
+
+def test_index_and_mask_copies_match_jax():
+    """The port keeps its own copies of the index and mask functions."""
+    for w in (3, 7, 12):
+        np.testing.assert_array_equal(relative_position_index(w), _relative_position_index(w))
+    for hp, wp in ((14, 21), (21, 35), (154, 259)):
+        np.testing.assert_array_equal(shift_attn_mask(hp, wp, 7, 3),
+                                      _shift_attn_mask(hp, wp, 7, 3))
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attn_plain_vs_pallas_interpreted(dtype, shift):
+    tdt, jdt, atol, rtol = DTYPES[dtype]
+    x, p, _ = _params(7)
+    if shift:
+        x = np.roll(x, (-shift, -shift), (1, 2))
+        mask = _shift_attn_mask(HP, WP, WIN, shift).reshape(HP // WIN, WP // WIN, N, N)
+    else:
+        mask = None
+    args = (p["ln_g"], p["ln_b"], p["wqkv"], p["bqkv"], p["bias"])
+    tail = (p["wproj"], p["bproj"])
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_swin_block_attn(jnp.asarray(x, jdt), *map(jnp.asarray, args),
+                                     None if mask is None else jnp.asarray(mask),
+                                     *map(jnp.asarray, tail), WIN, HEADS, (HV, WV),
+                                     shift=shift)
+    got = swin_block_attn(_t(x).to(tdt), *map(_t, args), _t(mask), *map(_t, tail),
+                          WIN, HEADS, (HV, WV), shift=shift)
+    assert got.dtype == tdt and got.shape == (B, HP, WP, C)
+    _close(got, want, atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlp_plain_vs_pallas_interpreted(dtype):
+    tdt, jdt, atol, rtol = DTYPES[dtype]
+    x, _, p = _params(8)
+    args = [p[k] for k in ("ln_g", "ln_b", "w1", "b1", "w2", "b2")]
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_swin_block_mlp(jnp.asarray(x, jdt), *map(jnp.asarray, args), rows=WIN)
+    got = swin_block_mlp(_t(x).to(tdt), *map(_t, args))
+    assert got.dtype == tdt and got.shape == (B, HP, WP, C)
+    _close(got, want, atol, rtol)
+
+
+def test_pad_mask_is_in_rolled_coordinates():
+    """Shifting the map without shifting the pad mask's addressing changes
+    the result: the mask follows the roll (the case a full-size map hits at
+    every odd block)."""
+    x, p, _ = _params(9)
+    xr = _t(np.roll(x, (-3, -3), (1, 2)))
+    mask = _t(shift_attn_mask(HP, WP, WIN, 3).reshape(HP // WIN, WP // WIN, N, N))
+    args = [_t(p[k]) for k in ("ln_g", "ln_b", "wqkv", "bqkv", "bias")]
+    tail = [_t(p["wproj"]), _t(p["bproj"])]
+    rolled = swin_block_attn_ref(xr, *args, mask, *tail, WIN, HEADS, (HV, WV), shift=3)
+    unrolled = swin_block_attn_ref(xr, *args, mask, *tail, WIN, HEADS, (HV, WV), shift=0)
+    assert (rolled - unrolled).abs().max() > 1e-3
+
+
+# ---------------------------------------------------------------- wrappers
+
+class _ReachedLaunch(Exception):
+    pass
+
+
+@pytest.fixture
+def stop_at_launch(monkeypatch):
+    def load(name):
+        raise _ReachedLaunch(name)
+    monkeypatch.setattr(_build, "load", load)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _k4_args(c=128, heads=4, hp=14, wp=21, dtype=torch.bfloat16, masked=True):
+    x = _meta(2, hp, wp, c, dtype=dtype)
+    mask = _meta(hp // WIN, wp // WIN, N, N) if masked else None
+    return ([x, _meta(c), _meta(c), _meta(3 * c, c), _meta(3 * c), _meta(heads, N, N),
+             mask, _meta(c, c), _meta(c)], dict(window=WIN, num_heads=heads,
+                                                 valid_hw=(hp - 2, wp - 2), shift=3))
+
+
+def _k5_args(c=128, dtype=torch.bfloat16):
+    return [_meta(2, 14, 21, c, dtype=dtype), _meta(c), _meta(c), _meta(4 * c, c),
+            _meta(4 * c), _meta(c, 4 * c), _meta(c)]
+
+
+@pytest.mark.parametrize("kernel", ["swin_block_attn", "swin_block_mlp"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_wrapper_launches_kernel_off_the_cpu(stop_at_launch, kernel, dtype):
+    if kernel == "swin_block_attn":
+        wrapper = swin_block_attn
+        args, kw = _k4_args(dtype=dtype)
+    else:
+        wrapper, (args, kw) = swin_block_mlp, (_k5_args(dtype=dtype), {})
+    before = wrapper.launches
+    with pytest.raises(_ReachedLaunch, match=kernel):
+        wrapper(*args, **kw)
+    assert wrapper.launches == before
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    x, p, q = _params(3)
+    xt = _t(x)
+    args = [_t(p[k]) for k in ("ln_g", "ln_b", "wqkv", "bqkv", "bias")]
+    tail = [_t(p["wproj"]), _t(p["bproj"])]
+    before = swin_block_attn.launches, swin_block_mlp.launches
+    got = swin_block_attn(xt, *args, None, *tail, WIN, HEADS, (HV, WV))
+    want = swin_block_attn_ref(xt, *args, None, *tail, WIN, HEADS, (HV, WV))
+    assert torch.equal(got, want)
+    margs = [_t(q[k]) for k in ("ln_g", "ln_b", "w1", "b1", "w2", "b2")]
+    assert torch.equal(swin_block_mlp(xt, *margs), swin_block_mlp_ref(xt, *margs))
+    assert (swin_block_attn.launches, swin_block_mlp.launches) == before
+
+
+def _k4_bad(case):
+    if case == "float16":
+        return _k4_args(dtype=torch.float16)
+    if case == "window":
+        args, kw = _k4_args()
+        return args, {**kw, "window": 12}
+    if case == "map_not_padded":
+        return _k4_args(hp=15)
+    if case == "head_dim":
+        return _k4_args(c=128, heads=2)
+    if case == "too_wide":
+        return _k4_args(c=1536, heads=48)
+    args, kw = _k4_args()
+    if case == "valid_hw":
+        kw["valid_hw"] = (15, 19)
+    if case == "shift":
+        kw["shift"] = 7
+    if case == "bias_shape":
+        args[5] = _meta(4, N, 48)
+    if case == "mask_shape":
+        args[6] = _meta(3, 3, N, N)
+    if case == "wqkv_shape":
+        args[3] = _meta(128, 3 * 128)
+    if case == "not_contiguous":
+        args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
+    if case == "requires_grad":
+        args[0] = args[0].float().requires_grad_()
+    return args, kw
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("window", ValueError), ("map_not_padded", ValueError),
+    ("head_dim", ValueError), ("too_wide", ValueError), ("valid_hw", ValueError),
+    ("shift", ValueError), ("bias_shape", ValueError), ("mask_shape", ValueError),
+    ("wqkv_shape", ValueError), ("not_contiguous", ValueError),
+    ("requires_grad", NotImplementedError)])
+def test_attn_wrapper_rejects(stop_at_launch, case, error):
+    args, kw = _k4_bad(case)
+    with pytest.raises(error):
+        swin_block_attn(*args, **kw)
+
+
+def _k5_bad(case):
+    if case == "float16":
+        return _k5_args(dtype=torch.float16)
+    if case == "width":
+        return _k5_args(c=64)
+    args = _k5_args()
+    if case == "w1_shape":
+        args[3] = _meta(128, 4 * 128)
+    if case == "b2_shape":
+        args[6] = _meta(4 * 128)
+    if case == "not_contiguous":
+        args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
+    if case == "requires_grad":
+        args[3] = args[3].requires_grad_()
+    return args
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("width", ValueError), ("w1_shape", ValueError),
+    ("b2_shape", ValueError), ("not_contiguous", ValueError),
+    ("requires_grad", NotImplementedError)])
+def test_mlp_wrapper_rejects(stop_at_launch, case, error):
+    with pytest.raises(error):
+        swin_block_mlp(*_k5_bad(case))

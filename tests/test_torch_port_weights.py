@@ -2,8 +2,9 @@
 
 ``convert_torch_state_dict(state_dict_from_jax(tree))`` must give back the
 tree leaf for leaf with nothing unmatched, and the port's model must load
-the state dict with ``strict=True``.  ``jax_model_and_params`` and
-``port_model`` build the small JAX/port pair the other port tests share.
+the state dict with ``strict=True``, for a ResNet and a Swin-T model.
+``jax_model_and_params`` and ``port_model`` build the small JAX/port pair
+the other port tests share.
 """
 
 import numpy as np
@@ -22,12 +23,17 @@ from diffusionvid_torch.utils.convert import state_dict_from_jax
 H, W, PROPS = 64, 96, 16
 
 
+SWIN_T = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
+
+
 def jax_model_and_params(depth=18, num_classes=5, num_heads=1,
-                         num_heads_local=1, res_stage=1, seed=0):
-    """A small fp32 JAX DiffusionDetArch initialised with ``jax.jit``."""
+                         num_heads_local=1, res_stage=1, seed=0, swin=False):
+    """A small fp32 JAX DiffusionDetArch initialised with ``jax.jit``: a
+    ResNet of ``depth``, or with ``swin`` a Swin-T trunk."""
     model = JaxArch(depth=depth, num_classes=num_classes, num_proposals=PROPS,
                     num_heads=num_heads, num_heads_local=num_heads_local,
-                    res_stage=res_stage, compute_dtype=jnp.float32)
+                    res_stage=res_stage, compute_dtype=jnp.float32,
+                    **(SWIN_T if swin else {}))
     noisy = jnp.tile(jnp.asarray([8.0, 8.0, 60.0, 40.0]), (2, PROPS, 1))
     init = jax.jit(lambda r: model.init(
         {"params": r, "cfg": jax.random.PRNGKey(1)}, jnp.zeros((2, H, W, 3)),
@@ -39,13 +45,20 @@ def jax_model_and_params(depth=18, num_classes=5, num_heads=1,
     # The head's biases and LayerNorm affines start at zeros/ones, so every
     # proposal feature would have the norm sqrt(D) and the FPS step from the
     # empty memory's zero slot would pick among exact ties; perturb them.
+    # In a Swin trunk, the biases and LayerNorm affines are perturbed too,
+    # so that a bias in the wrong place shows, and the relative-position
+    # bias tables are scaled from std 0.02 to 0.5, so that they move the
+    # softmax.
     noise = np.random.RandomState(seed)
 
     def rescale(path, a):
         a = np.array(a)
-        if a.ndim == 4:
+        top, name = str(path[1]), str(path[-1])
+        if a.ndim == 4 and not (swin and "backbone" in top):
             return a * np.float32(np.sqrt(a.shape[0] / a.shape[1]))
-        if a.ndim == 1 and "head" in str(path[1]):
+        if "relative_position_bias_table" in name:
+            return a * np.float32(25.0)
+        if a.ndim == 1 and ("head" in top or (swin and "backbone" in top)):
             return a + np.float32(0.2) * noise.randn(*a.shape).astype(np.float32)
         return a
 
@@ -63,13 +76,17 @@ def port_model(jmodel, variables):
     model = DiffusionDetArch(
         depth=jmodel.depth, num_classes=jmodel.num_classes, num_proposals=jmodel.num_proposals,
         num_heads=jmodel.num_heads, num_heads_local=jmodel.num_heads_local,
-        res_stage=jmodel.res_stage, compute_dtype=torch.float32)
+        res_stage=jmodel.res_stage, backbone_type=jmodel.backbone_type,
+        swin_size=jmodel.swin_size, fpn_in=jmodel.fpn_in, compute_dtype=torch.float32)
     model.load_state_dict(state_dict_from_jax(variables["params"]), strict=True)
     return model.eval()
 
 
-@pytest.fixture(scope="module", params=[1, 2], ids=["res_stage1", "res_stage2"])
+@pytest.fixture(scope="module", params=[1, 2, "swin"],
+                ids=["res_stage1", "res_stage2", "swin_t"])
 def pair(request):
+    if request.param == "swin":
+        return jax_model_and_params(swin=True)
     return jax_model_and_params(res_stage=request.param)
 
 
@@ -91,8 +108,25 @@ def test_strict_load_and_names(pair):
     jmodel, variables = pair
     model = port_model(jmodel, variables)
     names = set(model.state_dict())
-    assert "backbone.bottom_up.stem.conv1.norm.running_var" in names
-    assert "backbone.bottom_up.res5.0.shortcut.weight" in names
+    if jmodel.backbone_type == "swin":
+        for name in ("patch_embed.proj.weight", "patch_embed.norm.bias",
+                     "layers.0.blocks.1.norm1.weight", "layers.2.blocks.5.norm2.bias",
+                     "layers.0.blocks.0.attn.qkv.weight", "layers.3.blocks.1.attn.proj.bias",
+                     "layers.1.blocks.1.attn.relative_position_bias_table",
+                     "layers.1.blocks.1.attn.relative_position_index",
+                     "layers.2.blocks.0.mlp.fc1.weight", "layers.3.blocks.0.mlp.fc2.bias",
+                     "layers.2.downsample.reduction.weight", "layers.0.downsample.norm.weight",
+                     "norm1.weight", "norm3.bias"):
+            assert "backbone.bottom_up." + name in names, name
+        assert not any(n.startswith(("backbone.bottom_up.norm0", "backbone.bottom_up.layers.3."
+                                     "downsample")) for n in names)
+        assert "backbone.fpn_lateral5.weight" in names
+        index = model.state_dict()[
+            "backbone.bottom_up.layers.0.blocks.0.attn.relative_position_index"]
+        assert index.dtype == torch.int64 and index.shape == (49, 49)
+    else:
+        assert "backbone.bottom_up.stem.conv1.norm.running_var" in names
+        assert "backbone.bottom_up.res5.0.shortcut.weight" in names
     assert "backbone.fpn_output3.bias" in names
     assert "head.head_series.0.inst_interact.dynamic_layer.weight" in names
     assert "head.head_series_cond.0.c_mlp.1.weight" in names
