@@ -9,7 +9,10 @@ Phases, one JSON line each:
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
-              bound from bytes and flops.  The Swin half-blocks (K4, K5) run
+              bound from bytes and flops.  The ROIAlign backward (K3) runs
+              at the R-101 train shapes (5 frames at 608x1024, 300 ROIs) and
+              is launched twice to show that it is deterministic.  The Swin
+              half-blocks (K4, K5) run
               at the four Swin-B stage maps of 608x1024, 4 frames, with
               shift 0 and 3 (masked) and the true valid sizes; their line
               holds the per-stage numbers, and their ``ms`` and ``bound_ms``
@@ -25,7 +28,19 @@ Phases, one JSON line each:
               finite outputs and the kernels' launch counts, prints fps,
               peak memory and one chunk's device time by kernel;
   6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
-              24 global frames then 6 chunks of 4 frames at 608x1024.
+              24 global frames then 6 chunks of 4 frames at 608x1024;
+  7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
+              (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
+              and on the CPU through the plain versions, same weights, batch
+              and draws, float32, TF32 off: losses and every gradient;
+  8. flagship_train the R-101 train step (``engine/train.py``) at full width
+              with random weights and random GT from ``--seed``: 5 frames at
+              608x1024, bf16, ACCUMULATION_STEPS 2; 2 warm-up optimizer steps,
+              then 5 timed ones; checks finite losses, moved parameters and
+              4 launches each of K1, K2 and K3 per micro-step, prints ms per
+              optimizer step, frames/s, peak memory, one micro-step's
+              device time by kernel and host time by operator, and the
+              time the criterion takes in a micro-step.
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -208,6 +223,71 @@ def kernel_k2(gen, dev, dtype, timing: bool):
     return res
 
 
+TRAIN = dict(frames=5, h=608, w=1024, props=300, c=256)
+
+
+def _check_k3(gen, dev, dtype, f: int, r: int, c: int, h: int, w: int):
+    """K3 on a random cotangent and ROIs over the p3-p5 maps of ``f``
+    frames of h x w against its plain version; a second launch must give
+    bit-equal maps.  Returns the check's numbers and its inputs."""
+    from diffusionvid_torch.ops import roi_align as ra
+    scales = (1 / 8, 1 / 16, 1 / 32)
+    shapes = [(-(-h // s), -(-w // s)) for s in (8, 16, 32)]
+    rois = flagship_rois(gen, f, r, h, w).to(dev)
+    g = torch.randn(f, r, 49, c, generator=gen).to(dev, dtype)
+    lv = ra._levels(shapes, rois, scales)
+    counts = [int((lv == i).sum()) for i in range(3)]
+    require(min(counts) > 0, f"K3 test rois miss a level: {counts}")
+    got = ra.multilevel_roi_align_bwd(g, rois, shapes, scales, dtype)
+    again = ra.multilevel_roi_align_bwd(g, rois, shapes, scales, dtype)
+    want = ra.multilevel_roi_align_bwd_ref(g, rois, shapes, scales, dtype)
+    torch.cuda.synchronize()
+    # fp32: the same fp32 sums in another order.  bf16: both sum in fp32 in
+    # another order and round once to bf16, so an element may differ by one
+    # bf16 step (up to 2^-7 relative); 2^-6 leaves a margin
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-4, 2 ** -6)
+    res = {"rois_per_level": counts, "max_abs_err": 0.0, "atol": tol[0], "rtol": tol[1]}
+    for lvl, (a, b, ref) in enumerate(zip(got, again, want)):
+        require(tuple(a.shape) == (f, *shapes[lvl], c) and a.dtype == dtype,
+                f"K3 level {lvl}: {tuple(a.shape)} {a.dtype}")
+        require(torch.equal(a, b), f"K3 {dtype} level {lvl}: two launches differ")
+        err = compare(a, ref, *tol, f"K3 {dtype} {h}x{w} C={c} level {lvl}")
+        res["max_abs_err"] = max(res["max_abs_err"], err["max_abs_err"])
+    res["deterministic"] = True
+    return res, (g, rois, lv, shapes, scales, got)
+
+
+def kernel_k3(gen, dev, dtype, timing: bool):
+    """K3 at the R-101 train shapes, and on maps wider than one tile (296 x
+    2400: p3 is 37 x 300) with a channel count that leaves a partial
+    32-channel slice, against its plain version."""
+    from diffusionvid_torch.ops import roi_align as ra
+    f, c = TRAIN["frames"], TRAIN["c"]
+    res, (g, rois, lv, shapes, scales, got) = _check_k3(
+        gen, dev, dtype, f, TRAIN["props"], c, TRAIN["h"], TRAIN["w"])
+    res["wide"], _ = _check_k3(gen, dev, dtype, 2, 120, 200, 296, 2400)
+    if timing:
+        elt = g.element_size()
+        # the corner contributions this run's ROIs make, two flops per channel
+        ys, xs, lh, lw = ra._sample_coords(rois, lv, shapes, scales, 7, 2, True)
+        _, wy0, wy1 = ra._band_params(ys, lh[..., None])
+        _, wx0, wx1 = ra._band_params(xs, lw[..., None])
+        ny = (wy0 != 0).sum(-1) + (wy1 != 0).sum(-1)
+        nx = (wx0 != 0).sum(-1) + (wx1 != 0).sum(-1)
+        flops = 2 * c * float((ny * nx).sum())
+        nbytes = (g.numel() * elt + rois.numel() * 4 + lv.numel() * 4
+                  + sum(t.numel() for t in got) * elt)
+        # the sums run on the fp32 cores whatever the maps' dtype
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, torch.float32)
+        res["gflop"] = flops / 1e9
+        res["ms"] = cuda_time_ms(lambda: ra.multilevel_roi_align_bwd(g, rois, shapes, scales,
+                                                                     dtype))
+        res["plain_ms"] = cuda_time_ms(
+            lambda: ra.multilevel_roi_align_bwd_ref(g, rois, shapes, scales, dtype),
+            iters=3, warmup=1)
+    return res
+
+
 def _swin_inputs(gen, dev, dtype, st, frames):
     """One stage's residual map (random over the pad region too) and
     half-block weights; the matrices already in ``dtype``."""
@@ -323,6 +403,9 @@ KERNELS = {
     "dynamic_conv": dict(
         route="cuda", source="diffusionvid_torch/csrc/dynamic_conv.cu",
         replaces="diffusionvid_tpu/ops/dynamic_conv_pallas.py:148", check=kernel_k2),
+    "roi_align_bwd": dict(
+        route="cuda", source="diffusionvid_torch/csrc/roi_align_bwd.cu",
+        replaces="diffusionvid_tpu/ops/roi_align_pallas.py:762", check=kernel_k3),
     "swin_block_attn": dict(
         route="cuda", source="diffusionvid_torch/csrc/swin_block_attn.cu",
         replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:372",
@@ -336,10 +419,11 @@ KERNELS = {
 
 def launch_counters():
     from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused
-    from diffusionvid_torch.ops.roi_align import multilevel_roi_align
+    from diffusionvid_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_bwd
     from diffusionvid_torch.ops.swin_attention import swin_block_attn, swin_block_mlp
     return {"roi_align_fwd": multilevel_roi_align,
             "dynamic_conv": dynamic_conv_fused,
+            "roi_align_bwd": multilevel_roi_align_bwd,
             "swin_block_attn": swin_block_attn,
             "swin_block_mlp": swin_block_mlp}
 
@@ -539,25 +623,272 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str) -> dict:
 def profile_chunk(det, state, frames, whwh, phase: str) -> dict:
     """Device time of one chunk by kernel name (``torch.profiler``); the
     full table goes to ``build/chip_smoke/<phase>_chunk_profile.txt``."""
+    res = profile_device(lambda: det.process_chunk(state, frames, whwh), f"{phase}_chunk")
+    res["profiled_chunk_wall_ms"] = res.pop("profiled_wall_ms")
+    return res
+
+
+def profile_device(run, name: str) -> dict:
+    """Device time of ``run()`` by kernel name (``torch.profiler``), its
+    share of the wall time, the device operations launched and the host
+    operators that took the most host time; the full table goes to
+    ``build/chip_smoke/<name>_profile.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        det.process_chunk(state, frames, whwh)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"{phase}_chunk_profile.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    return {"profiled_chunk_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+    (out_dir / f"{name}_profile.txt").write_text(
+        averages.table(sort_by="self_device_time_total", row_limit=60))
+    return {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+            "device_ops": sum(e.count for e in events),
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+            "top_host_ms": {f"{e.key[:40]} x{e.count}": e.self_cpu_time_total / 1e3
+                            for e in host}}
+
+
+# ---------------------------------------------------------------- train paths
+
+TRAIN_KERNELS = ("roi_align_fwd", "dynamic_conv", "roi_align_bwd")
+
+
+def train_batch(gen, samples: int, frames: int, slots: int, h: int, w: int,
+                num_classes: int, device):
+    """Random frames in 0..255 and 1 to 8 random GT boxes per frame, padded
+    to ``slots`` GT slots."""
+    from diffusionvid_torch.engine.train import TrainBatch
+    images = torch.rand(samples, frames, h, w, 3, generator=gen) * 255
+    n = torch.randint(1, 9, (samples, frames), generator=gen)
+    valid = torch.arange(slots)[None, None, :] < n[..., None]
+    size = torch.tensor([w, h], dtype=torch.float32)
+    wh = 8 + torch.rand(samples, frames, slots, 2, generator=gen) * size * 0.5
+    xy = torch.rand(samples, frames, slots, 2, generator=gen) * (size - wh)
+    boxes = torch.cat([xy, xy + wh], -1) * valid[..., None]
+    labels = torch.randint(1, num_classes + 1, (samples, frames, slots), generator=gen) * valid
+    whwh = torch.tensor([[w, h, w, h]], dtype=torch.float32).repeat(samples, 1)
+    return TrainBatch(*[t.to(device) for t in (images, boxes, labels, valid, whwh)])
+
+
+def conditioned_train_model(gen, images, **arch):
+    """A float32 ``DiffusionDetArch(**arch)`` with random weights from
+    ``gen``, set up so that two implementations' gradients compare well:
+    every ReLU sits far from its kink.  A unit whose input lies within the
+    two sides' forward difference (about 1e-6 relative) of zero takes its
+    gradient on one side only, and so does a max-pool window whose two
+    largest inputs are that close; with random weights a gradient is a sum
+    of millions of terms of either sign, so one such unit moves it by about
+    1e-3 of its norm.  So the convolutions are rescaled to fan-in variance;
+    every FrozenBN takes the mean and variance of its input on ``images``
+    as running statistics and a bias of about +3, so its ReLU input is
+    about N(3, 0.5) (N(3, 1) at the stem, whose max-pool needs the spread);
+    the head's LayerNorms before a ReLU, and the FFN's first layer, put
+    their units at about +3; the box deltas are scaled down so that no box
+    reaches the delta clamp; the other head 1-D parameters are perturbed.
+    Used by ``phase_tiny_train`` and by the CPU tests against JAX."""
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    from diffusionvid_torch.models.resnet import FrozenBatchNorm2d
+    model = DiffusionDetArch(**arch, compute_dtype=torch.float32)
+    model.reset_parameters(gen)
+    relu_ln = ("inst_interact.norm1.", "inst_interact.norm2.", "inst_interact.norm3.",
+               "cls_module.1.", "reg_module.1.", "reg_module.4.", "reg_module.7.")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            if p.dim() == 4:
+                p.mul_((p.shape[0] / p.shape[1]) ** 0.5)
+            elif name.startswith("backbone.") and name.endswith("norm.weight"):
+                p.copy_((1.0 if ".stem." in name else 0.5) + 0.05 * noise)
+            elif name.startswith("backbone.") and name.endswith("norm.bias"):
+                p.copy_(3.0 + 0.1 * noise)
+            elif any(k in name for k in relu_ln):
+                p.copy_((3.0 if name.endswith("bias") else 0.5) + 0.05 * noise)
+            elif name.endswith("linear1.bias"):
+                p.fill_(3.0)
+            elif name.endswith(("linear1.weight", "bboxes_delta.weight")):
+                p.mul_(0.3 if "linear1" in name else 0.05)
+            elif p.dim() == 1 and name.startswith("head."):
+                p.add_(0.2 * noise)
+
+    def calibrate(mod, args):
+        mod.running_mean.copy_(args[0].mean((0, 2, 3)))
+        mod.running_var.copy_(args[0].var((0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm2d)]
+    with torch.no_grad():
+        model.extract_features(images)
+    for hook in hooks:
+        hook.remove()
+    return model
+
+
+def phase_tiny_train(seed: int):
+    """One train micro-step of a depth-18 model, 50 proposals, 1 + 2 frames
+    at 64x96, float32, TF32 off: on the card (K1, K2, K3) against the CPU
+    (plain versions), same weights, batch and draws.  Losses to 1e-4 and
+    every gradient to 1e-3 relative in norm, the tolerances the CPU tests
+    hold against JAX."""
+    import copy
+
+    from diffusionvid_torch.engine.train import TrainBatch, draw_train_randoms, make_loss_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    h, w, props, frames = 64, 96, 50, 3
+    batch = train_batch(gen, 1, frames, 6, h, w, 5, "cpu")
+    cpu = conditioned_train_model(gen, batch.images[0], depth=18, num_classes=5,
+                                  num_proposals=props, num_heads=1, num_heads_local=1)
+    card = copy.deepcopy(cpu).cuda()
+    draws = draw_train_randoms(gen, 1, frames, props)
+
+    def step(model, dev):
+        total, losses = make_loss_fn(model, frames - 1)(
+            TrainBatch(*[t.to(dev) for t in batch]), type(draws)(*[t.to(dev) for t in draws]))
+        total.backward()
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                 for n, p in model.named_parameters()}
+        return {"total_loss": total.detach().cpu(),
+                **{k: v.detach().cpu() for k, v in losses.items()}}, grads
+
+    reset_launches()
+    c_losses, c_grads = step(card, "cuda")
+    torch.cuda.synchronize()
+    used = read_launches()
+    stages = len(card.head.head_series) + len(card.head.head_series_cond)
+    require(all(used[k] == stages for k in TRAIN_KERNELS) and sum(used.values()) == 3 * stages,
+            f"tiny_train: launches {used}, expected {stages} each of {TRAIN_KERNELS}")
+    p_losses, p_grads = step(cpu, "cpu")
+    loss_err = max(float((c_losses[k] - v).abs() / v.abs().clamp(min=1e-12))
+                   for k, v in p_losses.items())
+    grad_err, worst = 0.0, ""
+    for name, g in p_grads.items():
+        e = float(torch.linalg.vector_norm(c_grads[name] - g)
+                  / torch.linalg.vector_norm(g).clamp(min=1e-12))
+        if e > grad_err:
+            grad_err, worst = e, name
+    emit("tiny_train", launches=used, loss_rtol=1e-4, grad_rtol=1e-3,
+         max_rel_err_loss=loss_err, max_rel_err_grad=grad_err, worst_grad=worst,
+         total_loss=float(p_losses["total_loss"]))
+    require(all(bool(torch.isfinite(v)) for v in c_losses.values()), "tiny_train: non-finite loss")
+    require(loss_err < 1e-4 and grad_err < 1e-3,
+            f"tiny_train: card vs CPU over tolerance: loss {loss_err}, grad {grad_err} ({worst})")
+
+
+def criterion_ms(micro) -> float:
+    """Wall ms that the set criterion's forward (simOTA with its repair
+    loop, the losses) takes in one micro-step, host and device, each call
+    between two synchronizes."""
+    from diffusionvid_torch.engine import train
+    inner, spent = train.set_criterion, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    train.set_criterion = timed
+    try:
+        micro()
+    finally:
+        train.set_criterion = inner
+    return sum(spent) * 1e3
+
+
+def phase_flagship_train(seed: int, timed_steps: int = 5) -> dict:
+    """The R-101 train step at full width, bf16: ``configs/vid_R_101_
+    DiffusionVID.yaml`` with random weights, 1 + REF_NUM_GLOBAL frames at
+    608x1024 with 1 to 8 random GT boxes each, ACCUMULATION_STEPS micro-steps
+    per optimizer step.  Two warm-up optimizer steps, then ``timed_steps``
+    timed ones, whose launch counts are read."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine.train import (
+        draw_train_randoms, iteration_generator, make_train_step, optimizer_from_config,
+        param_group)
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+
+    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    t0 = time.perf_counter()
+    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    opt = optimizer_from_config(model, cfg)
+    build_s = time.perf_counter() - t0
+    num_global = cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
+    frames, accum = 1 + num_global, cfg.SOLVER.ACCUMULATION_STEPS
+    h, w, props = TRAIN["h"], TRAIN["w"], cfg.MODEL.DiffusionDet.NUM_PROPOSALS
+    gen = torch.Generator().manual_seed(seed)
+    batches = [train_batch(gen, 1, frames, cfg.TPU.MAX_GT_BOXES, h, w,
+                           cfg.MODEL.DiffusionDet.NUM_CLASSES, "cuda") for _ in range(accum)]
+    step = make_train_step(model, opt, num_global)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = {"it": 0, "metrics": []}
+
+    def micro():
+        it = state["it"]
+        draws = draw_train_randoms(iteration_generator(seed, it), 1, frames, props,
+                                   p_uncond=model.head.p_uncond, device="cuda")
+        state["metrics"].append(step(batches[it % accum], draws))
+        state["it"] = it + 1
+
+    for _ in range(2 * accum):                # warm-up: allocator, cuDNN plans
+        micro()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps * accum):
+        micro()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+
+    micro_steps = timed_steps * accum
+    stages = len(model.head.head_series) + len(model.head.head_series_cond)
+    want = {k: stages * micro_steps for k in TRAIN_KERNELS}
+    for name, n in launches.items():
+        require(n == want.get(name, 0),
+                f"flagship_train: {name} launched {n} times, expected {want.get(name, 0)}")
+    last = {k: float(v) for k, v in state["metrics"][-1].items()}
+    require(all(torch.isfinite(v).all() for m in state["metrics"] for v in m.values()),
+            "flagship_train: non-finite loss")
+    moved = {g: 0 for g in ("main", "bias", "backbone", "backbone_bias", "frozen")}
+    for n, p in model.named_parameters():
+        moved[param_group(n)] += int(not torch.equal(p.detach(), start[n]))
+    require(moved["frozen"] == 0 and all(moved[g] > 0 for g in moved if g != "frozen"),
+            f"flagship_train: parameters moved per group {moved}")
+    require(opt.count == 2 + timed_steps, f"flagship_train: {opt.count} optimizer steps")
+    res = {"config": "configs/vid_R_101_DiffusionVID.yaml", "dtype": "bfloat16",
+           "frames": frames, "hw": [h, w], "accumulation_steps": accum,
+           "timed_optimizer_steps": timed_steps, "launches": launches,
+           "expected_launches": want, "model_build_s": build_s,
+           "ms_per_optimizer_step": dt / timed_steps * 1e3,
+           "ms_per_micro_step": dt / micro_steps * 1e3,
+           "trained_frames_per_s": micro_steps * frames / dt,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": last, "params_moved": moved, "lr_main": opt.lr("main"),
+           "card": torch.cuda.get_device_name(0)}
+    res.update({f"micro_step_{k}": v
+                for k, v in profile_device(micro, "flagship_train_micro_step").items()})
+    res["criterion_ms_per_micro_step"] = criterion_ms(micro)
+    emit("flagship_train", **res)
+    del model, opt, step, state, start, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- main
@@ -590,6 +921,8 @@ def main(argv=None) -> int:
     swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
     for name in ("swin_block_attn", "swin_block_mlp"):
         launches[name] = swin[name]
+    phase_tiny_train(args.seed)
+    launches["roi_align_bwd"] = phase_flagship_train(args.seed)["roi_align_bwd"]
 
     line = []
     for name, spec in KERNELS.items():

@@ -101,6 +101,8 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TRAIN = 300
 
     _C.INPUT = CfgNode()
+    _C.INPUT.MIN_SIZE_TRAIN = (600,)
+    _C.INPUT.MAX_SIZE_TRAIN = 1000
     _C.INPUT.MIN_SIZE_TEST = 600
     _C.INPUT.MAX_SIZE_TEST = 1000
     _C.INPUT.PIXEL_MEAN = (123.675, 116.280, 103.530)
@@ -114,11 +116,32 @@ def get_default_cfg() -> CfgNode:
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.SIZE_DIVISIBILITY = 32
 
+    # what engine/train.py reads: the optimizer, its schedule and the loop
+    _C.SOLVER = CfgNode()
+    _C.SOLVER.OPTIMIZER_TYPE = "adamw"
+    _C.SOLVER.LR_SCHEDULER_TYPE = "step"
+    _C.SOLVER.MAX_ITER = 40000
+    _C.SOLVER.BASE_LR = 0.0001
+    _C.SOLVER.BIAS_LR_FACTOR = 1.0
+    _C.SOLVER.BACKBONE_MULTIPLIER = 0.1
+    _C.SOLVER.MOMENTUM = 0.9
+    _C.SOLVER.WEIGHT_DECAY = 0.0001
+    _C.SOLVER.WEIGHT_DECAY_BIAS = 0.0001
+    _C.SOLVER.GAMMA = 0.1
+    _C.SOLVER.STEPS = (30000,)
+    _C.SOLVER.WARMUP_FACTOR = 1.0 / 3
+    _C.SOLVER.WARMUP_ITERS = 500
+    _C.SOLVER.CHECKPOINT_PERIOD = 2500
+    _C.SOLVER.ACCUMULATION_STEPS = 1
+    _C.SOLVER.CLIP_GRADIENTS = CfgNode()
+    _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+
     _C.TEST = CfgNode()
     _C.TEST.DETECTIONS_PER_IMG = 300
 
     _C.TPU = CfgNode()
     _C.TPU.COMPUTE_DTYPE = "bfloat16"
+    _C.TPU.MAX_GT_BOXES = 64     # GT slots per frame of a train batch
 
     _C.OUTPUT_DIR = "."
     return _C

@@ -2,9 +2,11 @@
 
 Port of ``diffusionvid_tpu/models/diffusion_det.py``: the cosine schedule
 (buffers derived in float64, cast at the end), DDIM time pairs, the
-signal-space ↔ box-space transforms and ``DiffusionDetArch`` (ResNet or
-Swin + FPN + DynamicHead) with the streaming sub-entrypoints
-``extract_features``, ``extract_proposals`` and ``refine``.
+signal-space ↔ box-space transforms, the training targets
+(``q_sample``, ``prepare_diffusion_targets``) and ``DiffusionDetArch``
+(ResNet or Swin + FPN + DynamicHead) with its training forward and the
+streaming sub-entrypoints ``extract_features``, ``extract_proposals`` and
+``refine``.
 """
 
 from __future__ import annotations
@@ -84,6 +86,55 @@ def boxes_to_signal(boxes_xyxy, whwh, scale: float):
     return ((x * 2.0 - 1.0) * scale).clamp(-scale, scale)
 
 
+def q_sample(sched: DiffusionSchedule, x_start, t, noise):
+    """x_t = sqrt(ac_t) x_0 + sqrt(1 - ac_t) noise, per frame ``t`` [B]."""
+    c1 = sched.sqrt_alphas_cumprod[t][..., None, None]
+    c2 = sched.sqrt_one_minus_alphas_cumprod[t][..., None, None]
+    return c1 * x_start + c2 * noise
+
+
+def prepare_diffusion_targets(sched: DiffusionSchedule, gt_boxes_xyxy, gt_valid,
+                              whwh, t, noise, place):
+    """Noisy training boxes per frame (prepare_diffusion_concat,
+    diffusion_det.py:690-725), static-shape, from explicit draws.
+
+    gt_boxes_xyxy [B, G, 4] absolute, gt_valid [B, G], whwh [B, 4]; the
+    draws: ``t`` [B] timesteps, ``noise`` [B, P, 4] and ``place`` [B, P, 4]
+    standard normal (the placeholder boxes are ``place / 6 + 0.5``).
+    Returns the noisy absolute xyxy boxes [B, P, 4]."""
+    g = gt_boxes_xyxy.shape[1]
+    p = noise.shape[1]
+    # normalized cxcywh GT; a frame without GT gets one full-image box
+    gt_norm = xyxy_to_cxcywh(gt_boxes_xyxy / whwh[:, None, :])
+    any_gt = gt_valid.any(1)
+    fake = torch.tensor([0.5, 0.5, 1.0, 1.0], device=gt_norm.device)
+    gt_valid = gt_valid.clone()
+    gt_valid[:, 0] |= ~any_gt
+    gt_norm[:, 0] = torch.where(any_gt[:, None], gt_norm[:, 0], fake)
+    # placeholder boxes ~ N(0.5, 1/6), wh at least 1e-4
+    place = place / 6.0 + 0.5
+    place = torch.cat([place[..., :2], place[..., 2:].clamp(min=1e-4)], -1)
+    # slot i takes GT i when valid; with G > P the first P slots are used
+    ge = min(g, p)
+    head = torch.where(gt_valid[:, :ge, None], gt_norm[:, :ge], place[:, :ge])
+    x_start = torch.cat([head, place[:, ge:]], 1)
+    x_start = (x_start * 2.0 - 1.0) * sched.scale
+    x = q_sample(sched, x_start, t, noise)
+    return signal_to_boxes(x, whwh, sched.scale)
+
+
+def diffusion_draws(gen: torch.Generator, frames: int, num_proposals: int,
+                    num_timesteps: int, device=None):
+    """The random draws of ``prepare_diffusion_targets`` for ``frames``
+    frames: (t [B] int64, noise [B, P, 4], place [B, P, 4]).  Drawn on the
+    CPU from ``gen`` and moved to ``device``, so a seed gives the same draws
+    on any device."""
+    t = torch.randint(0, num_timesteps, (frames,), generator=gen)
+    noise = torch.randn(frames, num_proposals, 4, generator=gen)
+    place = torch.randn(frames, num_proposals, 4, generator=gen)
+    return t.to(device), noise.to(device), place.to(device)
+
+
 class DiffusionDetArch(nn.Module):
     """ResNet or Swin + FPN + DynamicHead.  ``backbone`` is detectron2's FPN
     module (``backbone.bottom_up`` the trunk) and ``head`` the decoder, so
@@ -161,6 +212,17 @@ class DiffusionDetArch(nn.Module):
     @property
     def spatial_scales(self):
         return tuple(1.0 / (2 ** int(lvl[1:])) for lvl in self.head_levels)
+
+    def forward(self, images, noisy_boxes, t, num_global: int, null):
+        """Training forward: one head pass over all B frames of a sample
+        (diffusion_det.py:338-375).  images [B, H, W, 3] in 0..255,
+        noisy_boxes [B, N, 4], t [B], ``null`` [B] bool the CFG null mask.
+        Returns float32 logits [S, B, N, K] and boxes [S, B, N, 4] over the
+        S stages."""
+        feats = self.extract_features(images)
+        logits, boxes = self.head(feats, self.spatial_scales, noisy_boxes, t,
+                                  num_global, null)
+        return logits.float(), boxes.float()
 
     def extract_features(self, images):
         """images [B, H, W, 3] in 0..255 → list of NHWC head-level maps.

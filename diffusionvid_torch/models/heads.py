@@ -3,9 +3,10 @@
 Port of ``diffusionvid_tpu/models/heads.py``: ``RCNNHead`` stages
 (self-attention over proposals → DynamicConv → FFN → time FiLM → cls/reg
 towers → box deltas), the conditioned stage with its adaptive-norm shift
-from the global cross-attention, the time MLP and the top-k condition
-features.  Module names are the reference's (``head_series.N.*``,
-``time_mlp.{1,3}``, ``global_attention.N.0``, ...).
+from the global cross-attention, the time MLP, the top-k condition
+features and the training forward over all stages.  Module names are the
+reference's (``head_series.N.*``, ``time_mlp.{1,3}``,
+``global_attention.N.0``, ...).
 
 Dtype discipline follows the JAX package: parameters stay float32 and a
 layer casts its weight to its compute dtype at use; mixing a float32 and a
@@ -257,9 +258,11 @@ class DynamicHead(nn.Module):
                  num_reg: int = 3, pooler_resolution: int = 7,
                  sampling_ratio: int = 2, global_stages: int = 1,
                  global_enable: bool = True, top_k=(75, 25),
-                 prior_prob: float = 0.01, dtype=torch.float32):
+                 prior_prob: float = 0.01, p_uncond: float = 0.1,
+                 dtype=torch.float32):
         super().__init__()
         self.d_model, self.top_k = d_model, tuple(top_k)
+        self.p_uncond = p_uncond
         self.global_stages, self.global_enable = global_stages, global_enable
         kw = dict(d_model=d_model, num_classes=num_classes,
                   dim_feedforward=dim_feedforward, num_heads=nheads,
@@ -320,9 +323,12 @@ class DynamicHead(nn.Module):
         return feats, feats[:, :k2]
 
     def condition(self, features, spatial_scales, bboxes, pro_features, t,
-                  memory, memory_mask, memory_dis=None, memory_dis_mask=None):
+                  memory, memory_mask, memory_dis=None, memory_dis_mask=None,
+                  null=None):
         """Global cross-attention + the conditioned stage(s).  pro_features
-        [B, N, D]; memory [M, D] with validity ``memory_mask`` [M]."""
+        [B, N, D]; memory [M, D] with validity ``memory_mask`` [M].  In
+        training, ``null`` [B] bool nulls the condition of those frames
+        (classifier-free guidance, box_head.py:386-394)."""
         if not self.global_enable:
             raise NotImplementedError(
                 "conditioning without GLOBAL.ENABLE needs the local attention, "
@@ -332,6 +338,8 @@ class DynamicHead(nn.Module):
         query = pro_features.reshape(1, b * n, d)
         attn = self._global_chain(query, memory, memory_mask, memory_dis,
                                   memory_dis_mask, b, n, d)
+        if null is not None:
+            attn = attn.masked_fill(null[:, None, None], 0.0)
         inter_logits, inter_boxes = [], []
         for head in self.head_series_cond:
             logits, pred, pro_features = head(features, spatial_scales, bboxes,
@@ -340,6 +348,27 @@ class DynamicHead(nn.Module):
             inter_boxes.append(pred)
             bboxes = pred.detach()
         return inter_logits, inter_boxes, pro_features
+
+    def forward(self, features, spatial_scales, bboxes, t, num_global: int, null):
+        """Training forward (box_head.py:273-435, the flagship branch: no
+        local attention).  ``bboxes`` [B, N, 4] noisy boxes for B = 1 current
+        + ``num_global`` frames; the global kv is the top-k features of the
+        trailing ``num_global`` frames, with their gradient; ``null`` [B]
+        bool is the classifier-free-guidance null mask.  Returns the stacked
+        logits [S, B, N, K] and boxes [S, B, N, 4] of every stage."""
+        inter_logits, inter_boxes, pro, _ = self.shared_stages(
+            features, spatial_scales, bboxes, t)
+        if len(self.head_series_cond) == 0:
+            return torch.stack(inter_logits), torch.stack(inter_boxes)
+        k1, _ = self.topk_features(inter_logits[-1], pro)
+        kv = k1[-num_global:] if num_global > 0 else k1
+        kv = kv.reshape(-1, self.d_model)
+        kv_mask = torch.ones(kv.shape[0], dtype=torch.bool, device=kv.device)
+        cond_logits, cond_boxes, _ = self.condition(
+            features, spatial_scales, inter_boxes[-1].detach(), pro, t, kv, kv_mask,
+            null=null)
+        return (torch.stack(inter_logits + cond_logits),
+                torch.stack(inter_boxes + cond_boxes))
 
     def _global_chain(self, query, memory, memory_mask, memory_dis,
                       memory_dis_mask, b, n, d):

@@ -32,15 +32,21 @@ RESNET_FEATURE_STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32}
 
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with frozen statistics, folded to one scale and shift
-    (detectron2 FrozenBatchNorm2d, eps 1e-5).  NCHW."""
+    (detectron2 FrozenBatchNorm2d, eps 1e-5).  NCHW.
+
+    As in the JAX package, and unlike detectron2, whose four tensors are
+    buffers, all four are parameters: the trainer updates ``weight`` and
+    ``bias`` with the backbone and never updates ``running_mean`` and
+    ``running_var``, whose gradients still count in the gradient clip
+    (``engine/train.py``).  The state-dict names are detectron2's."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.running_mean = nn.Parameter(torch.zeros(num_features))
+        self.running_var = nn.Parameter(torch.ones(num_features))
 
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)

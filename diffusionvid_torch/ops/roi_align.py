@@ -1,17 +1,21 @@
-"""Multilevel ROIAlignV2 forward: kernel K1 and its plain version.
+"""Multilevel ROIAlignV2: kernel K1 (forward), kernel K3 (feature gradient)
+and their plain versions.
 
 Port of ``diffusionvid_tpu/ops/roi_align.py`` (the gather form, which is
-the plain version here) and of the Pallas forward
-``ops/roi_align_pallas.py: multilevel_roi_align_mxu`` (the CUDA kernel
-``csrc/roi_align_fwd.cu``).  Feature maps are NHWC with channels
+the plain forward here, and the custom VJP ``_pra_bwd``) and of the Pallas
+kernels ``ops/roi_align_pallas.py: multilevel_roi_align_mxu`` (the CUDA
+kernel ``csrc/roi_align_fwd.cu``) and ``multilevel_roi_align_bwd_mxu``
+(``csrc/roi_align_bwd.cu``).  Feature maps are NHWC with channels
 contiguous; the output is the flat ``[B, R, p*p, C]`` tile in row-major
 (py, px) order that ``DynamicConv``'s out-projection consumes.
 
 Level assignment follows detectron2 (canonical box 224 at level 4).  The
 border rule is the CUDA one: a sample is zero if its coordinate is below -1
-or above the size, and is clamped otherwise.  The kernel and the plain
-version share ``fpn_level_assignment``, computed here in PyTorch, so both
-pool every ROI from the same level.
+or above the size, and is clamped otherwise.  The kernels and the plain
+versions share ``fpn_level_assignment``, computed here in PyTorch, so both
+pool every ROI from the same level.  The gradient reaches the features
+only: the ROI gradient is zero, as in the JAX package's ``_pra_bwd`` and
+the reference CUDA backward.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K3 tiles: cells (rows x columns) per block, as compiled
+_BWD_CELLS = 256
 
 
 def fpn_level_assignment(rois, num_levels: int, min_level: int,
@@ -48,6 +54,39 @@ def _levels(features, rois, spatial_scales):
     return fpn_level_assignment(rois, len(features), min_level)
 
 
+def _sample_coords(rois, level, sizes, spatial_scales, p: int, sr: int,
+                   aligned: bool):
+    """Per ROI, the ``p*sr`` sample coordinates along y and x in its level's
+    cells, ``[B, R, p*sr]`` each, and its level's height and width
+    ``[B, R]``.  The kernels compute the same coordinates with the same
+    rounding."""
+    dev = rois.device
+    level = level.long()
+    scales = torch.tensor(spatial_scales, dtype=torch.float32, device=dev)[level]
+    lvl_h = torch.tensor([s[0] for s in sizes], device=dev)[level]
+    lvl_w = torch.tensor([s[1] for s in sizes], device=dev)[level]
+    half = 0.5 if aligned else 0.0
+    rf = rois.float()
+    x1 = rf[..., 0] * scales - half
+    y1 = rf[..., 1] * scales - half
+    x2 = rf[..., 2] * scales - half
+    y2 = rf[..., 3] * scales - half
+    roi_w, roi_h = x2 - x1, y2 - y1
+    if not aligned:
+        roi_w, roi_h = roi_w.clamp(min=1.0), roi_h.clamp(min=1.0)
+    # divide by a tensor: PyTorch turns division by a Python number into a
+    # multiplication by its reciprocal on CUDA, which moves the sample
+    # coordinates by an ulp from the IEEE quotient that JAX and the kernels use
+    bin_h = roi_h / torch.full_like(roi_h, p)
+    bin_w = roi_w / torch.full_like(roi_w, p)
+    grid = (torch.arange(p, dtype=torch.float32, device=dev)[:, None]
+            + (torch.arange(sr, dtype=torch.float32, device=dev)[None, :] + 0.5)
+            / sr).reshape(-1)                                    # [p*sr]
+    ys = y1[..., None] + bin_h[..., None] * grid
+    xs = x1[..., None] + bin_w[..., None] * grid
+    return ys, xs, lvl_h, lvl_w
+
+
 def multilevel_roi_align_ref(features: Sequence[torch.Tensor], rois,
                              spatial_scales: Sequence[float],
                              output_size: int = 7, sampling_ratio: int = 2,
@@ -65,32 +104,11 @@ def multilevel_roi_align_ref(features: Sequence[torch.Tensor], rois,
     for hl, wl in sizes[:-1]:
         offsets.append(offsets[-1] + hl * wl)
 
-    level = _levels(features, rois, spatial_scales).long()
-    scales = torch.tensor(spatial_scales, dtype=torch.float32, device=dev)[level]
-    lvl_h = torch.tensor([s[0] for s in sizes], device=dev)[level]
-    lvl_w = torch.tensor([s[1] for s in sizes], device=dev)[level]
-    lvl_off = torch.tensor(offsets, device=dev)[level]
-
-    half = 0.5 if aligned else 0.0
-    rf = rois.float()
-    x1 = rf[..., 0] * scales - half
-    y1 = rf[..., 1] * scales - half
-    x2 = rf[..., 2] * scales - half
-    y2 = rf[..., 3] * scales - half
-    roi_w, roi_h = x2 - x1, y2 - y1
-    if not aligned:
-        roi_w, roi_h = roi_w.clamp(min=1.0), roi_h.clamp(min=1.0)
-    # divide by a tensor: PyTorch turns division by a Python number into a
-    # multiplication by its reciprocal on CUDA, which moves the sample
-    # coordinates by an ulp from the IEEE quotient that JAX and the kernel use
-    bin_h = roi_h / torch.full_like(roi_h, p)
-    bin_w = roi_w / torch.full_like(roi_w, p)
-
-    grid = (torch.arange(p, dtype=torch.float32, device=dev)[:, None]
-            + (torch.arange(sr, dtype=torch.float32, device=dev)[None, :] + 0.5)
-            / sr).reshape(-1)                                    # [p*sr]
-    ys = (y1[..., None] + bin_h[..., None] * grid)[..., :, None]  # [B,R,s,1]
-    xs = (x1[..., None] + bin_w[..., None] * grid)[..., None, :]  # [B,R,1,s]
+    level = _levels(features, rois, spatial_scales)
+    ys, xs, lvl_h, lvl_w = _sample_coords(rois, level, sizes, spatial_scales,
+                                          p, sr, aligned)
+    lvl_off = torch.tensor(offsets, device=dev)[level.long()]
+    ys, xs = ys[..., :, None], xs[..., None, :]                 # [B,R,s,1], [B,R,1,s]
     hh = lvl_h[..., None, None].float()
     ww = lvl_w[..., None, None].float()
 
@@ -119,15 +137,85 @@ def multilevel_roi_align_ref(features: Sequence[torch.Tensor], rois,
     return out.reshape(b, r, p * p, c).to(features[0].dtype)
 
 
+def _band_params(coords, sizes):
+    """Per sample: (lo int64, w_lo, w_hi) with ROIAlign border semantics
+    (copy of the JAX package's ``roi_align_pallas._band_params``).
+    ``sizes`` broadcasts per ROI.  lo in [0, size-2]; the weights absorb the
+    clamping: a sample in the last cell puts its whole weight on slot 1."""
+    sz = sizes.float()
+    inside = (coords >= -1.0) & (coords <= sz)
+    cc = torch.minimum(coords.clamp(min=0.0), sz - 1.0)
+    low = torch.floor(cc)
+    high = torch.minimum(low + 1.0, sz - 1.0)
+    frac = cc - low
+    w_low = (1.0 - frac) * inside
+    w_high = torch.where(high > low, frac * inside, torch.zeros_like(frac))
+    lo = torch.minimum(low, (sz - 2.0).clamp(min=0.0))
+    shifted = low > lo
+    w0 = torch.where(shifted, torch.zeros_like(w_low), w_low)
+    w1 = torch.where(shifted, w_low, w_high)
+    return lo.long(), w0, w1
+
+
+def multilevel_roi_align_bwd_ref(g, rois, feature_shapes, spatial_scales,
+                                 out_dtype, output_size: int = 7,
+                                 sampling_ratio: int = 2, aligned: bool = True):
+    """The plain version of K3: the feature gradient of
+    ``multilevel_roi_align`` for a row-major ``[B, R, p*p, C]`` cotangent.
+    Every sample adds ``g[bin] * wy * wx / sr^2`` into the two-by-two
+    corner cells of its level's band (``_band_params``), in fp32, with one
+    ``scatter_add_`` per level and corner.  Returns the per-level
+    ``[B, Hl, Wl, C]`` gradients in ``out_dtype``."""
+    b, r, _, c = g.shape
+    p, sr = output_size, sampling_ratio
+    s = p * sr
+    sizes = [tuple(int(v) for v in hw) for hw in feature_shapes]
+    level = _levels(sizes, rois, spatial_scales)
+    ys, xs, lvl_h, lvl_w = _sample_coords(rois, level, sizes, spatial_scales,
+                                          p, sr, aligned)
+    ylo, wy0, wy1 = _band_params(ys, lvl_h[..., None])
+    xlo, wx0, wx1 = _band_params(xs, lvl_w[..., None])
+    # the cotangent of every sample, [B, R, s, s, C], with the 1/sr^2 mean
+    gs = (g.float().reshape(b, r, p, 1, p, 1, c) / (sr * sr)).expand(
+        b, r, p, sr, p, sr, c).reshape(b, r, s, s, c)
+    grads = []
+    for li, (hl, wl) in enumerate(sizes):
+        sel = (level == li).float()[..., None, None]               # [B,R,1,1]
+        df = torch.zeros(b, hl * wl, c, dtype=torch.float32, device=g.device)
+        for dy, wy in ((0, wy0), (1, wy1)):
+            yy = (ylo + dy).clamp(max=hl - 1)[..., :, None]
+            for dx, wx in ((0, wx0), (1, wx1)):
+                xx = (xlo + dx).clamp(max=wl - 1)[..., None, :]
+                w = wy[..., :, None] * wx[..., None, :] * sel          # [B,R,s,s]
+                idx = (yy * wl + xx).reshape(b, -1, 1).expand(-1, -1, c)
+                df.scatter_add_(1, idx, (gs * w[..., None]).reshape(b, -1, c))
+        grads.append(df.reshape(b, hl, wl, c).to(out_dtype))
+    return grads
+
+
+def _check_common(rois, n_levels, b, c, dtype, output_size, sampling_ratio,
+                  aligned):
+    if n_levels != 3:
+        raise ValueError("the ROIAlign kernels take exactly 3 FPN levels")
+    if output_size != 7 or sampling_ratio != 2 or not aligned:
+        raise ValueError("the ROIAlign kernels are 7x7, sampling ratio 2, aligned")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"the ROIAlign kernels take float32 or bfloat16, not {dtype}")
+    if c % 2 or not 56 <= c <= 2048:
+        # K1: one thread per channel pair, and at least 28 threads for the
+        # 2 x 14 sample positions each block computes first
+        raise ValueError(f"the ROIAlign kernels need an even channel count in "
+                         f"[56, 2048], got {c}")
+    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[0] != b \
+            or rois.shape[2] != 4 or not rois.is_contiguous():
+        raise ValueError("rois must be contiguous float32 [B, R, 4]")
+
+
 def _check_kernel_inputs(features, rois, spatial_scales, output_size,
                          sampling_ratio, aligned):
-    if len(features) != 3 or len(spatial_scales) != 3:
-        raise ValueError("the ROIAlign kernel takes exactly 3 FPN levels")
-    if output_size != 7 or sampling_ratio != 2 or not aligned:
-        raise ValueError("the ROIAlign kernel is 7x7, sampling ratio 2, aligned")
+    if len(features) != len(spatial_scales):
+        raise ValueError("one spatial scale per feature map")
     dt = features[0].dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"the ROIAlign kernel takes float32 or bfloat16, not {dt}")
     b, _, _, c = features[0].shape
     for f in features:
         if f.device != rois.device or f.dtype != dt:
@@ -136,39 +224,29 @@ def _check_kernel_inputs(features, rois, spatial_scales, output_size,
             raise ValueError(f"feature map shape {tuple(f.shape)} is not [B, H, W, {c}]")
         if not f.is_contiguous():
             raise ValueError("feature maps must be contiguous NHWC")
-    if c % 2 or not 56 <= c <= 2048:
-        # one thread per channel pair, and at least 28 threads for the
-        # 2 x 14 sample positions each block computes first
-        raise ValueError(f"the ROIAlign kernel needs an even channel count in "
-                         f"[56, 2048], got {c}")
-    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[0] != b \
-            or rois.shape[2] != 4 or not rois.is_contiguous():
-        raise ValueError("rois must be contiguous float32 [B, R, 4]")
-    if any(f.requires_grad for f in features) or rois.requires_grad:
-        raise NotImplementedError(
-            "the ROIAlign backward kernel is not ported yet: call under "
-            "torch.no_grad() on CUDA")
+    _check_common(rois, len(features), b, c, dt, output_size, sampling_ratio, aligned)
 
 
-def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
-                         spatial_scales: Sequence[float],
-                         output_size: int = 7, sampling_ratio: int = 2,
-                         aligned: bool = True):
-    """Multilevel ROIAlignV2 → ``[B, R, p*p, C]`` in the features' dtype.
+def _check_bwd_inputs(g, rois, feature_shapes, spatial_scales, out_dtype,
+                      output_size, sampling_ratio, aligned):
+    if len(feature_shapes) != len(spatial_scales):
+        raise ValueError("one spatial scale per feature map")
+    if g.dim() != 4 or g.shape[:2] != rois.shape[:2] \
+            or g.shape[2] != output_size ** 2 or not g.is_contiguous():
+        raise ValueError(f"the cotangent must be contiguous [B, R, "
+                         f"{output_size ** 2}, C], got {tuple(g.shape)}")
+    if g.dtype != out_dtype or g.device != rois.device:
+        raise ValueError(f"the cotangent must be {out_dtype} on the rois' device, "
+                         f"got {g.dtype} on {g.device}")
+    _check_common(rois, len(feature_shapes), g.shape[0], g.shape[3], out_dtype,
+                  output_size, sampling_ratio, aligned)
 
-    On CPU tensors this is the plain version.  On CUDA tensors it launches
-    kernel K1 (``csrc/roi_align_fwd.cu``) or raises."""
-    if rois.device.type == "cpu":
-        return multilevel_roi_align_ref(features, rois, spatial_scales,
-                                        output_size, sampling_ratio, aligned)
-    _check_kernel_inputs(features, rois, spatial_scales, output_size,
-                         sampling_ratio, aligned)
+
+def _launch_fwd(features, rois, level, spatial_scales):
     f0, f1, f2 = features
     b, r = rois.shape[:2]
     c = f0.shape[3]
-    level = _levels(features, rois, spatial_scales).contiguous()
-    out = torch.empty((b, r, output_size * output_size, c), dtype=f0.dtype,
-                      device=rois.device)
+    out = torch.empty((b, r, 49, c), dtype=f0.dtype, device=rois.device)
     if b * r == 0:
         return out
     lib = _build.load("roi_align_fwd")
@@ -186,6 +264,104 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
     _build.check(lib, err, "roi_align_fwd")
     multilevel_roi_align.launches += 1
     return out
+
+
+def _bwd_tiling(feature_shapes):
+    """Per level: (rows per tile, columns per tile, tiles across, tiles)."""
+    out = []
+    for h, w in feature_shapes:
+        tw = min(w, _BWD_CELLS)
+        tr = _BWD_CELLS // tw
+        nx = -(-w // tw)
+        out.append((tr, tw, nx, nx * -(-h // tr)))
+    return out
+
+
+def _launch_bwd(g, rois, level, feature_shapes, spatial_scales):
+    b, r, _, c = g.shape
+    grads = [torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+             for h, w in feature_shapes]
+    if b == 0:
+        return grads
+    lib = _build.load("roi_align_bwd")
+    fn = lib.roi_align_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    tiling = [v for lvl in _bwd_tiling(feature_shapes) for v in lvl]
+    err = fn(grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+             *[int(v) for hw in feature_shapes for v in hw],
+             *[float(s) for s in spatial_scales],
+             g.data_ptr(), rois.data_ptr(), level.data_ptr(),
+             *tiling, b, r, c, _DTYPE_CODE[g.dtype], _build.stream_ptr(g.device))
+    _build.check(lib, err, "roi_align_bwd")
+    multilevel_roi_align_bwd.launches += 1
+    return grads
+
+
+def multilevel_roi_align_bwd(g, rois, feature_shapes, spatial_scales, out_dtype,
+                             output_size: int = 7, sampling_ratio: int = 2,
+                             aligned: bool = True):
+    """Feature gradient of ``multilevel_roi_align``: a row-major
+    ``[B, R, p*p, C]`` cotangent → per-level ``[B, Hl, Wl, C]`` in
+    ``out_dtype``, accumulated in fp32.
+
+    On CPU tensors this is the plain version.  On CUDA tensors it launches
+    kernel K3 (``csrc/roi_align_bwd.cu``) or raises."""
+    if g.device.type == "cpu":
+        return multilevel_roi_align_bwd_ref(g, rois, feature_shapes, spatial_scales,
+                                            out_dtype, output_size, sampling_ratio,
+                                            aligned)
+    shapes = [tuple(int(v) for v in hw) for hw in feature_shapes]
+    _check_bwd_inputs(g, rois, shapes, spatial_scales, out_dtype, output_size,
+                      sampling_ratio, aligned)
+    level = _levels(shapes, rois, spatial_scales).contiguous()
+    return _launch_bwd(g, rois, level, shapes, spatial_scales)
+
+
+multilevel_roi_align_bwd.launches = 0
+
+
+class _RoiAlignFn(torch.autograd.Function):
+    """K1 forward, K3 backward; the ROI gradient is zero (``None``), as in
+    the JAX package's ``_pra_bwd`` and the reference CUDA backward."""
+
+    @staticmethod
+    def forward(ctx, rois, level, spatial_scales, *features):
+        ctx.save_for_backward(rois, level)
+        ctx.scales = spatial_scales
+        ctx.shapes = [(f.shape[1], f.shape[2]) for f in features]
+        ctx.dtype = features[0].dtype
+        return _launch_fwd(features, rois, level, spatial_scales)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not any(ctx.needs_input_grad[3:]):
+            return (None,) * len(ctx.needs_input_grad)
+        rois, level = ctx.saved_tensors
+        grads = _launch_bwd(grad.to(ctx.dtype).contiguous(), rois, level,
+                            ctx.shapes, ctx.scales)
+        return (None, None, None, *grads)
+
+
+def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
+                         spatial_scales: Sequence[float],
+                         output_size: int = 7, sampling_ratio: int = 2,
+                         aligned: bool = True):
+    """Multilevel ROIAlignV2 → ``[B, R, p*p, C]`` in the features' dtype.
+
+    On CPU tensors this is the plain version, differentiable by autograd.
+    On CUDA tensors it launches kernel K1 (``csrc/roi_align_fwd.cu``), and
+    its gradient launches kernel K3 (``csrc/roi_align_bwd.cu``), or it
+    raises."""
+    if rois.device.type == "cpu":
+        return multilevel_roi_align_ref(features, rois, spatial_scales,
+                                        output_size, sampling_ratio, aligned)
+    _check_kernel_inputs(features, rois, spatial_scales, output_size,
+                         sampling_ratio, aligned)
+    level = _levels(features, rois, spatial_scales).contiguous()
+    return _RoiAlignFn.apply(rois, level, tuple(spatial_scales), *features)
 
 
 multilevel_roi_align.launches = 0

@@ -1,9 +1,9 @@
 """Box structures and box ops on tensors.
 
 Port of ``diffusionvid_tpu/structures/boxes.py``: a fixed-size padded
-detection set plus a validity mask, and the xyxy/cxcywh, IoU, clipping and
-delta-decoding functions the inference path uses.  Every function takes
-leading batch dimensions.
+detection set plus a validity mask, and the xyxy/cxcywh, IoU, GIoU,
+clipping and delta-decoding functions the inference and training paths
+use.  Every function takes leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -53,6 +53,34 @@ def pairwise_iou(boxes1, boxes2, plus_one: bool = False):
     a2 = box_area(boxes2, plus_one)
     union = a1[..., :, None] + a2[..., None, :] - inter
     return inter / union.clamp(min=torch.finfo(inter.dtype).tiny)
+
+
+def pairwise_giou(boxes1, boxes2):
+    """Generalized IoU [..., N, M] (reference: generalized_box_iou,
+    loss.py:231-254)."""
+    iou = pairwise_iou(boxes1, boxes2)
+    inter = pairwise_intersection(boxes1, boxes2)
+    union = box_area(boxes1)[..., :, None] + box_area(boxes2)[..., None, :] - inter
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull.clamp(min=torch.finfo(iou.dtype).tiny)
+
+
+def elementwise_giou(boxes1, boxes2):
+    """GIoU of boxes1[..., i] against boxes2[..., i]."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    iou = inter / union.clamp(min=torch.finfo(inter.dtype).tiny)
+    lt_h = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb_h = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh_h = (rb_h - lt_h).clamp(min=0.0)
+    hull = wh_h[..., 0] * wh_h[..., 1]
+    return iou - (hull - union) / hull.clamp(min=torch.finfo(iou.dtype).tiny)
 
 
 def clip_to_image(boxes, image_size_hw, plus_one: bool = False):

@@ -190,16 +190,13 @@ def _k1_bad(case):
         feats[2] = feats[2].float()
     if case == "rois_float64":
         rois = rois.double()
-    if case == "requires_grad":
-        rois = rois.requires_grad_()
     return (feats, rois, scales), {}
 
 
 @pytest.mark.parametrize("case,error", [
     ("float16", TypeError), ("two_levels", ValueError), ("output_size", ValueError),
     ("odd_channels", ValueError), ("not_contiguous", ValueError),
-    ("mixed_dtypes", ValueError), ("rois_float64", ValueError),
-    ("requires_grad", NotImplementedError)])
+    ("mixed_dtypes", ValueError), ("rois_float64", ValueError)])
 def test_roi_align_wrapper_rejects(stop_at_launch, case, error):
     args, kw = _k1_bad(case)
     with pytest.raises(error):
