@@ -12,27 +12,33 @@ Phases, one JSON line each:
               bound from bytes and flops.  The ROIAlign backward (K3) runs
               at the R-101 train shapes (5 frames at 608x1024, 300 ROIs) and
               is launched twice to show that it is deterministic.  The Swin
-              half-blocks (K4, K5) run
-              at the four Swin-B stage maps of 608x1024, 4 frames, with
-              shift 0 and 3 (masked) and the true valid sizes; their line
-              holds the per-stage numbers, and their ``ms`` and ``bound_ms``
-              are means per launch over one backbone pass (stage depths
-              2, 2, 18, 2);
-  4. tiny     a depth-18 model, then a Swin-T model, on 64x96 frames
-              through the whole x1 streaming path, once on the card through
-              the kernels and once on the CPU through the plain versions,
-              same weights and noise, float32, TF32 off;
+              kernels run at the four Swin-B stage maps of 608x1024 (4
+              frames for K4, K5 and K7, 5 for K6, the train step's), with
+              shift 0 and 3 (masked) and the true valid sizes, then at
+              Swin-T's widths; their line holds the per-stage numbers, and
+              their ``ms`` and ``bound_ms`` are means per launch over one
+              backbone pass (stage depths 2, 2, 18, 2).  K6 and K7 also
+              time ``F.scaled_dot_product_attention`` over the partitioned
+              windows as ``library_ms``; K6 times its backward and checks
+              its autograd gradients against the twin's in float32;
+  4. tiny     a depth-18 model, then a Swin-T model in each kernel mode
+              (v3: K4/K5, v2: K6, v1: K7), on 64x96 frames through the whole
+              x1 streaming path, once on the card through the kernels and
+              once on the CPU through the plain versions, same weights and
+              noise, float32, TF32 off;
   5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
               finite outputs and the kernels' launch counts, prints fps,
               peak memory and one chunk's device time by kernel;
   6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
-              24 global frames then 6 chunks of 4 frames at 608x1024;
+              24 global frames then 6 chunks of 4 frames at 608x1024; then
+              ``flagship_swin_v1``, the trunk in mode v1 (K7), 2 chunks;
   7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
               (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
               and on the CPU through the plain versions, same weights, batch
-              and draws, float32, TF32 off: losses and every gradient;
+              and draws, float32, TF32 off: losses and every gradient; then
+              ``tiny_train_swin``, the same with a Swin-T trunk (K6);
   8. flagship_train the R-101 train step (``engine/train.py``) at full width
               with random weights and random GT from ``--seed``: 5 frames at
               608x1024, bf16, ACCUMULATION_STEPS 2; 2 warm-up optimizer steps,
@@ -40,7 +46,9 @@ Phases, one JSON line each:
               4 launches each of K1, K2 and K3 per micro-step, prints ms per
               optimizer step, frames/s, peak memory, one micro-step's
               device time by kernel and host time by operator, and the
-              time the criterion takes in a micro-step.
+              time the criterion takes in a micro-step; then
+              ``flagship_train_swin``, the Swin-B train step the same way
+              with 3 timed steps and 24 launches of K6 per micro-step.
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -383,6 +391,137 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
     return out
 
 
+def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
+    """``F.scaled_dot_product_attention`` over the partitioned windows of
+    the maps q, k, v, the relative-position bias and the SW-MSA mask as its
+    ``attn_mask``: the attention core without the relayouts and without the
+    scores' round trip."""
+    import torch.nn.functional as F
+    from diffusionvid_torch.ops.swin_attention import _partition
+    b, hp, wp, c = q.shape
+    nw = (hp // 7) * (wp // 7)
+
+    def part(t):
+        return (_partition(t, 7).view(b, nw, 49, heads, c // heads).permute(0, 1, 3, 2, 4)
+                .reshape(b, nw * heads, 49, c // heads).contiguous())
+
+    qp, kp, vp = part(q), part(k), part(v)
+    am = bias.float()[None].expand(nw, -1, -1, -1)
+    if mask is not None:
+        am = am + mask.reshape(nw, 1, 49, 49)
+    am = am.reshape(1, nw * heads, 49, 49).to(q.dtype)
+    return cuda_time_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp, attn_mask=am),
+                        iters=10)
+
+
+def _k6_grads(x, wqkv, bqkv, bias, mask, heads: int) -> float:
+    """``WindowAttentionQKVFn``'s gradients for x, wqkv, bqkv and bias on
+    the card against ``torch.autograd.grad`` of the twin; the worst relative
+    error in norm."""
+    from diffusionvid_torch.ops import window_attention as wa
+    ins = [t.detach().clone().requires_grad_() for t in (x, wqkv, bqkv, bias)]
+    out = wa.WindowAttentionQKVFn.apply(*ins, mask, 7, heads)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, ins, g)
+    ref = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(wa.window_attention_qkv_einsum(*ref, mask, 7, heads), ref, g)
+    return max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+               for a, b in zip(got, want))
+
+
+def _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads: int) -> float:
+    """The backward of one ``WindowAttentionQKVFn`` launch: the twin's
+    recompute and its gradients."""
+    from diffusionvid_torch.ops import window_attention as wa
+    ins = [t.detach().clone().requires_grad_() for t in (x, wqkv, bqkv, bias)]
+    out = wa.WindowAttentionQKVFn.apply(*ins, mask, 7, heads)
+    g = torch.randn_like(out)
+    return cuda_time_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
+                        iters=3, warmup=1)
+
+
+def _window_check(name, gen, dev, dtype, timing: bool):
+    """K6 (``window_attn_qkv``, on 5-frame maps, the train step's) or K7
+    (``window_attn``, 4-frame maps, the v1 stream's) at the four Swin-B stage
+    maps, then at Swin-T's, with shift 0 and 3, against the plain version.
+    With ``timing``, per Swin-B stage also the plain version's time, the
+    bound, ``library_ms`` (``_sdpa_ms``) and, for K6, ``bwd_ms``
+    (``_k6_backward_ms``), and their means over one backbone pass.  K6 in
+    fp32 also checks its autograd gradients at stage 1, shift 3."""
+    from diffusionvid_torch.models.swin import shift_attn_mask
+    from diffusionvid_torch.ops import window_attention as wa
+    qkv = name == "window_attn_qkv"
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    rows, worst, extra = [], 0.0, {}
+    frames_b = TRAIN["frames"] if qkv else SWIN_FRAMES
+    stages = [(st, frames_b) for st in SWIN_B_STAGES] + [(st, 2) for st in SWIN_T_STAGES]
+    for s, (st, frames) in enumerate(stages):
+        timed = timing and s < len(SWIN_B_STAGES)
+        x, attn, _, (hp, wp) = _swin_inputs(gen, dev, dtype, st, frames)
+        c, heads = st["c"], st["heads"]
+        wqkv, bqkv, bias = attn[2], attn[3], attn[4]
+        m = x.numel() // c
+        if qkv:
+            q, k, v = (torch.nn.functional.linear(x, wqkv[i * c:(i + 1) * c]) for i in range(3))
+        else:
+            q, k, v = x, *(torch.randn(x.shape, generator=gen).to(dev, dtype) for _ in range(2))
+        for shift in (0, 3):
+            mask = None
+            if shift:
+                mask = torch.from_numpy(shift_attn_mask(hp, wp, 7, shift)).to(dev).reshape(
+                    hp // 7, wp // 7, 49, 49)
+            if qkv:
+                args = (x, wqkv, bqkv, bias, mask, 7, heads)
+                fn, ref = wa.window_attention_qkv, wa.window_attention_qkv_ref
+                flops = 6 * m * c * c + 4 * m * 49 * c
+                nbytes = (2 * x.numel() + 3 * c * c) * elt + (3 * c + heads * 2401) * 4
+            else:
+                args = (q, k, v, bias, mask, 7)
+                fn, ref = wa.window_attention, wa.window_attention_ref
+                flops = 4 * m * 49 * c
+                nbytes = 4 * x.numel() * elt + heads * 2401 * 4
+            nbytes += 0 if mask is None else mask.numel() * 4
+            got = fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            what = f"{name} {dtype} stage {s} shift {shift}"
+            res = compare(got, want, *tol, what)
+            res["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
+            require(res["mean_abs_err"] < MEAN_ERR[dtype],
+                    f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
+            res.update(stage=s, shape=list(x.shape), shift=shift)
+            worst = max(worst, res["max_abs_err"])
+            del got, want
+            if timed:
+                res["blocks"] = st["depth"] / 2
+                res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
+                res["bound_ms_bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+                res["gflop"] = flops / 1e9
+                res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
+                res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
+                res["library_ms"] = _sdpa_ms(q, k, v, bias, mask, heads)
+                if qkv:
+                    res["bwd_ms"] = _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads)
+            if qkv and dtype == torch.float32 and s == 1 and shift:
+                extra["grad_max_rel_err"] = _k6_grads(x, wqkv, bqkv, bias, mask, heads)
+                extra["grad_stage"] = s
+                require(extra["grad_max_rel_err"] < 1e-4,
+                        f"K6 backward: rel err {extra['grad_max_rel_err']} over 1e-4")
+            rows.append(res)
+            torch.cuda.empty_cache()
+        del x, attn, q, k, v
+        torch.cuda.empty_cache()
+    out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows, **extra}
+    if timing:
+        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "library_ms") + (
+            ("bwd_ms",) if qkv else ())
+        out.update(_pass_means([r for r in rows if "blocks" in r], keys))
+        out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
+                           else "operations")
+    return out
+
+
 # bf16 kernel vs plain version on the card, same inputs: both round at the
 # same points, but their fp32 sums run in other orders, so an intermediate
 # next to a bf16 rounding boundary (an LN output, a score, a probability, a
@@ -392,7 +531,8 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
 # allows two.  The mean error over a map stays far below one step (about
 # 1e-5 measured); a mean bound of 1e-3 catches an error that is small but
 # everywhere, as a misplaced bias would be.
-TOLERANCE_BF16 = {"swin_block_attn": (6e-2, 2 ** -6), "swin_block_mlp": (6e-2, 2 ** -6)}
+TOLERANCE_BF16 = {"swin_block_attn": (6e-2, 2 ** -6), "swin_block_mlp": (6e-2, 2 ** -6),
+                  "window_attn_qkv": (6e-2, 2 ** -6), "window_attn": (6e-2, 2 ** -6)}
 MEAN_ERR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 
@@ -414,18 +554,32 @@ KERNELS = {
         route="cuda", source="diffusionvid_torch/csrc/swin_block_mlp.cu",
         replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:424",
         check=functools.partial(_swin_check, "swin_block_mlp")),
+    "window_attn_qkv": dict(
+        route="cuda", source="diffusionvid_torch/csrc/window_attn_qkv.cu",
+        replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:186",
+        check=functools.partial(_window_check, "window_attn_qkv")),
+    "window_attn": dict(
+        route="cuda", source="diffusionvid_torch/csrc/window_attn_qkv.cu",
+        replaces="diffusionvid_tpu/ops/swin_attention_pallas.py:471",
+        check=functools.partial(_window_check, "window_attn")),
 }
+# the Swin kernels each trunk mode runs
+SWIN_MODE_KERNELS = {"v3": ("swin_block_attn", "swin_block_mlp"), "v2": ("window_attn_qkv",),
+                     "v1": ("window_attn",)}
 
 
 def launch_counters():
     from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused
     from diffusionvid_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_bwd
     from diffusionvid_torch.ops.swin_attention import swin_block_attn, swin_block_mlp
+    from diffusionvid_torch.ops.window_attention import window_attention, window_attention_qkv
     return {"roi_align_fwd": multilevel_roi_align,
             "dynamic_conv": dynamic_conv_fused,
             "roi_align_bwd": multilevel_roi_align_bwd,
             "swin_block_attn": swin_block_attn,
-            "swin_block_mlp": swin_block_mlp}
+            "swin_block_mlp": swin_block_mlp,
+            "window_attn_qkv": window_attention_qkv,
+            "window_attn": window_attention}
 
 
 def reset_launches():
@@ -485,10 +639,11 @@ def _tiny_model(kind: str, gen, props: int):
     return model.eval()
 
 
-def phase_tiny(seed: int, kind: str):
-    """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, 16
-    proposals, 64x96 frames, float32, TF32 off: the card (kernels) against
-    the CPU (plain versions), same weights and noise."""
+def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3"):
+    """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, its trunk in
+    mode ``swin_kernel``, 16 proposals, 64x96 frames, float32, TF32 off: the
+    card (kernels) against the CPU (plain versions), same weights and
+    noise."""
     import copy
 
     from diffusionvid_torch.engine.streaming import StreamingDetector
@@ -498,6 +653,8 @@ def phase_tiny(seed: int, kind: str):
     gen = torch.Generator().manual_seed(seed)
     h, w, props = 64, 96, 16
     cpu = _tiny_model(kind, gen, props)
+    if kind == "swin":
+        cpu.backbone.bottom_up.kernel_mode = swin_kernel
     card = copy.deepcopy(cpu).cuda()
     kw = dict(infer_batch=2, mem_size=64, mem_dis_size=32, num_proposals=props,
               detections_per_img=props)
@@ -512,13 +669,16 @@ def phase_tiny(seed: int, kind: str):
     torch.cuda.synchronize()
     used = read_launches()
     path = ["roi_align_fwd", "dynamic_conv"] + (
-        ["swin_block_attn", "swin_block_mlp"] if kind == "swin" else [])
-    require(all(used[k] > 0 for k in path), f"tiny {kind} card run missed a kernel: {used}")
+        list(SWIN_MODE_KERNELS[swin_kernel]) if kind == "swin" else [])
+    require(all((used[k] > 0) == (k in path) for k in used),
+            f"tiny {kind} {swin_kernel}: card run launched {used}, expected exactly {path}")
     p_state, p_out = _run_stream(StreamingDetector(cpu, **kw), noise, gframes,
                                  chunks, whwh)
     require(c_state.mem.count == p_state.mem.count
             and c_state.mem_dis.count == p_state.mem_dis.count, "memory counts differ")
     res = {"backbone": kind, "rtol": 1e-3, "launches": used}
+    if kind == "swin":
+        res["swin_kernel"] = swin_kernel
     errs = {"scores": 0.0, "boxes": 0.0, "memory": 0.0}
     for cd, pd in zip(c_out, p_out):
         for key in ("scores", "boxes"):
@@ -534,17 +694,19 @@ def phase_tiny(seed: int, kind: str):
     require(max(errs.values()) < res["rtol"], f"tiny {kind}: card vs CPU over rtol: {errs}")
 
 
-def phase_flagship(seed: int, config: str, n_chunks: int, phase: str) -> dict:
+def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
+                   swin_kernel: str = "v3") -> dict:
     """A flagship config at full width, bf16: 24 global frames, then
-    ``n_chunks`` chunks of INFER_BATCH frames at 608x1024.  A first pass
-    warms up; the launch counts and times are of the second."""
+    ``n_chunks`` chunks of INFER_BATCH frames at 608x1024; a Swin trunk in
+    mode ``swin_kernel``.  A first pass warms up; the launch counts and
+    times are of the second."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.streaming import StreamingDetector
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
     cfg = load_config(str(ROOT / "configs" / config))
     t0 = time.perf_counter()
-    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    model = DiffusionDetArch.from_config(cfg, seed=seed, swin_kernel=swin_kernel)
     mega = cfg.MODEL.VID.MEGA
     det = StreamingDetector(
         model, infer_batch=cfg.INPUT.INFER_BATCH,
@@ -588,7 +750,7 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str) -> dict:
     want["dynamic_conv"] = want["roi_align_fwd"]
     if model.backbone_type == "swin":
         blocks = sum(len(layer.blocks) for layer in model.backbone.bottom_up.layers)
-        want["swin_block_attn"] = want["swin_block_mlp"] = blocks * passes
+        want.update({k: blocks * passes for k in SWIN_MODE_KERNELS[swin_kernel]})
     for name, n in launches.items():
         require(n == want.get(name, 0),
                 f"{phase}: {name} launched {n} times, expected {want.get(name, 0)}")
@@ -606,6 +768,7 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str) -> dict:
                 f"{phase}: labels out of range")
         require(int(dets.valid.sum()) > 0, f"{phase}: NMS kept nothing")
     res = {"config": f"configs/{config}", "dtype": "bfloat16",
+           "swin_kernel": swin_kernel if model.backbone_type == "swin" else None,
            "frames": [n_global, n_chunks * f], "hw": [h, w],
            "launches": launches, "expected_launches": want,
            "model_build_s": build_s, "start_video_s": t_chunks - t0,
@@ -663,6 +826,18 @@ def profile_device(run, name: str) -> dict:
 # ---------------------------------------------------------------- train paths
 
 TRAIN_KERNELS = ("roi_align_fwd", "dynamic_conv", "roi_align_bwd")
+
+
+def train_launches(model, micro_steps: int) -> dict:
+    """The launches ``micro_steps`` train micro-steps make: K1, K2 and K3 once
+    per decoder stage; with a Swin trunk, K6 once per block (a forward that
+    needs a gradient takes the v2 branch) and none of K4, K5, K7."""
+    stages = len(model.head.head_series) + len(model.head.head_series_cond)
+    want = {k: stages * micro_steps for k in TRAIN_KERNELS}
+    if model.backbone_type == "swin":
+        blocks = sum(len(layer.blocks) for layer in model.backbone.bottom_up.layers)
+        want["window_attn_qkv"] = blocks * micro_steps
+    return want
 
 
 def train_batch(gen, samples: int, frames: int, slots: int, h: int, w: int,
@@ -735,9 +910,13 @@ def conditioned_train_model(gen, images, **arch):
     return model
 
 
-def phase_tiny_train(seed: int):
-    """One train micro-step of a depth-18 model, 50 proposals, 1 + 2 frames
-    at 64x96, float32, TF32 off: on the card (K1, K2, K3) against the CPU
+SWIN_T_ARCH = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
+
+
+def phase_tiny_train(seed: int, kind: str = "resnet"):
+    """One train micro-step of a depth-18 (``kind`` "resnet") or Swin-T
+    ("swin") model, 50 proposals, 1 + 2 frames at 64x96, float32, TF32 off:
+    on the card (K1, K2, K3, and K6 for the Swin trunk) against the CPU
     (plain versions), same weights, batch and draws.  Losses to 1e-4 and
     every gradient to 1e-3 relative in norm, the tolerances the CPU tests
     hold against JAX."""
@@ -751,7 +930,8 @@ def phase_tiny_train(seed: int):
     h, w, props, frames = 64, 96, 50, 3
     batch = train_batch(gen, 1, frames, 6, h, w, 5, "cpu")
     cpu = conditioned_train_model(gen, batch.images[0], depth=18, num_classes=5,
-                                  num_proposals=props, num_heads=1, num_heads_local=1)
+                                  num_proposals=props, num_heads=1, num_heads_local=1,
+                                  **(SWIN_T_ARCH if kind == "swin" else {}))
     card = copy.deepcopy(cpu).cuda()
     draws = draw_train_randoms(gen, 1, frames, props)
 
@@ -768,9 +948,10 @@ def phase_tiny_train(seed: int):
     c_losses, c_grads = step(card, "cuda")
     torch.cuda.synchronize()
     used = read_launches()
-    stages = len(card.head.head_series) + len(card.head.head_series_cond)
-    require(all(used[k] == stages for k in TRAIN_KERNELS) and sum(used.values()) == 3 * stages,
-            f"tiny_train: launches {used}, expected {stages} each of {TRAIN_KERNELS}")
+    want = train_launches(card, 1)
+    phase = "tiny_train" if kind == "resnet" else f"tiny_train_{kind}"
+    require(used == {k: want.get(k, 0) for k in used},
+            f"{phase}: launches {used}, expected {want}")
     p_losses, p_grads = step(cpu, "cpu")
     loss_err = max(float((c_losses[k] - v).abs() / v.abs().clamp(min=1e-12))
                    for k, v in p_losses.items())
@@ -780,12 +961,12 @@ def phase_tiny_train(seed: int):
                   / torch.linalg.vector_norm(g).clamp(min=1e-12))
         if e > grad_err:
             grad_err, worst = e, name
-    emit("tiny_train", launches=used, loss_rtol=1e-4, grad_rtol=1e-3,
+    emit(phase, launches=used, loss_rtol=1e-4, grad_rtol=1e-3,
          max_rel_err_loss=loss_err, max_rel_err_grad=grad_err, worst_grad=worst,
          total_loss=float(p_losses["total_loss"]))
-    require(all(bool(torch.isfinite(v)) for v in c_losses.values()), "tiny_train: non-finite loss")
+    require(all(bool(torch.isfinite(v)) for v in c_losses.values()), f"{phase}: non-finite loss")
     require(loss_err < 1e-4 and grad_err < 1e-3,
-            f"tiny_train: card vs CPU over tolerance: loss {loss_err}, grad {grad_err} ({worst})")
+            f"{phase}: card vs CPU over tolerance: loss {loss_err}, grad {grad_err} ({worst})")
 
 
 def criterion_ms(micro) -> float:
@@ -811,19 +992,19 @@ def criterion_ms(micro) -> float:
     return sum(spent) * 1e3
 
 
-def phase_flagship_train(seed: int, timed_steps: int = 5) -> dict:
-    """The R-101 train step at full width, bf16: ``configs/vid_R_101_
-    DiffusionVID.yaml`` with random weights, 1 + REF_NUM_GLOBAL frames at
-    608x1024 with 1 to 8 random GT boxes each, ACCUMULATION_STEPS micro-steps
-    per optimizer step.  Two warm-up optimizer steps, then ``timed_steps``
-    timed ones, whose launch counts are read."""
+def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int) -> dict:
+    """A flagship's train step at full width, bf16: ``config`` with random
+    weights, 1 + REF_NUM_GLOBAL frames at 608x1024 with 1 to 8 random GT
+    boxes each, ACCUMULATION_STEPS micro-steps per optimizer step.  Two
+    warm-up optimizer steps, then ``timed_steps`` timed ones, whose launch
+    counts are read."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.train import (
         draw_train_randoms, iteration_generator, make_train_step, optimizer_from_config,
         param_group)
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
-    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    cfg = load_config(str(ROOT / "configs" / config))
     t0 = time.perf_counter()
     model = DiffusionDetArch.from_config(cfg, seed=seed)
     opt = optimizer_from_config(model, cfg)
@@ -858,21 +1039,20 @@ def phase_flagship_train(seed: int, timed_steps: int = 5) -> dict:
     launches = read_launches()
 
     micro_steps = timed_steps * accum
-    stages = len(model.head.head_series) + len(model.head.head_series_cond)
-    want = {k: stages * micro_steps for k in TRAIN_KERNELS}
+    want = train_launches(model, micro_steps)
     for name, n in launches.items():
         require(n == want.get(name, 0),
-                f"flagship_train: {name} launched {n} times, expected {want.get(name, 0)}")
+                f"{phase}: {name} launched {n} times, expected {want.get(name, 0)}")
     last = {k: float(v) for k, v in state["metrics"][-1].items()}
     require(all(torch.isfinite(v).all() for m in state["metrics"] for v in m.values()),
-            "flagship_train: non-finite loss")
+            f"{phase}: non-finite loss")
     moved = {g: 0 for g in ("main", "bias", "backbone", "backbone_bias", "frozen")}
     for n, p in model.named_parameters():
         moved[param_group(n)] += int(not torch.equal(p.detach(), start[n]))
     require(moved["frozen"] == 0 and all(moved[g] > 0 for g in moved if g != "frozen"),
-            f"flagship_train: parameters moved per group {moved}")
-    require(opt.count == 2 + timed_steps, f"flagship_train: {opt.count} optimizer steps")
-    res = {"config": "configs/vid_R_101_DiffusionVID.yaml", "dtype": "bfloat16",
+            f"{phase}: parameters moved per group {moved}")
+    require(opt.count == 2 + timed_steps, f"{phase}: {opt.count} optimizer steps")
+    res = {"config": f"configs/{config}", "dtype": "bfloat16",
            "frames": frames, "hw": [h, w], "accumulation_steps": accum,
            "timed_optimizer_steps": timed_steps, "launches": launches,
            "expected_launches": want, "model_build_s": build_s,
@@ -883,9 +1063,9 @@ def phase_flagship_train(seed: int, timed_steps: int = 5) -> dict:
            "losses": last, "params_moved": moved, "lr_main": opt.lr("main"),
            "card": torch.cuda.get_device_name(0)}
     res.update({f"micro_step_{k}": v
-                for k, v in profile_device(micro, "flagship_train_micro_step").items()})
+                for k, v in profile_device(micro, f"{phase}_micro_step").items()})
     res["criterion_ms_per_micro_step"] = criterion_ms(micro)
-    emit("flagship_train", **res)
+    emit(phase, **res)
     del model, opt, step, state, start, batches
     torch.cuda.empty_cache()
     return launches
@@ -916,13 +1096,20 @@ def main(argv=None) -> int:
 
     kernel_rows = phase_kernels(args.seed)
     phase_tiny(args.seed, "resnet")
-    phase_tiny(args.seed, "swin")
+    for mode in SWIN_MODE_KERNELS:
+        phase_tiny(args.seed, "swin", mode)
     launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship")
     swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
     for name in ("swin_block_attn", "swin_block_mlp"):
         launches[name] = swin[name]
+    launches["window_attn"] = phase_flagship(
+        args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_v1", "v1")["window_attn"]
     phase_tiny_train(args.seed)
-    launches["roi_align_bwd"] = phase_flagship_train(args.seed)["roi_align_bwd"]
+    phase_tiny_train(args.seed, "swin")
+    launches["roi_align_bwd"] = phase_flagship_train(
+        args.seed, "vid_R_101_DiffusionVID.yaml", "flagship_train", 5)["roi_align_bwd"]
+    launches["window_attn_qkv"] = phase_flagship_train(
+        args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin", 3)["window_attn_qkv"]
 
     line = []
     for name, spec in KERNELS.items():
@@ -931,7 +1118,7 @@ def main(argv=None) -> int:
                      "replaces": spec["replaces"], "launches": launches[name],
                      "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
                      "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
-                     "bound_by": bf["bound_by"], "library_ms": None})
+                     "bound_by": bf["bound_by"], "library_ms": bf.get("library_ms")})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

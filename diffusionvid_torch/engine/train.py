@@ -112,14 +112,19 @@ GROUPS = ("main", "bias", "backbone", "backbone_bias", "frozen")
 
 def param_group(name: str) -> str:
     """The JAX package's ``_param_label`` on the port's names: the trunk
-    (``backbone.bottom_up.*``) is the backbone, the FPN is not."""
-    leaf = name.rsplit(".", 1)[-1]
+    (``backbone.bottom_up.*``) is the backbone, the FPN is not; a bias is a
+    tensor whose JAX leaf is named ``bias``, ``in_proj_bias`` or
+    ``class_logits_bias``.  In the trunk only the normalisation layers'
+    biases have such a leaf: the Swin modules declare their other biases
+    under the layer's name (``qkv_bias``, ``proj_bias``, ``mlp_fc1_bias``,
+    ``patch_embed_bias``), which JAX labels as weights."""
+    *path, leaf = name.split(".")
     if leaf in ("running_mean", "running_var"):
         return "frozen"
-    bias = leaf in ("bias", "in_proj_bias")
     if name.startswith("backbone.bottom_up."):
+        bias = leaf == "bias" and path[-1].startswith("norm")
         return "backbone_bias" if bias else "backbone"
-    return "bias" if bias else "main"
+    return "bias" if leaf in ("bias", "in_proj_bias") else "main"
 
 
 class Optimizer:

@@ -152,7 +152,7 @@ class DiffusionDetArch(nn.Module):
                  fpn_in=("res3", "res4", "res5"), head_levels=("p3", "p4", "p5"),
                  pixel_mean=(123.675, 116.280, 103.530),
                  pixel_std=(58.395, 57.120, 57.375),
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, swin_kernel: str = "v3"):
         super().__init__()
         self.num_classes, self.num_proposals = num_classes, num_proposals
         self.hidden_dim, self.num_heads_local = hidden_dim, num_heads_local
@@ -164,7 +164,8 @@ class DiffusionDetArch(nn.Module):
         self.backbone_type = backbone_type
         if backbone_type == "swin":
             trunk = SwinTransformer.from_size(
-                swin_size, out_indices=tuple(sorted(int(k[4:]) for k in fpn_in)))
+                swin_size, out_indices=tuple(sorted(int(k[4:]) for k in fpn_in)),
+                kernel_mode=swin_kernel)
             channels = [trunk.dims[int(k[4:])] for k in fpn_in]
         else:
             trunk = ResNet(depth, out_features=fpn_in)
@@ -178,10 +179,12 @@ class DiffusionDetArch(nn.Module):
             dtype=compute_dtype)
 
     @classmethod
-    def from_config(cls, cfg, device=None, dtype=None, seed: int = 0):
+    def from_config(cls, cfg, device=None, dtype=None, seed: int = 0,
+                    swin_kernel: str = "v3"):
         """Build from a config tree with random weights drawn from ``seed``
         (load a checkpoint over them with ``load_state_dict``).  ``device``
-        None means the card, and raises without one."""
+        None means the card, and raises without one.  ``swin_kernel`` is the
+        Swin trunk's ``kernel_mode`` (``models/swin.py``)."""
         device = resolve_device(device)
         dd = cfg.MODEL.DiffusionDet
         is_swin = "swin" in cfg.MODEL.BACKBONE.NAME.lower()
@@ -201,7 +204,8 @@ class DiffusionDetArch(nn.Module):
             fpn_in=tuple(cfg.MODEL.FPN.IN_FEATURES),
             head_levels=tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES),
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
-            pixel_std=tuple(cfg.MODEL.PIXEL_STD), compute_dtype=dtype)
+            pixel_std=tuple(cfg.MODEL.PIXEL_STD), compute_dtype=dtype,
+            swin_kernel=swin_kernel)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         return model.to(device).eval()
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions (pointers and the stream
 as ``void*``) and compiles on its own with ``nvcc`` into
-``build/diffusionvid_torch/lib<name>-<hash>.so`` under the repository root.
-The hash covers the source and the compiler flags, so a stale library is
-never loaded.  ``build_all`` starts one ``nvcc`` per source, all at once,
+``build/diffusionvid_torch/lib<name>-<hash>.so`` under the repository root;
+it may include the shared headers ``csrc/*.cuh``.  The hash covers the
+source, every header and the compiler flags, so a stale library is never
+loaded.  ``build_all`` starts one ``nvcc`` per source, all at once,
 and waits for every one of them.
 """
 
@@ -41,7 +42,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

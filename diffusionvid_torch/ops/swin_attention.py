@@ -14,7 +14,8 @@ the compute dtype and back.  In fp32 the two branches coincide.
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it launches
 ``csrc/swin_block_attn.cu`` / ``csrc/swin_block_mlp.cu`` or raises.  Both
 kernels are inference-only, as in the JAX package (``SwinBlock`` takes them
-only when not training): a CUDA input that needs a gradient raises.
+only when not training): a CUDA input that needs a gradient raises.  The
+trunk's training path is ``ops/window_attention.py`` (K6).
 """
 
 from __future__ import annotations
@@ -60,13 +61,31 @@ def _reverse(t, w: int, b: int, hp: int, wp: int):
     return t.reshape(b, hp, wp, c)
 
 
+def _attend(q, k, v, bias, mask):
+    """Windowed MHA at the Pallas kernels' rounding points
+    (``swin_attention_pallas.py: _attention_stripe``): q, k, v ``[B·nW, h,
+    w², dh]`` in the compute dtype, bias ``[h, w², w²]``, mask ``[Hp/w,
+    Wp/w, w², w²]`` or None → ``[B·nW, w², h·dh]`` in the compute dtype."""
+    nb, h, n, dh = q.shape
+    dt = q.dtype
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * float(dh ** -0.5)
+    s = s.to(dt).float() + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0] * mask.shape[1]
+        s = (s.view(-1, nw, h, n, n) + mask.reshape(nw, n, n).float()[None, :, None]
+             ).view(nb, h, n, n)
+    s = s - s.amax(-1, keepdim=True)
+    e = s.exp()
+    p = (e / e.sum(-1, keepdim=True)).to(dt)
+    return torch.matmul(p.float(), v.float()).to(dt).permute(0, 2, 1, 3).reshape(nb, n, h * dh)
+
+
 def swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
                         window: int, num_heads: int, valid_hw, shift: int = 0,
                         eps: float = _EPS):
     """The plain version of K4 (``swin_attention_pallas.py: _kernel_block_attn``)."""
     b, hp, wp, c = x.shape
     dt, w, h = x.dtype, window, num_heads
-    n, dh = w * w, c // h
     y = _ln_f32(x, ln_g, ln_b, eps)
     hv, wv = valid_hw
     if (hp, wp) != (hv, wv):
@@ -75,17 +94,8 @@ def swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
         cols = (torch.arange(wp, device=x.device) + shift) % wp < wv
         y = y * (rows[:, None] & cols[None, :]).float()[:, :, None]
     xw = _partition(y.to(dt), w)
-    q, k, v = _mm(xw, wqkv, bqkv).view(-1, n, 3, h, dh).permute(2, 0, 3, 1, 4)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * float(dh ** -0.5)
-    s = s.to(dt).float() + bias.float()[None]
-    if mask is not None:
-        nw = mask.shape[0] * mask.shape[1]
-        s = (s.view(b, nw, h, n, n) + mask.reshape(nw, n, n).float()[None, :, None]
-             ).view(-1, h, n, n)
-    s = s - s.amax(-1, keepdim=True)
-    e = s.exp()
-    p = (e / e.sum(-1, keepdim=True)).to(dt)
-    o = torch.matmul(p.float(), v.float()).to(dt).permute(0, 2, 1, 3).reshape(-1, n, c)
+    q, k, v = _mm(xw, wqkv, bqkv).view(-1, w * w, 3, h, c // h).permute(2, 0, 3, 1, 4)
+    o = _attend(q, k, v, bias, mask)
     return x + _reverse(_mm(o, wproj, bproj), w, b, hp, wp)
 
 

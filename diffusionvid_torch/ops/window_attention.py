@@ -1,0 +1,204 @@
+"""Swin window attention: kernels K6 (the qkv projection inside) and K7 (over
+pre-projected q/k/v), their plain versions, and the training function.
+
+Port of ``diffusionvid_tpu/ops/swin_attention_pallas.py``:
+
+- ``fused_window_attention_qkv`` (K6): windowed MHA with the qkv projection
+  inside, over the post-LN1, pad-zeroed, pre-rolled map, giving the
+  attention output before the out-projection in map layout;
+- ``fused_window_attention_qkv_trainable``: K6 forward, and a backward that
+  differentiates the twin ``_einsum_window_attention_qkv``
+  (``WindowAttentionQKVFn`` here; the JAX package has no backward kernel,
+  so neither has the port);
+- ``fused_window_attention`` (K7): the same attention over q/k/v maps
+  projected beforehand.
+
+The plain versions ``window_attention_qkv_ref`` and ``window_attention_ref``
+repeat the Pallas kernels' rounding points (fp32 product plus fp32 bias,
+then a round; the scores through the compute dtype and back; fp32 bias,
+mask and softmax; P rounded before P·V).  The twin
+``window_attention_qkv_einsum`` projects and adds the bias in the compute
+dtype, as ``_einsum_window_attention_qkv`` does; in fp32 the three agree.
+
+On CPU tensors a wrapper runs the plain version; on CUDA tensors it launches
+``csrc/window_attn_qkv.cu`` or raises.  The wrappers compute no gradient: a
+CUDA input that needs one raises, and training goes through
+``WindowAttentionQKVFn``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .swin_attention import (
+    HEAD_DIM, MAX_ATTN_C, WINDOW, _DTYPE_CODE, _attend, _check_no_grad, _check_shape,
+    _check_x, _f32, _mm, _partition, _reverse)
+
+
+def window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
+    """The plain version of K6 (``swin_attention_pallas.py: _kernel_qkv``)."""
+    b, hp, wp, c = x.shape
+    n = window * window
+    q, k, v = _mm(_partition(x, window), wqkv, bqkv).view(
+        -1, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+    return _reverse(_attend(q, k, v, bias, mask), window, b, hp, wp)
+
+
+def window_attention_ref(q, k, v, bias, mask, window: int):
+    """The plain version of K7 (``swin_attention_pallas.py: _kernel``); the
+    head count is ``bias.shape[0]``."""
+    b, hp, wp, c = q.shape
+    h, n = bias.shape[0], window * window
+
+    def heads(t):
+        return _partition(t, window).view(-1, n, h, c // h).transpose(1, 2)
+
+    return _reverse(_attend(heads(q), heads(k), heads(v), bias, mask), window, b, hp, wp)
+
+
+def window_attention_qkv_einsum(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
+    """Port of ``_einsum_window_attention_qkv``, the function the backward
+    differentiates: q, k and v projected and biased in the compute dtype,
+    then the scores' round trip, fp32 bias, mask and softmax, P rounded."""
+    b, hp, wp, c = x.shape
+    dt, h, n = x.dtype, num_heads, window * window
+    dh = c // h
+    wd, bd = wqkv.to(dt), bqkv.to(dt)
+
+    def part(i):
+        z = torch.matmul(x, wd[i * c:(i + 1) * c].t()) + bd[i * c:(i + 1) * c]
+        return _partition(z, window).view(-1, n, h, dh).transpose(1, 2)
+
+    q, k, v = part(0), part(1), part(2)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+    s = s.to(dt).float() + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0] * mask.shape[1]
+        s = (s.view(-1, nw, h, n, n) + mask.reshape(nw, n, n).float()[None, :, None]
+             ).view(-1, h, n, n)
+    p = torch.softmax(s, -1).to(dt)
+    o = torch.matmul(p, v).transpose(1, 2).reshape(-1, n, c)
+    return _reverse(o, window, b, hp, wp)
+
+
+# ---------------------------------------------------------------- kernels
+
+def _check_map(x, window: int, num_heads: int, what: str):
+    _check_x(x, what)
+    _, hp, wp, c = x.shape
+    if window != WINDOW or hp % WINDOW or wp % WINDOW:
+        raise ValueError(f"the {what} kernel takes window {WINDOW} over a map padded to "
+                         f"its multiples, got window {window}, map {hp}x{wp}")
+    if num_heads * HEAD_DIM != c or c > MAX_ATTN_C:
+        raise ValueError(f"the {what} kernel takes {HEAD_DIM} channels per head and "
+                         f"C <= {MAX_ATTN_C}, got C={c}, {num_heads} heads")
+    if x.data_ptr() % 16:
+        raise ValueError(f"the {what} kernel copies 16-byte pieces: the map must be "
+                         "16-byte aligned")
+
+
+def _check_bias_mask(x, bias, mask, num_heads: int):
+    _, hp, wp, _ = x.shape
+    n = WINDOW * WINDOW
+    _check_shape(bias, (num_heads, n, n), "bias", x.device)
+    if mask is not None:
+        _check_shape(mask, (hp // WINDOW, wp // WINDOW, n, n), "mask", x.device)
+
+
+def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
+    """Windowed MHA with the qkv projection inside → ``[B, Hp, Wp, C]``, the
+    attention output before the out-projection.
+
+    x ``[B, Hp, Wp, C]`` the post-LN1, pad-zeroed, pre-rolled map; wqkv
+    ``[3C, C]``, bqkv ``[3C]``; bias ``[h, 49, 49]`` fp32; mask ``[Hp/7,
+    Wp/7, 49, 49]`` fp32 or None.  CPU tensors: the plain version.  CUDA
+    tensors: kernel K6."""
+    if x.device.type == "cpu":
+        return window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window, num_heads)
+    _check_map(x, window, num_heads, "window attention qkv")
+    b, hp, wp, c = x.shape
+    _check_shape(wqkv, (3 * c, c), "wqkv", x.device)
+    _check_shape(bqkv, (3 * c,), "bqkv", x.device)
+    _check_bias_mask(x, bias, mask, num_heads)
+    _check_no_grad((x, wqkv, bqkv, bias), "window attention qkv")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    args = [x, wqkv.to(x.dtype).contiguous(), _f32(bqkv), _f32(bias),
+            None if mask is None else _f32(mask), out]
+    lib = _build.load("window_attn_qkv")
+    fn = lib.window_attn_qkv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c,
+             num_heads, _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
+    _build.check(lib, err, "window_attn_qkv_fwd")
+    window_attention_qkv.launches += 1
+    return out
+
+
+window_attention_qkv.launches = 0
+
+
+def window_attention(q, k, v, bias, mask, window: int):
+    """Windowed MHA over pre-projected q/k/v maps ``[B, Hp, Wp, C]`` →
+    ``[B, Hp, Wp, C]``; ``h = bias.shape[0]``.  CPU tensors: the plain
+    version.  CUDA tensors: kernel K7."""
+    if q.device.type == "cpu":
+        return window_attention_ref(q, k, v, bias, mask, window)
+    h = bias.shape[0] if bias.dim() == 3 else 0
+    for t in (q, k, v):
+        _check_map(t, window, h, "window attention")
+    if k.shape != q.shape or v.shape != q.shape or not (q.dtype == k.dtype == v.dtype) \
+            or not (q.device == k.device == v.device):
+        raise ValueError(f"q, k and v must share shape, dtype and device, got "
+                         f"{[tuple(t.shape) for t in (q, k, v)]}, "
+                         f"{[t.dtype for t in (q, k, v)]}")
+    _check_bias_mask(q, bias, mask, h)
+    _check_no_grad((q, k, v, bias), "window attention")
+    b, hp, wp, c = q.shape
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    args = [q, k, v, _f32(bias), None if mask is None else _f32(mask), out]
+    lib = _build.load("window_attn_qkv")
+    fn = lib.window_attn_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c, h,
+             _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
+    _build.check(lib, err, "window_attn_fwd")
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0
+
+
+class WindowAttentionQKVFn(torch.autograd.Function):
+    """``fused_window_attention_qkv_trainable``: the forward is
+    ``window_attention_qkv`` (K6 on the card, the plain version on the
+    CPU); the backward recomputes ``window_attention_qkv_einsum`` from the
+    saved inputs and returns its gradients for x, wqkv, bqkv and bias, as
+    ``_fwa_bwd`` does.  Only the inputs are saved, never the output or the
+    scores.  The mask is a constant and gets no gradient.
+
+    ``WindowAttentionQKVFn.apply(x, wqkv, bqkv, bias, mask, window, num_heads)``."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
+        ctx.save_for_backward(x, wqkv, bqkv, bias, mask)
+        ctx.window, ctx.num_heads = window, num_heads
+        return window_attention_qkv(x, wqkv, bqkv, bias, mask, window, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, bias, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (x, wqkv, bqkv, bias)]
+            out = window_attention_qkv_einsum(*ins, mask, ctx.window, ctx.num_heads)
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads, None, None, None)

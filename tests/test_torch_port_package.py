@@ -111,7 +111,7 @@ def test_kernel_sources_and_build_target():
     """Every kernel source has its library name keyed by a content hash,
     inside the repository's git-ignored build directory."""
     assert _build.sources() == ["dynamic_conv", "roi_align_bwd", "roi_align_fwd",
-                                "swin_block_attn", "swin_block_mlp"]
+                                "swin_block_attn", "swin_block_mlp", "window_attn_qkv"]
     for name in _build.sources():
         target = _build._target(name)
         assert target.parent == ROOT / "build" / "diffusionvid_torch"

@@ -1,0 +1,312 @@
+"""Kernels K6 and K7 (Swin window attention): plain versions against the
+Pallas kernels, the training function's gradients against the JAX custom
+VJP, and the wrappers' routing.
+
+The plain versions of ``ops/window_attention.py`` against
+``fused_window_attention_qkv`` / ``fused_window_attention`` in interpret
+mode, as tests/test_swin.py runs them, on a 14x21 map (3 windows across,
+C = 64, 2 heads) and on a padded stage map (Swin-T's stage 0 at 64x96: the
+valid 16x24 padded to 21x28, C = 96, 3 heads, the pad region zero as LN1's
+pad-zero leaves it), with and without the SW-MSA mask, in float32 and
+bfloat16.  ``WindowAttentionQKVFn``'s gradients for x, wqkv, bqkv and the
+bias against ``jax.value_and_grad`` of ``fused_window_attention_qkv_
+trainable`` in interpret mode.
+
+Tolerances: K6 float32 5e-5 abs + 1e-4 rel and the gradients 2e-4 abs +
+1e-4 rel, tests/test_swin.py's own; K7 float32 2e-5 abs + 1e-5 rel.
+bfloat16 1e-2 abs + 2^-7 rel, one bf16 step on outputs below 1: both sides
+round at the same points and sum their fp32 products in other orders, so a
+score or a probability next to a rounding boundary may round the other way.
+
+The CUDA kernels run only on the card (``chip_smoke.py``); here meta
+tensors stand in for CUDA tensors to check each wrapper's input checks and
+that it goes to its kernel, never to the plain version, off the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from diffusionvid_tpu.models.swin import _shift_attn_mask
+from diffusionvid_tpu.ops.swin_attention_pallas import (
+    fused_window_attention, fused_window_attention_qkv,
+    fused_window_attention_qkv_trainable)
+
+from diffusionvid_torch.ops import _build
+from diffusionvid_torch.ops.swin_attention import swin_block_attn, swin_block_mlp
+from diffusionvid_torch.ops.window_attention import (
+    WindowAttentionQKVFn, window_attention, window_attention_qkv,
+    window_attention_qkv_einsum, window_attention_qkv_ref, window_attention_ref)
+
+WIN, N = 7, 49
+# name: (B, Hp, Wp, C, heads, valid H, valid W)
+MAPS = {"14x21": (2, 14, 21, 64, 2, 14, 21), "padded_stage": (1, 21, 28, 96, 3, 16, 24)}
+DTYPES = {"float32": (torch.float32, jnp.float32, 5e-5, 1e-4),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 1e-2, 2 ** -7)}
+
+
+def _inputs(seed, name, masked):
+    b, hp, wp, c, h, hv, wv = MAPS[name]
+    r = np.random.RandomState(seed)
+    x = r.randn(b, hp, wp, c).astype(np.float32)
+    x[:, hv:] = 0.0
+    x[:, :, wv:] = 0.0
+    x = np.roll(x, (-3, -3), (1, 2)) if masked else x
+    wqkv = (r.randn(3 * c, c) * c ** -0.5).astype(np.float32)
+    bqkv = (r.randn(3 * c) * 0.1).astype(np.float32)
+    bias = r.randn(h, N, N).astype(np.float32)
+    mask = (_shift_attn_mask(hp, wp, WIN, 3).reshape(hp // WIN, wp // WIN, N, N)
+            if masked else None)
+    return x, wqkv, bqkv, bias, mask, h
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _close(got, want, atol, rtol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("name", list(MAPS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_qkv_plain_vs_pallas_interpreted(dtype, name, masked):
+    tdt, jdt, atol, rtol = DTYPES[dtype]
+    x, wqkv, bqkv, bias, mask, h = _inputs(11, name, masked)
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_window_attention_qkv(jnp.asarray(x, jdt), _j(wqkv), _j(bqkv), _j(bias),
+                                          _j(mask), WIN, h)
+    got = window_attention_qkv(_t(x).to(tdt), _t(wqkv), _t(bqkv), _t(bias), _t(mask), WIN, h)
+    assert got.dtype == tdt and got.shape == x.shape
+    _close(got, want, atol, rtol)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_vs_pallas_interpreted(dtype, masked):
+    """K7 over q/k/v maps of the padded stage."""
+    tdt, jdt = DTYPES[dtype][:2]
+    atol, rtol = (2e-5, 1e-5) if dtype == "float32" else DTYPES[dtype][2:]
+    x, wqkv, bqkv, bias, mask, h = _inputs(12, "padded_stage", masked)
+    c = x.shape[-1]
+    q, k, v = (x @ wqkv[i * c:(i + 1) * c].T + bqkv[i * c:(i + 1) * c] for i in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_window_attention(*(jnp.asarray(t, jdt) for t in (q, k, v)), _j(bias),
+                                      _j(mask), WIN)
+    got = window_attention(*(_t(t).to(tdt) for t in (q, k, v)), _t(bias), _t(mask), WIN)
+    assert got.dtype == tdt and got.shape == x.shape
+    _close(got, want, atol, rtol)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["shift0", "shift3"])
+def test_qkv_grads_vs_jax_custom_vjp(masked):
+    x, wqkv, bqkv, bias, mask, h = _inputs(13, "14x21", masked)
+    g = np.random.RandomState(14).randn(*x.shape).astype(np.float32)
+
+    def loss(x_, w_, b_, bi_):
+        out = fused_window_attention_qkv_trainable(x_, w_, b_, bi_, _j(mask), WIN, h)
+        return jnp.sum(out * jnp.asarray(g))
+
+    with pltpu.force_tpu_interpret_mode():
+        val, grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3))(
+            *map(jnp.asarray, (x, wqkv, bqkv, bias)))
+    ins = [_t(a).requires_grad_() for a in (x, wqkv, bqkv, bias)]
+    tmask = None if mask is None else _t(mask).requires_grad_()
+    total = (WindowAttentionQKVFn.apply(*ins, tmask, WIN, h) * _t(g)).sum()
+    total.backward()
+    np.testing.assert_allclose(float(total.detach()), float(val), rtol=1e-5, atol=1e-4)
+    for t, want, what in zip(ins, grads, ("x", "wqkv", "bqkv", "bias")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=1e-4, atol=2e-4,
+                                   err_msg=what)
+    assert tmask is None or tmask.grad is None
+
+
+def test_backward_differentiates_the_twin():
+    """The backward is the gradient of ``window_attention_qkv_einsum`` (the
+    twin of ``_einsum_window_attention_qkv``), not of the forward's plain
+    version: in bf16 the two round the projection at other points."""
+    x, wqkv, bqkv, bias, mask, h = _inputs(15, "14x21", True)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(0)).bfloat16()
+    ins = [_t(x).bfloat16().requires_grad_()] + [_t(a).requires_grad_()
+                                                  for a in (wqkv, bqkv, bias)]
+    WindowAttentionQKVFn.apply(*ins, _t(mask), WIN, h).backward(g)
+    ref = [t.detach().clone().requires_grad_() for t in ins]
+    window_attention_qkv_einsum(*ref, _t(mask), WIN, h).backward(g)
+    for t, r in zip(ins, ref):
+        assert torch.equal(t.grad, r.grad)
+
+
+def test_plain_versions_agree_in_float32():
+    """In float32 the kernel's plain version and the twin coincide."""
+    x, wqkv, bqkv, bias, mask, h = _inputs(16, "padded_stage", True)
+    args = (_t(x), _t(wqkv), _t(bqkv), _t(bias), _t(mask), WIN, h)
+    torch.testing.assert_close(window_attention_qkv_ref(*args),
+                               window_attention_qkv_einsum(*args), atol=2e-6, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- wrappers
+
+class _ReachedLaunch(Exception):
+    pass
+
+
+@pytest.fixture
+def stop_at_launch(monkeypatch):
+    def load(name):
+        raise _ReachedLaunch(name)
+    monkeypatch.setattr(_build, "load", load)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _k6_args(c=128, heads=4, hp=14, wp=21, dtype=torch.bfloat16, masked=True):
+    mask = _meta(hp // WIN, wp // WIN, N, N) if masked else None
+    return [_meta(2, hp, wp, c, dtype=dtype), _meta(3 * c, c), _meta(3 * c),
+            _meta(heads, N, N), mask, WIN, heads]
+
+
+def _k7_args(c=128, heads=4, hp=14, wp=21, dtype=torch.bfloat16, masked=True):
+    mask = _meta(hp // WIN, wp // WIN, N, N) if masked else None
+    return [_meta(2, hp, wp, c, dtype=dtype) for _ in range(3)] + [
+        _meta(heads, N, N), mask, WIN]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["shift0", "shift3"])
+@pytest.mark.parametrize("kernel", ["window_attn_qkv", "window_attn"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_wrapper_launches_kernel_off_the_cpu(stop_at_launch, kernel, dtype, masked):
+    if kernel == "window_attn_qkv":
+        wrapper, args = window_attention_qkv, _k6_args(dtype=dtype, masked=masked)
+    else:
+        wrapper, args = window_attention, _k7_args(dtype=dtype, masked=masked)
+    before = wrapper.launches
+    with pytest.raises(_ReachedLaunch, match="window_attn_qkv"):
+        wrapper(*args)
+    assert wrapper.launches == before
+
+
+def test_autograd_function_launches_k6_under_grad(stop_at_launch):
+    """The training function's forward reaches K6 with inputs that need a
+    gradient, where the bare wrapper refuses them."""
+    args = _k6_args()
+    args[0] = _meta(2, 14, 21, 128).requires_grad_()
+    args[1].requires_grad_()
+    with pytest.raises(NotImplementedError):
+        window_attention_qkv(*args)
+    with pytest.raises(_ReachedLaunch, match="window_attn_qkv"):
+        WindowAttentionQKVFn.apply(*args)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    x, wqkv, bqkv, bias, mask, h = _inputs(17, "14x21", True)
+    args = (_t(x), _t(wqkv), _t(bqkv), _t(bias), _t(mask), WIN, h)
+    before = window_attention_qkv.launches, window_attention.launches
+    assert torch.equal(window_attention_qkv(*args), window_attention_qkv_ref(*args))
+    qkv = [_t(x) * s for s in (1.0, 0.5, -1.0)]
+    assert torch.equal(window_attention(*qkv, _t(bias), _t(mask), WIN),
+                       window_attention_ref(*qkv, _t(bias), _t(mask), WIN))
+    assert (window_attention_qkv.launches, window_attention.launches) == before
+
+
+def _k6_bad(case):
+    if case == "float16":
+        return _k6_args(dtype=torch.float16)
+    if case == "window":
+        args = _k6_args()
+        args[5] = 12
+        return args
+    if case == "map_not_padded":
+        return _k6_args(hp=15)
+    if case == "head_dim":
+        return _k6_args(c=128, heads=2)
+    if case == "too_wide":
+        return _k6_args(c=1536, heads=48)
+    args = _k6_args()
+    if case == "bias_shape":
+        args[3] = _meta(4, N, 48)
+    if case == "mask_shape":
+        args[4] = _meta(3, 3, N, N)
+    if case == "wqkv_shape":
+        args[1] = _meta(128, 3 * 128)
+    if case == "bqkv_shape":
+        args[2] = _meta(128)
+    if case == "not_contiguous":
+        args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
+    if case == "requires_grad":
+        args[0] = args[0].float().requires_grad_()
+    return args
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("window", ValueError), ("map_not_padded", ValueError),
+    ("head_dim", ValueError), ("too_wide", ValueError), ("bias_shape", ValueError),
+    ("mask_shape", ValueError), ("wqkv_shape", ValueError), ("bqkv_shape", ValueError),
+    ("not_contiguous", ValueError), ("requires_grad", NotImplementedError)])
+def test_qkv_wrapper_rejects(stop_at_launch, case, error):
+    with pytest.raises(error):
+        window_attention_qkv(*_k6_bad(case))
+
+
+def _k7_bad(case):
+    if case == "float16":
+        return _k7_args(dtype=torch.float16)
+    if case == "map_not_padded":
+        return _k7_args(hp=15)
+    if case == "head_dim":
+        return _k7_args(c=128, heads=2)
+    if case == "too_wide":
+        return _k7_args(c=1536, heads=48)
+    args = _k7_args()
+    if case == "k_shape":
+        args[1] = _meta(2, 14, 28, 128, dtype=torch.bfloat16)
+    if case == "v_dtype":
+        args[2] = _meta(2, 14, 21, 128)
+    if case == "mask_shape":
+        args[4] = _meta(3, 2, N, N)
+    if case == "not_contiguous":
+        args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
+    if case == "requires_grad":
+        args[3] = args[3].requires_grad_()
+    return args
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("map_not_padded", ValueError), ("head_dim", ValueError),
+    ("too_wide", ValueError), ("k_shape", ValueError), ("v_dtype", ValueError),
+    ("mask_shape", ValueError), ("not_contiguous", ValueError),
+    ("requires_grad", NotImplementedError)])
+def test_wrapper_rejects(stop_at_launch, case, error):
+    with pytest.raises(error):
+        window_attention(*_k7_bad(case))
+
+
+@pytest.mark.parametrize("kernel", ["swin_block_attn", "swin_block_mlp"])
+def test_inference_half_blocks_still_raise_under_grad(stop_at_launch, kernel):
+    """K4 and K5 stay inference-only: under grad they raise, under no_grad
+    they reach their launch."""
+    c = 128
+    x = _meta(2, 14, 21, c, dtype=torch.bfloat16)
+    if kernel == "swin_block_attn":
+        fn = swin_block_attn
+        args = [x, _meta(c), _meta(c), _meta(3 * c, c), _meta(3 * c), _meta(4, N, N), None,
+                _meta(c, c), _meta(c), WIN, 4, (12, 19)]
+    else:
+        fn = swin_block_mlp
+        args = [x, _meta(c), _meta(c), _meta(4 * c, c), _meta(4 * c), _meta(c, 4 * c),
+                _meta(c)]
+    args[3].requires_grad_()          # the first weight
+    with pytest.raises(NotImplementedError):
+        fn(*args)
+    with torch.no_grad(), pytest.raises(_ReachedLaunch, match=kernel):
+        fn(*args)

@@ -177,15 +177,29 @@ def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
     assert {"running_mean", "running_var", "weight", "bias"} <= checked
 
 
-def test_param_groups_match_jax_labels():
+@pytest.mark.parametrize("kind", ["resnet", "swin"])
+def test_param_groups_match_jax_labels(kind):
     """The port's groups are the JAX package's ``_param_label`` of the same
-    tensor: the trunk is the backbone, the FPN is not."""
-    model = _port_model()
+    tensor: the trunk is the backbone, the FPN is not; in the Swin trunk
+    only the LayerNorm biases are biases (JAX names the others ``qkv_bias``,
+    ``proj_bias``, ``mlp_fc1_bias``, ...)."""
+    if kind == "resnet":
+        model = _port_model()
+    else:
+        model = DiffusionDetArch(num_classes=K, num_proposals=16, num_heads=1,
+                                 num_heads_local=1, backbone_type="swin", swin_size="T",
+                                 fpn_in=("swin1", "swin2", "swin3"))
     codes = state_dict_from_jax(jax.tree_util.tree_map_with_path(
-        lambda p, _: np.float32(tt.GROUPS.index(jt._param_label(p))), _jax_params(model)))
+        lambda p, a: np.full(a.shape, tt.GROUPS.index(jt._param_label(p)), np.float32),
+        _jax_params(model)))
     for name, _ in model.named_parameters():
-        assert tt.param_group(name) == tt.GROUPS[int(codes[name])], name
-    assert {tt.param_group(n) for n, _ in model.named_parameters()} == set(tt.GROUPS)
+        assert tt.param_group(name) == tt.GROUPS[int(codes[name].flatten()[0])], name
+    groups = {tt.param_group(n) for n, _ in model.named_parameters()}
+    assert groups == set(tt.GROUPS) - ({"frozen"} if kind == "swin" else set())
+    if kind == "swin":
+        trunk = "backbone.bottom_up.layers.0.blocks.1."
+        assert tt.param_group(trunk + "attn.qkv.bias") == "backbone"
+        assert tt.param_group(trunk + "norm1.bias") == "backbone_bias"
 
 
 # a few tensors of every group: the trunk's stem (FrozenBN included), the
