@@ -108,6 +108,27 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` log: registers,
+    spill store bytes and static shared memory."""
+    import re
+    rows, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            rows[name] = {}
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            rows[name].setdefault("spill_bytes", int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows[name].update(registers=int(m.group(1)),
+                              static_smem=int(smem.group(1)) if smem else 0)
+    return rows
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -317,6 +338,24 @@ def _swin_inputs(gen, dev, dtype, st, frames):
     return x, attn, mlp, (hp, wp)
 
 
+def _unfused_attn_half(x, attn, mask, heads: int, hw):
+    """The v1 branch's attention half (``SwinBlock.forward`` with
+    ``kernel_mode`` v1) at K4's shapes: LN1 in fp32, the pad zeroed, the
+    qkv linears, K7, the proj linear and the residual, without the rolls,
+    which v3 makes too: K4's yardstick on the same inputs."""
+    import torch.nn.functional as F
+    from diffusionvid_torch.ops.window_attention import window_attention
+    ln_g, ln_b, wqkv, bqkv, bias, wproj, bproj = attn
+    _, hp, wp, c = x.shape
+    (h, w), dt = hw, x.dtype
+    y = F.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(dt)
+    if (hp, wp) != (h, w):
+        y = F.pad(y[:, :h, :w], (0, 0, 0, wp - w, 0, hp - h))
+    q, k, v = (F.linear(y, wqkv[i * c:(i + 1) * c], bqkv[i * c:(i + 1) * c].to(dt))
+               for i in range(3))
+    return x + F.linear(window_attention(q, k, v, bias, mask, 7), wproj, bproj.to(dt))
+
+
 def _pass_means(rows, keys):
     """Means per launch over one backbone pass: each row weighted by the
     blocks of the pass it stands for."""
@@ -331,7 +370,7 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
     bound over one Swin-B pass."""
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops.swin_attention import (
-        swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+        attn_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
     # fp32: the same fp32 sums in another order, over up to 4096 terms.
     # bf16: TOLERANCE_BF16 below.
     tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
@@ -369,6 +408,8 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
             require(res["mean_abs_err"] < MEAN_ERR[dtype],
                     f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
             res.update(stage=s, shape=list(x.shape), shift=shift)
+            if name == "swin_block_attn" and dtype == torch.bfloat16:
+                res["plan"] = attn_plan(c, frames, hp, wp)   # blocks, ring, shared bytes
             worst = max(worst, res["max_abs_err"])
             del got, want
             if timed:
@@ -379,13 +420,17 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
                 res["gflop"] = flops / 1e9
                 res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
                 res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
+                if name == "swin_block_attn":
+                    res["unfused_ms"] = cuda_time_ms(
+                        lambda: _unfused_attn_half(x, attn, mask, heads, st["hw"]), iters=10)
             rows.append(res)
         del x, attn, mlp
         torch.cuda.empty_cache()
     out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows}
     if timing:
-        out.update(_pass_means([r for r in rows if "blocks" in r],
-                               ("ms", "plain_ms", "bound_ms", "bound_ms_bytes")))
+        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes") + (
+            ("unfused_ms",) if name == "swin_block_attn" else ())
+        out.update(_pass_means([r for r in rows if "blocks" in r], keys))
         out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
                            else "operations")
     return out
@@ -1093,6 +1138,9 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in reports.items()})
+    # empty when this checkout had built K4's library before
+    emit("ptxas", source="swin_block_attn",
+         report=ptxas_report(reports.get("swin_block_attn", "")))
 
     kernel_rows = phase_kernels(args.seed)
     phase_tiny(args.seed, "resnet")

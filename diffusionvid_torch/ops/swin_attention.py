@@ -30,7 +30,7 @@ _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 WINDOW = 7          # the window every Swin size of the kernels uses
 HEAD_DIM = 32       # channels per head, shared by Swin-T/S/B/L
-MAX_ATTN_C = 1024   # K4 keeps two [49, C] bf16 tiles in shared memory
+MAX_ATTN_C = 1024   # K4 keeps a window's [49, C] bf16 tile in shared memory
 MLP_C = (96, 128, 192, 256, 384, 512, 768, 1024)   # K5 is compiled per width
 
 
@@ -114,6 +114,51 @@ def _f32(t):
     return t.to(torch.float32).contiguous()
 
 
+# K4's launch plan (csrc/swin_block_attn.cu, bf16).  An H100 SM has 228 KB
+# of shared memory; a block may take 227 KB of it (232,448 bytes), and each
+# block in an SM also holds 1 KB for the system.
+SMEM_BLOCK_LIMIT = 232_448
+SMEM_SM = 233_472
+
+
+def _attn_smem(c: int, wpb: int, kc: int, stages: int) -> int:
+    """K4's shared bytes (``SmemBf16`` in the source): the weight ring of
+    ``stages`` slots of 96 rows (192 in split mode) of ``kc`` channels;
+    ``wpb`` LN tiles [49, C] in bf16, each row padded by 8 elements; per
+    warpgroup k [64, 40] and v^T [32, 72] in bf16; a mask per window and
+    two attention biases (fp32 [49, 49], 9,616 bytes each); 256 bytes of
+    barriers."""
+    n, spl = WINDOW * WINDOW, 3 - wpb
+    return (stages * 2 * 96 * spl * kc + 2 * n * (c + 8) * wpb
+            + 2 * 2 * (64 * 40 + 32 * 72) + (wpb + 2) * 9616 + 256)
+
+
+def attn_plan(c: int, b: int, hp: int, wp: int) -> dict:
+    """K4's launch for C channels over ``b`` maps of hp x wp.  The mode is
+    C's: up to C = 512 a block takes two windows (``wpb`` 2), one to each
+    warpgroup, so that each weight tile it streams serves both; from C =
+    768 on, whose two LN tiles would not fit, a ``cluster`` of two blocks
+    takes one window, each block half of the heads and of the
+    out-projection's columns, so that Swin-B's stage 3 (60 windows) runs
+    120 blocks.  Then the ring: ``kc`` (32 or 64 channels) a chunk and
+    ``stages`` (3 to 5) slots, the most bytes in flight (stages - 1 slots)
+    at which two blocks share an SM, else at which one block fits, the
+    wider chunk on a tie; and ``smem_bytes``."""
+    wpb = 2 if c <= 512 else 1
+    cluster = 3 - wpb
+    options = [(kc, st) for kc in (64, 32) for st in range(5, 2, -1) if c % kc == 0]
+    size = {o: _attn_smem(c, wpb, *o) for o in options}
+    for per_sm in (2, 1):
+        fit = [o for o in options
+               if size[o] <= SMEM_BLOCK_LIMIT and per_sm * (size[o] + 1024) <= SMEM_SM]
+        if fit:
+            break
+    kc, stages = max(fit, key=lambda o: ((o[1] - 1) * o[0], o[0]))
+    windows = b * (hp // WINDOW) * (wp // WINDOW)
+    return dict(wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=size[(kc, stages)],
+                blocks=-(-windows // wpb) * cluster, blocks_per_sm=per_sm)
+
+
 def _check_x(x, what: str):
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"the {what} kernel takes float32 or bfloat16, not {x.dtype}")
@@ -168,25 +213,29 @@ def swin_block_attn(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
         _check_shape(mask, (hp // WINDOW, wp // WINDOW, n, n), "mask", dev)
     _check_no_grad((x, ln_g, ln_b, wqkv, bqkv, bias, wproj, bproj), "Swin attention")
     out = torch.empty_like(x)
-    scratch = None
-    if x.dtype == torch.float32:
-        # the fp32 instantiation keeps the LN'd window and the attention
-        # output of each window in device memory (see the source)
-        scratch = torch.empty((2, b * (hp // WINDOW) * (wp // WINDOW), n, c),
-                              dtype=torch.float32, device=dev)
-    args = [x, _f32(ln_g), _f32(ln_b), wqkv.to(x.dtype).contiguous(), _f32(bqkv),
-            _f32(bias), None if mask is None else _f32(mask),
-            wproj.to(x.dtype).contiguous(), _f32(bproj), out, scratch]
+    # the attention output of each window in device memory (see the
+    # source); the fp32 instantiation keeps the LN'd window there too
+    windows = b * (hp // WINDOW) * (wp // WINDOW)
+    scratch = torch.empty((2 if x.dtype == torch.float32 else 1, windows, n, c),
+                          dtype=x.dtype, device=dev)
+    wqkv, wproj = wqkv.to(x.dtype).contiguous(), wproj.to(x.dtype).contiguous()
+    if any(t.data_ptr() % 16 for t in (x, wqkv, wproj)):
+        raise ValueError("x, wqkv and wproj must be 16-byte aligned (the kernel reads "
+                         "them by TMA and 16-byte copies)")
+    args = [x, _f32(ln_g), _f32(ln_b), wqkv, _f32(bqkv), _f32(bias),
+            None if mask is None else _f32(mask), wproj, _f32(bproj), out, scratch]
     if x.numel() == 0:
         return out
+    plan = attn_plan(c, b, hp, wp)
     lib = _build.load("swin_block_attn")
     fn = lib.swin_block_attn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     err = fn(*[None if t is None else t.data_ptr() for t in args],
-             b, hp, wp, c, num_heads, hv, wv, shift, float(eps),
-             _DTYPE_CODE[x.dtype], _build.stream_ptr(dev))
+             b, hp, wp, c, num_heads, hv, wv, shift, float(eps), _DTYPE_CODE[x.dtype],
+             plan["wpb"], plan["cluster"], plan["kc"], plan["stages"], plan["smem_bytes"],
+             _build.stream_ptr(dev))
     _build.check(lib, err, "swin_block_attn_fwd")
     swin_block_attn.launches += 1
     return out

@@ -33,7 +33,7 @@ from diffusionvid_tpu.ops.swin_attention_pallas import (
 from diffusionvid_torch.models.swin import relative_position_index, shift_attn_mask
 from diffusionvid_torch.ops import _build
 from diffusionvid_torch.ops.swin_attention import (
-    swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+    attn_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
 
 B, C, HEADS, WIN = 2, 64, 2, 7
 HV, WV, HP, WP = 12, 19, 14, 21
@@ -212,6 +212,8 @@ def _k4_bad(case):
         args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
     if case == "requires_grad":
         args[0] = args[0].float().requires_grad_()
+    if case == "unaligned":
+        args[0] = _meta(2 * 14 * 21 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 14, 21, 128)
     return args, kw
 
 
@@ -220,11 +222,45 @@ def _k4_bad(case):
     ("head_dim", ValueError), ("too_wide", ValueError), ("valid_hw", ValueError),
     ("shift", ValueError), ("bias_shape", ValueError), ("mask_shape", ValueError),
     ("wqkv_shape", ValueError), ("not_contiguous", ValueError),
-    ("requires_grad", NotImplementedError)])
+    ("requires_grad", NotImplementedError), ("unaligned", ValueError)])
 def test_attn_wrapper_rejects(stop_at_launch, case, error):
     args, kw = _k4_bad(case)
     with pytest.raises(error):
         swin_block_attn(*args, **kw)
+
+
+# (C, B, Hp, Wp): the four Swin-B stage maps of a 4-frame chunk at 608x1024,
+# then Swin-T's widths over 2 frames at 64x96 (chip_smoke.py's K4 checks)
+PLAN_CASES = [(128, 4, 154, 259), (256, 4, 77, 133), (512, 4, 42, 70), (1024, 4, 21, 35),
+              (96, 2, 21, 28), (192, 2, 14, 14), (384, 2, 7, 7), (768, 2, 7, 7)]
+
+
+@pytest.mark.parametrize("c,b,hp,wp", PLAN_CASES)
+def test_attn_plan_fits_the_card(c, b, hp, wp):
+    """K4's launch plan: the shared memory that csrc/swin_block_attn.cu lays
+    out fits one block (and as many blocks an SM as planned), the weight
+    ring keeps at least two chunks in flight, the heads split evenly over
+    the cluster (and, in split mode, over the two warpgroups), and Swin-B's
+    stages 2 and 3 fill the H100's 132 SMs."""
+    plan = attn_plan(c, b, hp, wp)
+    wpb, cl, kc, stages = plan["wpb"], plan["cluster"], plan["kc"], plan["stages"]
+    assert (wpb, cl) == ((2, 1) if c <= 512 else (1, 2))
+    heads = c // 32
+    assert heads % cl == 0 and (wpb == 2 or (heads // cl) % 2 == 0)
+    assert kc in (32, 64) and c % kc == 0 and 3 <= stages <= 5
+    spl = 3 - wpb                                           # heads a ring slot holds
+    ring = stages * 2 * 96 * spl * kc                       # weight rows, bf16
+    tiles = wpb * 2 * 49 * (c + 8)                          # LN / o tiles, bf16
+    kv = 2 * 2 * (64 * 40 + 32 * 72)                        # k, v^T of each warpgroup
+    nn = (wpb + 2) * 9616                                   # masks, two attention biases
+    assert plan["smem_bytes"] == ring + tiles + kv + nn + 256 <= 232_448
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233_472
+    assert plan["blocks"] == -(-b * (hp // 7) * (wp // 7) // wpb) * cl
+    if c == 1024:
+        assert plan["blocks"] >= 120
+    if b == 4 and c >= 512:      # no thin last wave
+        wave = 132 * plan["blocks_per_sm"]
+        assert plan["blocks"] % wave == 0 or plan["blocks"] % wave >= wave // 2
 
 
 def _k5_bad(case):
