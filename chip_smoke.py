@@ -10,8 +10,11 @@ Phases, one JSON line each:
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
               bound from bytes and flops.  The ROIAlign backward (K3) runs
-              at the R-101 train shapes (5 frames at 608x1024, 300 ROIs) and
-              is launched twice to show that it is deterministic.  The Swin
+              at the R-101 train shapes (5 frames at 608x1024, 300 ROIs),
+              with spread ROIs and with crowded ones (most on p4 and p5,
+              some the whole image), and on a wide map; it is launched twice
+              to show that it is deterministic, and its prepass's per-tile
+              ROI lists are held against their plain version.  The Swin
               kernels run at the four Swin-B stage maps of 608x1024 (4
               frames for K4, K5 and K7, 5 for K6, the train step's), with
               shift 0 and 3 (masked) and the true valid sizes, then at
@@ -48,7 +51,11 @@ Phases, one JSON line each:
               device time by kernel and host time by operator, and the
               time the criterion takes in a micro-step; then
               ``flagship_train_swin``, the Swin-B train step the same way
-              with 3 timed steps and 24 launches of K6 per micro-step.
+              with 3 timed steps and 24 launches of K6 per micro-step;
+  9. k3_train K3 on the inputs of the R-101 train step's last micro-step
+              (4 launches): checked in bf16 and fp32 as in phase 3, timed,
+              with its bound, its ROIs and longest tile list per level and
+              its plan.
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -141,6 +148,29 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernels, iters: int = 20) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose names hold
+    one of ``kernels`` (``torch.profiler``): K3's time where its wrapper's
+    host side, not the card, sets the pace of back-to-back calls, so that
+    ``cuda_time_ms`` would time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels))
+    require(total > 0, f"no device time in kernels {kernels}")
+    return total / iters / 1e3
+
+
+# K3's kernels: the prepass and the per-level kernel
+K3_KERNELS = ("roi_prepass_kernel", "roi_align_bwd_kernel")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -255,65 +285,178 @@ def kernel_k2(gen, dev, dtype, timing: bool):
 TRAIN = dict(frames=5, h=608, w=1024, props=300, c=256)
 
 
-def _check_k3(gen, dev, dtype, f: int, r: int, c: int, h: int, w: int):
-    """K3 on a random cotangent and ROIs over the p3-p5 maps of ``f``
-    frames of h x w against its plain version; a second launch must give
-    bit-equal maps.  Returns the check's numbers and its inputs."""
+def crowded_rois(gen, b: int, r: int, h: int, w: int):
+    """Large ROIs piled around three centres a frame, most on p4 and p5:
+    sides of 0.3 to 1.2 times the image's, every 10th ROI the whole image,
+    every 29th a small box (p3).  Long per-tile lists on the coarse levels,
+    which the cluster split and its cross-rank sum take."""
+    size = torch.tensor([w, h], dtype=torch.float32)
+    centres = torch.rand(b, 3, 2, generator=gen) * size
+    pick = torch.randint(0, 3, (b, r), generator=gen)
+    ctr = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) \
+        + torch.randn(b, r, 2, generator=gen) * size * 0.05
+    side = (0.3 + 0.9 * torch.rand(b, r, 2, generator=gen)) * size
+    side[:, 3::29] = 40 + 110 * torch.rand(b, len(range(3, r, 29)), 2, generator=gen)
+    boxes = torch.cat([ctr - side / 2, ctr + side / 2], -1)
+    boxes[:, ::10] = torch.tensor([0.0, 0.0, w, h])
+    return boxes.contiguous()
+
+
+def k3_lists(plan, counts) -> list:
+    """The longest per-tile ROI list of each level."""
+    out, t = [], 0
+    for lv in plan["levels"]:
+        out.append(int(counts[:, t:t + lv["tiles"]].max()))
+        t += lv["tiles"]
+    return out
+
+
+def k3_case(dtype, g, rois, shapes, scales=(1 / 8, 1 / 16, 1 / 32), what="K3"):
+    """K3 on one set of inputs against its plain version (fp32: (1e-4,
+    1e-4); bf16: (1e-4, 2^-6)); a second launch must give bit-equal maps and
+    its prepass lists must equal ``bwd_tile_lists_ref``.  Returns the
+    check's numbers and the kernel's maps."""
     from diffusionvid_torch.ops import roi_align as ra
-    scales = (1 / 8, 1 / 16, 1 / 32)
-    shapes = [(-(-h // s), -(-w // s)) for s in (8, 16, 32)]
-    rois = flagship_rois(gen, f, r, h, w).to(dev)
-    g = torch.randn(f, r, 49, c, generator=gen).to(dev, dtype)
-    lv = ra._levels(shapes, rois, scales)
+    b, r, _, c = g.shape
+    lv = ra._levels(shapes, rois, scales).contiguous()
     counts = [int((lv == i).sum()) for i in range(3)]
-    require(min(counts) > 0, f"K3 test rois miss a level: {counts}")
+    plan = ra.bwd_plan(shapes, r, g.element_size())
+    scratch = torch.empty(ra.bwd_scratch_words(b, r, plan["tiles_total"]), dtype=torch.int32,
+                          device=g.device)
     got = ra.multilevel_roi_align_bwd(g, rois, shapes, scales, dtype)
-    again = ra.multilevel_roi_align_bwd(g, rois, shapes, scales, dtype)
+    again = ra._launch_bwd(g, rois, lv, shapes, scales, scratch)
     want = ra.multilevel_roi_align_bwd_ref(g, rois, shapes, scales, dtype)
+    lists, n = ra.bwd_scratch_lists(scratch, b, r, plan["tiles_total"])
+    ref_lists, ref_n = ra.bwd_tile_lists_ref(rois, lv, shapes, scales, plan)
     torch.cuda.synchronize()
+    require(torch.equal(n, ref_n), f"{what}: prepass list lengths differ from the plain version")
+    valid = torch.arange(r, device=g.device) < n[..., None]
+    require(torch.equal(torch.where(valid, lists, -1), ref_lists),
+            f"{what}: prepass lists differ from the plain version")
     # fp32: the same fp32 sums in another order.  bf16: both sum in fp32 in
     # another order and round once to bf16, so an element may differ by one
     # bf16 step (up to 2^-7 relative); 2^-6 leaves a margin
     tol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-4, 2 ** -6)
-    res = {"rois_per_level": counts, "max_abs_err": 0.0, "atol": tol[0], "rtol": tol[1]}
-    for lvl, (a, b, ref) in enumerate(zip(got, again, want)):
-        require(tuple(a.shape) == (f, *shapes[lvl], c) and a.dtype == dtype,
-                f"K3 level {lvl}: {tuple(a.shape)} {a.dtype}")
-        require(torch.equal(a, b), f"K3 {dtype} level {lvl}: two launches differ")
-        err = compare(a, ref, *tol, f"K3 {dtype} {h}x{w} C={c} level {lvl}")
+    res = {"rois_per_level": counts, "longest_list": k3_lists(plan, ref_n),
+           "max_abs_err": 0.0, "atol": tol[0], "rtol": tol[1]}
+    for i, (a, b2, ref) in enumerate(zip(got, again, want)):
+        require(tuple(a.shape) == (b, *shapes[i], c) and a.dtype == dtype,
+                f"{what} level {i}: {tuple(a.shape)} {a.dtype}")
+        require(torch.equal(a, b2), f"{what} {dtype} level {i}: two launches differ")
+        err = compare(a, ref, *tol, f"{what} {dtype} {shapes[0]} C={c} level {i}")
         res["max_abs_err"] = max(res["max_abs_err"], err["max_abs_err"])
     res["deterministic"] = True
-    return res, (g, rois, lv, shapes, scales, got)
+    res["plan"] = [[lv_["rows"], lv_["cols"], lv_["tiles"], lv_["cluster"]]
+                   for lv_ in plan["levels"]]
+    return res, got
+
+
+def k3_bound(g, rois, shapes, scales, got) -> tuple[float, str, float]:
+    """K3's bound on these inputs: one read of g, the rois and levels, one
+    write of the maps; two flops per channel for each corner contribution
+    this run's ROIs make, on the fp32 cores whatever the maps' dtype."""
+    from diffusionvid_torch.ops import roi_align as ra
+    lv = ra._levels(shapes, rois, scales)
+    ys, xs, lh, lw = ra._sample_coords(rois, lv, shapes, scales, 7, 2, True)
+    _, wy0, wy1 = ra._band_params(ys, lh[..., None])
+    _, wx0, wx1 = ra._band_params(xs, lw[..., None])
+    ny = (wy0 != 0).sum(-1) + (wy1 != 0).sum(-1)
+    nx = (wx0 != 0).sum(-1) + (wx1 != 0).sum(-1)
+    flops = 2 * g.shape[3] * float((ny * nx).sum())
+    elt = g.element_size()
+    nbytes = (g.numel() * elt + rois.numel() * 4 + lv.numel() * 4
+              + sum(t.numel() for t in got) * elt)
+    return (*bound_ms(nbytes, flops, torch.float32), flops / 1e9)
 
 
 def kernel_k3(gen, dev, dtype, timing: bool):
-    """K3 at the R-101 train shapes, and on maps wider than one tile (296 x
-    2400: p3 is 37 x 300) with a channel count that leaves a partial
-    32-channel slice, against its plain version."""
+    """K3 at the R-101 train shapes (``flagship_rois``), on maps wider than
+    one tile (296 x 2400: p3 is 37 x 300) with a channel count that leaves
+    a partial 64-channel slice, with 58 channels, and at the train shapes
+    with crowded ROIs (``crowded_rois``), against its plain version."""
     from diffusionvid_torch.ops import roi_align as ra
-    f, c = TRAIN["frames"], TRAIN["c"]
-    res, (g, rois, lv, shapes, scales, got) = _check_k3(
-        gen, dev, dtype, f, TRAIN["props"], c, TRAIN["h"], TRAIN["w"])
-    res["wide"], _ = _check_k3(gen, dev, dtype, 2, 120, 200, 296, 2400)
+    f, c, h, w, r = TRAIN["frames"], TRAIN["c"], TRAIN["h"], TRAIN["w"], TRAIN["props"]
+    scales = (1 / 8, 1 / 16, 1 / 32)
+
+    def case(f, r, c, h, w, rois_fn):
+        shapes = [(-(-h // s), -(-w // s)) for s in (8, 16, 32)]
+        rois = rois_fn(gen, f, r, h, w).to(dev)
+        g = torch.randn(f, r, 49, c, generator=gen).to(dev, dtype)
+        return g, rois, shapes
+
+    g, rois, shapes = case(f, r, c, h, w, flagship_rois)
+    res, got = k3_case(dtype, g, rois, shapes)
+    require(min(res["rois_per_level"]) > 0, f"K3 test rois miss a level: {res['rois_per_level']}")
+    res["wide"], _ = k3_case(dtype, *case(2, 120, 200, 296, 2400, flagship_rois), what="K3 wide")
+    # 58 channels: rows that do not start on 16 bytes (4-byte copies), one
+    # partial slice
+    res["narrow"], _ = k3_case(dtype, *case(1, 40, 58, 304, 512, flagship_rois),
+                               what="K3 narrow")
+    crowd = case(f, r, c, h, w, crowded_rois)
+    res["crowded"], crowd_got = k3_case(dtype, *crowd, what="K3 crowded")
+    require(min(res["crowded"]["rois_per_level"]) > 0,
+            f"K3 crowded rois miss a level: {res['crowded']['rois_per_level']}")
     if timing:
-        elt = g.element_size()
-        # the corner contributions this run's ROIs make, two flops per channel
-        ys, xs, lh, lw = ra._sample_coords(rois, lv, shapes, scales, 7, 2, True)
-        _, wy0, wy1 = ra._band_params(ys, lh[..., None])
-        _, wx0, wx1 = ra._band_params(xs, lw[..., None])
-        ny = (wy0 != 0).sum(-1) + (wy1 != 0).sum(-1)
-        nx = (wx0 != 0).sum(-1) + (wx1 != 0).sum(-1)
-        flops = 2 * c * float((ny * nx).sum())
-        nbytes = (g.numel() * elt + rois.numel() * 4 + lv.numel() * 4
-                  + sum(t.numel() for t in got) * elt)
-        # the sums run on the fp32 cores whatever the maps' dtype
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, torch.float32)
-        res["gflop"] = flops / 1e9
-        res["ms"] = cuda_time_ms(lambda: ra.multilevel_roi_align_bwd(g, rois, shapes, scales,
-                                                                     dtype))
+        res["bound_ms"], res["bound_by"], res["gflop"] = k3_bound(g, rois, shapes, scales, got)
+        # ms: the card's time in K3's kernels; event_ms: CUDA events around
+        # back-to-back wrapper calls, which the wrapper's host side paces
+        call = lambda: ra.multilevel_roi_align_bwd(g, rois, shapes, scales, dtype)  # noqa: E731
+        res["ms"] = device_ms(call, K3_KERNELS)
+        res["event_ms"] = cuda_time_ms(call)
         res["plain_ms"] = cuda_time_ms(
             lambda: ra.multilevel_roi_align_bwd_ref(g, rois, shapes, scales, dtype),
             iters=3, warmup=1)
+        cg_, cr, cs = crowd
+        cres = res["crowded"]
+        cres["bound_ms"], cres["bound_by"], cres["gflop"] = k3_bound(cg_, cr, cs, scales,
+                                                                     crowd_got)
+        call = lambda: ra.multilevel_roi_align_bwd(cg_, cr, cs, scales, dtype)  # noqa: E731
+        cres["ms"] = device_ms(call, K3_KERNELS)
+        cres["event_ms"] = cuda_time_ms(call)
+    return res
+
+
+def phase_k3_train(captured) -> dict:
+    """K3 on the inputs of the last R-101 train micro-step (one set a
+    decoder stage, kept by ``phase_flagship_train``): in bf16, and in fp32
+    on the same cotangent, against its plain version with two bit-equal
+    launches; then its time a launch, its bound, the ROIs a level and the
+    longest tile list a level of each stage, and the plan (``ms`` the
+    card's time in K3's kernels, ``event_ms`` CUDA events around
+    back-to-back wrapper calls).  The inputs go
+    to ``build/chip_smoke/k3_train_inputs.pt`` for
+    ``diffusionvid_torch/utils/k3_bench.py``."""
+    from diffusionvid_torch.ops import roi_align as ra
+    require(len(captured) == 4, f"k3_train: {len(captured)} K3 launches captured, expected 4")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save([{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in c.items()}
+                for c in captured], out_dir / "k3_train_inputs.pt")
+    stages, worst = [], {"bfloat16": 0.0, "float32": 0.0}
+    for i, cap in enumerate(captured):
+        g, rois, shapes, scales = cap["g"], cap["rois"], cap["shapes"], cap["scales"]
+        row = {"stage": i}
+        for dtype in (torch.bfloat16, torch.float32):
+            gd = g.to(dtype)
+            res, got = k3_case(dtype, gd, rois, shapes, scales, what=f"k3_train stage {i}")
+            key = str(dtype).split(".")[1]
+            worst[key] = max(worst[key], res["max_abs_err"])
+            if dtype == torch.bfloat16:
+                row.update(rois_per_level=res["rois_per_level"],
+                           longest_list=res["longest_list"], plan=res["plan"])
+                row["bound_ms"], row["bound_by"], row["gflop"] = k3_bound(gd, rois, shapes,
+                                                                          scales, got)
+                call = lambda: ra.multilevel_roi_align_bwd(  # noqa: E731
+                    gd, rois, shapes, scales, dtype)
+                row["ms"] = device_ms(call, K3_KERNELS)
+                row["event_ms"] = cuda_time_ms(call)
+        stages.append(row)
+    res = {"ms": sum(s["ms"] for s in stages) / len(stages),
+           "event_ms": sum(s["event_ms"] for s in stages) / len(stages),
+           "bound_ms": sum(s["bound_ms"] for s in stages) / len(stages),
+           "max_abs_err": worst, "deterministic": True, "stages": stages,
+           "card": torch.cuda.get_device_name(0)}
+    emit("k3_train", **res)
     return res
 
 
@@ -1037,12 +1180,14 @@ def criterion_ms(micro) -> float:
     return sum(spent) * 1e3
 
 
-def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int) -> dict:
+def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
+                         keep_k3: list | None = None) -> dict:
     """A flagship's train step at full width, bf16: ``config`` with random
     weights, 1 + REF_NUM_GLOBAL frames at 608x1024 with 1 to 8 random GT
     boxes each, ACCUMULATION_STEPS micro-steps per optimizer step.  Two
     warm-up optimizer steps, then ``timed_steps`` timed ones, whose launch
-    counts are read."""
+    counts are read.  With ``keep_k3``, the K3 inputs of the last
+    micro-step (the criterion's timing run) are appended to it."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.train import (
         draw_train_randoms, iteration_generator, make_train_step, optimizer_from_config,
@@ -1109,7 +1254,20 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int) -
            "card": torch.cuda.get_device_name(0)}
     res.update({f"micro_step_{k}": v
                 for k, v in profile_device(micro, f"{phase}_micro_step").items()})
-    res["criterion_ms_per_micro_step"] = criterion_ms(micro)
+    from diffusionvid_torch.ops import roi_align as ra
+    inner = ra._launch_bwd
+
+    def keep(g, rois, level, shapes, scales, scratch=None):
+        keep_k3.append(dict(g=g.clone(), rois=rois.clone(), shapes=[tuple(s) for s in shapes],
+                            scales=tuple(scales)))
+        return inner(g, rois, level, shapes, scales, scratch)
+
+    if keep_k3 is not None:
+        ra._launch_bwd = keep
+    try:
+        res["criterion_ms_per_micro_step"] = criterion_ms(micro)
+    finally:
+        ra._launch_bwd = inner
     emit(phase, **res)
     del model, opt, step, state, start, batches
     torch.cuda.empty_cache()
@@ -1154,8 +1312,12 @@ def main(argv=None) -> int:
         args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_v1", "v1")["window_attn"]
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
+    k3_inputs = []
     launches["roi_align_bwd"] = phase_flagship_train(
-        args.seed, "vid_R_101_DiffusionVID.yaml", "flagship_train", 5)["roi_align_bwd"]
+        args.seed, "vid_R_101_DiffusionVID.yaml", "flagship_train", 5,
+        keep_k3=k3_inputs)["roi_align_bwd"]
+    k3_train = phase_k3_train(k3_inputs)
+    del k3_inputs
     launches["window_attn_qkv"] = phase_flagship_train(
         args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin", 3)["window_attn_qkv"]
 
@@ -1167,6 +1329,8 @@ def main(argv=None) -> int:
                      "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
                      "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
                      "bound_by": bf["bound_by"], "library_ms": bf.get("library_ms")})
+        if name == "roi_align_bwd":
+            line[-1]["train_ms"] = k3_train["ms"]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,7 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# K3 tiles: cells (rows x columns) per block, as compiled
+# K3 tiles: the most cells (rows x columns) a block takes, as compiled
 _BWD_CELLS = 256
 
 
@@ -266,35 +266,137 @@ def _launch_fwd(features, rois, level, spatial_scales):
     return out
 
 
-def _bwd_tiling(feature_shapes):
-    """Per level: (rows per tile, columns per tile, tiles across, tiles)."""
-    out = []
+# K3's launch plan (csrc/roi_align_bwd.cu): at most 256 cells (rows x
+# columns) and 64 channels a block, clusters of at most 8 blocks (the
+# portable limit); a ROI's record is 88 int32 (band parameters and extent)
+_BWD_CHANNELS = 64
+_BWD_MAX_CLUSTER = 8
+_BWD_RECORD = 88
+# the blocks a frame's tiles of a level aim at, per channel slice: a level
+# with fewer tiles takes longer ROI lists a tile and splits them over more
+# blocks (at the flagship train maps p3, p4, p5 take clusters of 2, 4, 8)
+_BWD_BLOCKS_A_FRAME = 48
+
+
+def _bwd_smem(tr: int, tw: int, elt: int, r: int) -> int:
+    """Shared bytes of a K3 block (``main_smem``): the fp32 tile, two staged
+    ROIs, the column and row tables and the block's share of the list."""
+    stage = 49 * _BWD_CHANNELS * elt + _BWD_RECORD * 4
+    return tr * tw * _BWD_CHANNELS * 4 + 2 * stage + (tr + tw) * 8 * 4 + (r + 3) // 4 * 16
+
+
+def bwd_plan(feature_shapes, r: int, elt: int) -> dict:
+    """K3's launch for ``r`` ROIs a frame over the per-level maps
+    ``feature_shapes``, in a dtype of ``elt`` bytes.  Per level the
+    tile (``rows`` x ``cols`` cells, at most ``_BWD_CELLS``, near 16 x 16
+    and balanced over the map), ``tiles_x`` and ``tiles``, the ``cluster``
+    of blocks that split each tile's ROI list (about
+    ``_BWD_BLOCKS_A_FRAME`` blocks over a frame's tiles, at most 8 and at
+    most one per 32 ROIs) and ``smem_bytes``; and the ``channels`` of a
+    block, and ``tiles_total`` over the levels."""
+    levels = []
     for h, w in feature_shapes:
-        tw = min(w, _BWD_CELLS)
-        tr = _BWD_CELLS // tw
+        # about 16 x 16 cells; a map narrower than 16 columns takes taller tiles
+        tr = -(-h // -(-h // max(16, _BWD_CELLS // min(w, 16))))
+        tw = min(w, _BWD_CELLS // tr)
+        tw = -(-w // -(-w // tw))
         nx = -(-w // tw)
-        out.append((tr, tw, nx, nx * -(-h // tr)))
-    return out
+        tiles = nx * -(-h // tr)
+        cluster = max(1, min(_BWD_MAX_CLUSTER, -(-r // 32), -(-_BWD_BLOCKS_A_FRAME // tiles)))
+        levels.append(dict(rows=tr, cols=tw, tiles_x=nx, tiles=tiles, cluster=cluster,
+                           smem_bytes=_bwd_smem(tr, tw, elt, r)))
+    return dict(channels=_BWD_CHANNELS, levels=levels,
+                tiles_total=sum(lv["tiles"] for lv in levels))
 
 
-def _launch_bwd(g, rois, level, feature_shapes, spatial_scales):
+def bwd_scratch_words(b: int, r: int, tiles_total: int) -> int:
+    """int32 words of K3's scratch (csrc/roi_align_bwd.cu: run): a record a
+    ROI, a list of up to ``r`` ROI indices and a count a (frame, tile)."""
+    return b * r * _BWD_RECORD + b * tiles_total * r + b * tiles_total
+
+
+def bwd_scratch_lists(scratch, b: int, r: int, tiles_total: int):
+    """The prepass's per-tile lists ``[B, T, R]`` and counts ``[B, T]`` in
+    K3's scratch, tiles of all levels in order p3, p4, p5."""
+    off = b * r * _BWD_RECORD
+    n = b * tiles_total * r
+    lists = scratch[off:off + n].view(b, tiles_total, r)
+    counts = scratch[off + n:off + n + b * tiles_total].view(b, tiles_total)
+    return lists, counts
+
+
+def roi_extents(rois, level, feature_shapes, spatial_scales):
+    """Per ROI the first and last row and column of its level with a
+    non-zero band weight, int64 ``[B, R, 4]`` (y0, y1, x0, x1); a ROI with no
+    weight on an axis gets an empty extent (y0 > y1, x0 > x1)."""
+    ys, xs, lvl_h, lvl_w = _sample_coords(rois, level, feature_shapes, spatial_scales,
+                                          7, 2, True)
+    big = torch.iinfo(torch.int64).max
+    ext = []
+    for coords, size in ((ys, lvl_h), (xs, lvl_w)):
+        lo, w0, w1 = _band_params(coords, size[..., None])
+        first = torch.where(w0 != 0, lo, torch.where(w1 != 0, lo + 1, big)).amin(-1)
+        last = torch.where(w1 != 0, lo + 1, torch.where(w0 != 0, lo, -1)).amax(-1)
+        ext += [first, last]
+    empty = (ext[0] > ext[1]) | (ext[2] > ext[3])
+    ext = torch.stack(ext, -1)
+    return torch.where(empty[..., None], torch.tensor([big, -1, big, -1], device=ext.device),
+                       ext)
+
+
+def bwd_tile_lists_ref(rois, level, feature_shapes, spatial_scales, plan):
+    """The plain version of K3's prepass lists: for each frame and tile (all
+    levels' tiles in order), the indices of the ROIs of the tile's level
+    whose extent (``roi_extents``) meets the tile, in index order, padded
+    with -1, ``[B, T, R]``, and their counts ``[B, T]``."""
+    ext = roi_extents(rois, level, feature_shapes, spatial_scales)
+    rects, lvls = [], []
+    for li, lv in enumerate(plan["levels"]):
+        for t in range(lv["tiles"]):
+            r0, c0 = (t // lv["tiles_x"]) * lv["rows"], (t % lv["tiles_x"]) * lv["cols"]
+            rects.append((r0, r0 + lv["rows"] - 1, c0, c0 + lv["cols"] - 1))
+            lvls.append(li)
+    rect = torch.tensor(rects, device=rois.device)[None, :, None]        # [1, T, 1, 4]
+    e = ext[:, None]                                                     # [B, 1, R, 4]
+    hit = ((level.long()[:, None] == torch.tensor(lvls, device=rois.device)[None, :, None])
+           & (e[..., 0] <= rect[..., 1]) & (e[..., 1] >= rect[..., 0])
+           & (e[..., 2] <= rect[..., 3]) & (e[..., 3] >= rect[..., 2]))   # [B, T, R]
+    order = torch.sort((~hit).to(torch.int8), dim=-1, stable=True).indices
+    counts = hit.sum(-1)
+    pos = torch.arange(hit.shape[-1], device=rois.device)
+    lists = torch.where(pos < counts[..., None], order, -1)
+    return lists.to(torch.int32), counts.to(torch.int32)
+
+
+def _launch_bwd(g, rois, level, feature_shapes, spatial_scales, scratch=None):
+    """K3: the prepass and one launch a level.  ``scratch`` (int32, at least
+    ``bwd_scratch_words``) may be handed in to read the prepass's lists
+    after the call."""
     b, r, _, c = g.shape
     grads = [torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
              for h, w in feature_shapes]
     if b == 0:
         return grads
     lib = _build.load("roi_align_bwd")
+    plan = bwd_plan(feature_shapes, r, g.element_size())
+    words = bwd_scratch_words(b, r, plan["tiles_total"])
+    if scratch is None:
+        scratch = torch.empty(words, dtype=torch.int32, device=g.device)
+    if scratch.dtype != torch.int32 or scratch.numel() < words or not scratch.is_contiguous():
+        raise ValueError(f"K3's scratch must be {words} contiguous int32")
     fn = lib.roi_align_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    tiling = [v for lvl in _bwd_tiling(feature_shapes) for v in lvl]
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    tiling = [lv[k] for lv in plan["levels"]
+              for k in ("rows", "cols", "tiles_x", "tiles", "cluster", "smem_bytes")]
     err = fn(grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
              *[int(v) for hw in feature_shapes for v in hw],
              *[float(s) for s in spatial_scales],
-             g.data_ptr(), rois.data_ptr(), level.data_ptr(),
-             *tiling, b, r, c, _DTYPE_CODE[g.dtype], _build.stream_ptr(g.device))
+             g.data_ptr(), rois.data_ptr(), level.data_ptr(), scratch.data_ptr(),
+             *tiling, plan["channels"], b, r, c, _DTYPE_CODE[g.dtype],
+             _build.stream_ptr(g.device))
     _build.check(lib, err, "roi_align_bwd")
     multilevel_roi_align_bwd.launches += 1
     return grads

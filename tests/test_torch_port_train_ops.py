@@ -178,12 +178,138 @@ def test_bwd_wrapper_rejects(stop_at_launch, case):
         ra.multilevel_roi_align_bwd(g, rois, sizes, scales, dtype)
 
 
-def test_kernel_tiling_covers_every_map():
-    """K3's tiles (at most 256 cells) cover each level exactly, at the
-    flagship train maps and at odd sizes."""
-    for shapes in (((76, 128), (38, 64), (19, 32)), ((1, 1), (3, 300), (257, 2))):
-        for (h, w), (tr, tw, nx, n) in zip(shapes, ra._bwd_tiling(shapes)):
+PLAN_SHAPES = [((76, 128), (38, 64), (19, 32)),          # the flagship train maps
+               ((1, 1), (3, 300), (257, 2)),
+               ((37, 300), (19, 150), (10, 75)),
+               ((32, 48), (16, 24), (8, 12))]
+
+
+@pytest.mark.parametrize("shapes", PLAN_SHAPES)
+def test_kernel_tiling_covers_every_map(shapes):
+    """K3's plan: tiles of at most 256 cells cover each level exactly, the
+    cluster split is within the portable limit of 8 and the shared bytes a
+    block fit the H100's 227 KB, for both dtypes and several batch shapes."""
+    for r, elt in ((300, 2), (300, 4), (1, 2), (1000, 4)):
+        plan = ra.bwd_plan(shapes, r, elt)
+        assert plan["tiles_total"] == sum(lv["tiles"] for lv in plan["levels"])
+        for (h, w), lv in zip(shapes, plan["levels"]):
+            tr, tw, nx, n = lv["rows"], lv["cols"], lv["tiles_x"], lv["tiles"]
             assert tr * tw <= ra._BWD_CELLS and tr >= 1 and tw >= 1
             assert nx * tw >= w and (nx - 1) * tw < w
-            assert (n // nx) * tr >= h and (n // nx - 1) * tr < h
+            assert (n // nx) * tr >= h and (n // nx - 1) * tr < h and n % nx == 0
+            assert 1 <= lv["cluster"] <= 8
+            assert lv["smem_bytes"] == ra._bwd_smem(tr, tw, elt, r) <= 232_448
     assert _build.sources().count("roi_align_bwd") == 1
+
+
+def test_bwd_plan_splits_the_coarse_levels():
+    """At the flagship train shape every level splits its tiles' ROI lists
+    over a cluster, the coarse levels, whose few tiles take the most ROIs
+    each, over the largest."""
+    plan = ra.bwd_plan(PLAN_SHAPES[0], 300, 2)
+    clusters = [lv["cluster"] for lv in plan["levels"]]
+    assert 1 < clusters[0] < clusters[1] < clusters[2] == 8
+
+
+def test_bwd_scratch_layout():
+    b, r, t = 3, 41, 17
+    words = ra.bwd_scratch_words(b, r, t)
+    scratch = torch.arange(words, dtype=torch.int32)
+    lists, counts = ra.bwd_scratch_lists(scratch, b, r, t)
+    assert lists.shape == (b, t, r) and counts.shape == (b, t)
+    assert int(counts[-1, -1]) == words - 1
+    assert int(lists[0, 0, 0]) == b * r * ra._BWD_RECORD
+
+
+def _crowded_boxes(seed, r, sizes=SIZES):
+    """Train-like crowded ROIs over the image of ``sizes``: large boxes
+    piled around three centres (most on p4 and p5), every 10th the whole
+    image, every 7th small (p3)."""
+    rng = np.random.RandomState(seed)
+    img = np.array([sizes[0][1] * 8, sizes[0][0] * 8], np.float32)
+    centres = rng.uniform(0, 1, (3, 2)) * img
+    ctr = centres[rng.randint(0, 3, r)] + rng.randn(r, 2) * img * 0.05
+    side = rng.uniform(0.6, 2.2, (r, 2)) * img
+    side[::7] = rng.uniform(10, 60, (len(side[::7]), 2))
+    boxes = np.concatenate([ctr - side / 2, ctr + side / 2], -1)
+    boxes[::10] = [0.0, 0.0, img[0], img[1]]
+    return boxes[None].astype(np.float32)
+
+
+def _brute_lists(boxes, level, shapes, plan):
+    """Per frame and tile the ROIs whose band weights reach a cell in the
+    tile's rows and one in its columns (their extent), by explicit loops."""
+    ys, xs, lh, lw = ra._sample_coords(boxes, level, shapes, SCALES, 7, 2, True)
+    ylo, wy0, wy1 = ra._band_params(ys, lh[..., None])
+    xlo, wx0, wx1 = ra._band_params(xs, lw[..., None])
+    b, r = boxes.shape[:2]
+    out = []
+    for f in range(b):
+        ext = []
+        for i in range(r):
+            axes = []
+            for lo, w0, w1 in ((ylo, wy0, wy1), (xlo, wx0, wx1)):
+                cells = [int(lo[f, i, k]) for k in range(14) if w0[f, i, k] != 0] + \
+                        [int(lo[f, i, k]) + 1 for k in range(14) if w1[f, i, k] != 0]
+                axes.append((min(cells), max(cells)) if cells else None)
+            ext.append(axes)
+        frame = []
+        for li, lv in enumerate(plan["levels"]):
+            for t in range(lv["tiles"]):
+                r0, c0 = (t // lv["tiles_x"]) * lv["rows"], (t % lv["tiles_x"]) * lv["cols"]
+                frame.append([i for i in range(r) if int(level[f, i]) == li
+                              and ext[i][0] is not None and ext[i][1] is not None
+                              and ext[i][0][0] < r0 + lv["rows"] and ext[i][0][1] >= r0
+                              and ext[i][1][0] < c0 + lv["cols"] and ext[i][1][1] >= c0])
+        out.append(frame)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["spread", "crowded"])
+def test_tile_lists_plain_vs_brute_force(kind):
+    """``bwd_tile_lists_ref`` (the plain version of K3's prepass lists)
+    agrees with a brute-force scan, and every tile in which a ROI's own
+    gradient is non-zero lists that ROI."""
+    if kind == "spread":
+        _, boxes, _ = _bwd_inputs(7, r=40, c=8)
+    else:
+        boxes = _crowded_boxes(7, 43)
+    rois = _t(boxes)
+    level = ra._levels(SIZES, rois, SCALES)
+    assert set(level.ravel().tolist()) == {0, 1, 2}
+    plan = ra.bwd_plan(SIZES, rois.shape[1], 4)
+    lists, counts = ra.bwd_tile_lists_ref(rois, level, SIZES, SCALES, plan)
+    assert lists.shape == (1, plan["tiles_total"], rois.shape[1])
+    want = _brute_lists(rois, level, SIZES, plan)
+    for t, ids in enumerate(want[0]):
+        assert int(counts[0, t]) == len(ids)
+        assert lists[0, t, :len(ids)].tolist() == ids
+        assert (lists[0, t, len(ids):] == -1).all()
+    # a ROI's gradient with a cotangent of ones is non-zero exactly where its
+    # band weights reach; each such cell's tile lists the ROI
+    toff = np.cumsum([0] + [lv["tiles"] for lv in plan["levels"]])
+    for i in range(rois.shape[1]):
+        g = torch.zeros(1, rois.shape[1], 49, 1)
+        g[0, i] = 1.0
+        grads = ra.multilevel_roi_align_bwd_ref(g, rois, SIZES, SCALES, torch.float32)
+        for li, (gr, lv) in enumerate(zip(grads, plan["levels"])):
+            for y, x in (gr[0, ..., 0] != 0).nonzero().tolist():
+                t = toff[li] + (y // lv["rows"]) * lv["tiles_x"] + x // lv["cols"]
+                assert i in lists[0, t, :int(counts[0, t])].tolist()
+
+
+def test_bwd_plain_vs_pallas_interpreted_crowded():
+    """The plain version against the Pallas kernel in interpret mode on a
+    crowded, train-like ROI set (long per-tile lists on p4 and p5)."""
+    from jax.experimental.pallas import tpu as pltpu
+    boxes = _crowded_boxes(3, 50)
+    lv = ra.fpn_level_assignment(_t(boxes), 3, 3).numpy()
+    counts = [int((lv == i).sum()) for i in range(3)]
+    assert min(counts) > 0 and counts[1] + counts[2] > 2 * counts[0]
+    g = np.random.RandomState(103).randn(1, 50, 49, 32).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = j_bwd_mxu(jnp.asarray(g), jnp.asarray(boxes), SIZES, SCALES, roi_block=25)
+    got = ra.multilevel_roi_align_bwd_ref(_t(g), _t(boxes), SIZES, SCALES, torch.float32)
+    for lvl, (gr, wr) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(gr.numpy(), np.asarray(wr), atol=2e-4, rtol=1e-3,
+                                   err_msg=f"level {lvl}")
