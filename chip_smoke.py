@@ -6,6 +6,7 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (``nvidia-smi``); fails
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
+              then ``ptxas``, K4's and K6's registers and spills per width;
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
@@ -22,8 +23,12 @@ Phases, one JSON line each:
               their ``ms`` and ``bound_ms`` are means per launch over one
               backbone pass (stage depths 2, 2, 18, 2).  K6 and K7 also
               time ``F.scaled_dot_product_attention`` over the partitioned
-              windows as ``library_ms``; K6 times its backward and checks
-              its autograd gradients against the twin's in float32;
+              windows as ``library_ms``; K6 also ``library_full_ms`` (one
+              ``F.linear`` for q, k, v plus that call, with the relayouts:
+              its whole function), its card time ``kernel_ms`` and its
+              launch ``plan`` per stage, launches twice to show that it is
+              deterministic, times its backward and checks its autograd
+              gradients against the twin's in float32;
   4. tiny     a depth-18 model, then a Swin-T model in each kernel mode
               (v3: K4/K5, v2: K6, v1: K7), on 64x96 frames through the whole
               x1 streaming path, once on the card through the kernels and
@@ -150,11 +155,14 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernels, iters: int = 20) -> float:
+def device_ms(fn, kernels, iters: int = 20, launches_per_call: int | None = None) -> float:
     """Device time a call of ``fn`` spends in the kernels whose names hold
     one of ``kernels`` (``torch.profiler``): K3's time where its wrapper's
     host side, not the card, sets the pace of back-to-back calls, so that
-    ``cuda_time_ms`` would time the host."""
+    ``cuda_time_ms`` would time the host.  With ``launches_per_call``, the
+    mean over the kernel events the trace holds times that count: a trace
+    that lost some events (seen on the card) then still gives a launch's
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -163,14 +171,18 @@ def device_ms(fn, kernels, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.events()
-                if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels))
-    require(total > 0, f"no device time in kernels {kernels}")
-    return total / iters / 1e3
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels)]
+    require(sum(times) > 0, f"no device time in kernels {kernels}")
+    if launches_per_call:
+        return sum(times) / len(times) * launches_per_call / 1e3
+    return sum(times) / iters / 1e3
 
 
 # K3's kernels: the prepass and the per-level kernel
 K3_KERNELS = ("roi_prepass_kernel", "roi_align_bwd_kernel")
+# K6's bf16 kernel
+K6_KERNELS = ("attn_qkv_bf16_kernel",)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -579,6 +591,15 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
     return out
 
 
+def _sdpa_mask(bias, mask, nw: int, heads: int, dtype):
+    """The relative-position bias and the SW-MSA mask as one ``attn_mask``
+    [1, nW·h, 49, 49] for windows laid out [B, nW·h, 49, dh]."""
+    am = bias.float()[None].expand(nw, -1, -1, -1)
+    if mask is not None:
+        am = am + mask.reshape(nw, 1, 49, 49)
+    return am.reshape(1, nw * heads, 49, 49).to(dtype)
+
+
 def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
     """``F.scaled_dot_product_attention`` over the partitioned windows of
     the maps q, k, v, the relative-position bias and the SW-MSA mask as its
@@ -594,12 +615,32 @@ def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
                 .reshape(b, nw * heads, 49, c // heads).contiguous())
 
     qp, kp, vp = part(q), part(k), part(v)
-    am = bias.float()[None].expand(nw, -1, -1, -1)
-    if mask is not None:
-        am = am + mask.reshape(nw, 1, 49, 49)
-    am = am.reshape(1, nw * heads, 49, 49).to(q.dtype)
+    am = _sdpa_mask(bias, mask, nw, heads, q.dtype)
     return cuda_time_ms(lambda: F.scaled_dot_product_attention(qp, kp, vp, attn_mask=am),
                         iters=10)
+
+
+def k6_library(x, wqkv, bqkv, bias, mask, heads: int):
+    """K6's whole function by library calls, for ``library_full_ms``: one
+    ``F.linear(x, wqkv, bqkv)`` over the map, q, k, v partitioned into
+    windows and heads, ``F.scaled_dot_product_attention`` with bias and mask
+    as its ``attn_mask`` (built once, as in ``_sdpa_ms``), and the output
+    put back in map layout.  Returns the call, without its scores' round
+    trip."""
+    import torch.nn.functional as F
+    from diffusionvid_torch.ops.swin_attention import _partition, _reverse
+    b, hp, wp, c = x.shape
+    nw, dh = (hp // 7) * (wp // 7), c // heads
+    bq = bqkv.to(x.dtype)
+    am = _sdpa_mask(bias, mask, nw, heads, x.dtype)
+
+    def run():
+        qkv = _partition(F.linear(x, wqkv, bq), 7).view(b, nw, 49, 3, heads, dh)
+        q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).reshape(3, b, nw * heads, 49, dh)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        o = o.view(b, nw, heads, 49, dh).transpose(2, 3).reshape(b * nw, 49, c)
+        return _reverse(o, 7, b, hp, wp)
+    return run
 
 
 def _k6_grads(x, wqkv, bqkv, bias, mask, heads: int) -> float:
@@ -639,6 +680,7 @@ def _window_check(name, gen, dev, dtype, timing: bool):
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops import window_attention as wa
     qkv = name == "window_attn_qkv"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
     elt = torch.tensor([], dtype=dtype).element_size()
     rows, worst, extra = [], 0.0, {}
@@ -679,6 +721,11 @@ def _window_check(name, gen, dev, dtype, timing: bool):
             require(res["mean_abs_err"] < MEAN_ERR[dtype],
                     f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
             res.update(stage=s, shape=list(x.shape), shift=shift)
+            if qkv:
+                require(torch.equal(fn(*args), got), f"{what}: two launches differ")
+                res["deterministic"] = True
+                if dtype == torch.bfloat16:
+                    res["plan"] = wa.qkv_plan(c, frames, hp, wp, sms)
             worst = max(worst, res["max_abs_err"])
             del got, want
             if timed:
@@ -690,6 +737,9 @@ def _window_check(name, gen, dev, dtype, timing: bool):
                 res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
                 res["library_ms"] = _sdpa_ms(q, k, v, bias, mask, heads)
                 if qkv:
+                    res["kernel_ms"] = device_ms(lambda: fn(*args), K6_KERNELS, 10, 1)
+                    res["library_full_ms"] = cuda_time_ms(
+                        k6_library(x, wqkv, bqkv, bias, mask, heads), iters=10)
                     res["bwd_ms"] = _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads)
             if qkv and dtype == torch.float32 and s == 1 and shift:
                 extra["grad_max_rel_err"] = _k6_grads(x, wqkv, bqkv, bias, mask, heads)
@@ -703,7 +753,7 @@ def _window_check(name, gen, dev, dtype, timing: bool):
     out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows, **extra}
     if timing:
         keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "library_ms") + (
-            ("bwd_ms",) if qkv else ())
+            ("kernel_ms", "library_full_ms", "bwd_ms") if qkv else ())
         out.update(_pass_means([r for r in rows if "blocks" in r], keys))
         out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
                            else "operations")
@@ -1296,9 +1346,9 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in reports.items()})
-    # empty when this checkout had built K4's library before
-    emit("ptxas", source="swin_block_attn",
-         report=ptxas_report(reports.get("swin_block_attn", "")))
+    # empty when this checkout had built K4's or K6's library before
+    for source in ("swin_block_attn", "window_attn_qkv"):
+        emit("ptxas", source=source, report=ptxas_report(reports.get(source, "")))
 
     kernel_rows = phase_kernels(args.seed)
     phase_tiny(args.seed, "resnet")
@@ -1331,6 +1381,8 @@ def main(argv=None) -> int:
                      "bound_by": bf["bound_by"], "library_ms": bf.get("library_ms")})
         if name == "roi_align_bwd":
             line[-1]["train_ms"] = k3_train["ms"]
+        if name == "window_attn_qkv":
+            line[-1].update(kernel_ms=bf["kernel_ms"], library_full_ms=bf["library_full_ms"])
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 // The Swin window-attention core shared by K4 (swin_block_attn.cu) and by
-// K6 and K7 (window_attn_qkv.cu): the qkv projection of one head of one
-// 7x7 window (K4, K6), then its attention,
+// K6 and K7 (window_attn_qkv.cu): the fp32 qkv projection of one head of
+// one 7x7 window (the fp32 paths of K4 and K6), then its attention (bf16:
+// K7's; K4's and K6's bf16 paths attend in swin_hopper.cuh),
 //   s = round(q k^T * 32^-0.5) + bias[head] (+ mask[window])   fp32
 //   p = softmax(s) in fp32 (max, exp, divide), rounded
 //   o = p v                                                  fp32 sum
@@ -96,67 +97,6 @@ struct Window {
     return ((static_cast<size_t>(b) * Hp + row) * Wp + col) * C;
   }
 };
-
-// bf16: q | k | v of head j = y @ wqkv[head rows]^T + bqkv, fp32 sums plus
-// the fp32 bias, rounded, [64 x 96], from the bf16 tile s_y [49 x ldy]
-// (rows past 48 read row 48) and the head's 96 rows of wqkv [3C, C], read
-// from L2; q and k row-major into s_q, s_k [64 x LDQ], v transposed into
-// s_vt [DH x LDV].  Warp w < 6 takes n-tiles 2w, 2w + 1 and applies each
-// weight fragment to all four 16-row m-tiles, so each fragment it reads
-// serves 64 rows.
-__device__ __forceinline__ void project_head_bf16(const bf16* s_y, int ldy, const bf16* wqkv,
-                                                  const float* bqkv, int C, int j, bf16* s_q,
-                                                  bf16* s_k, bf16* s_vt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp >= 6) return;
-  const int g = lane >> 2, t = lane & 3;
-  int ra[4], rb[4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    ra[mt] = min(16 * mt + g, N - 1);
-    rb[mt] = min(16 * mt + g + 8, N - 1);
-  }
-  float acc[4][2][4] = {};
-  const bf16* wrow[2];
-#pragma unroll
-  for (int nn = 0; nn < 2; ++nn) {
-    const int nt = 2 * warp + nn;
-    wrow[nn] = wqkv + static_cast<size_t>((nt >> 2) * C + j * DH + (nt & 3) * 8 + g) * C;
-  }
-  for (int k0 = 0; k0 < C; k0 += 16) {
-    uint32_t a[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) load_a(a[mt], s_y, ldy, ra[mt], rb[mt], k0, t);
-#pragma unroll
-    for (int nn = 0; nn < 2; ++nn) {
-      const uint32_t b0 = ldg32(wrow[nn] + k0 + 2 * t);
-      const uint32_t b1 = ldg32(wrow[nn] + k0 + 8 + 2 * t);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) mma16816(acc[mt][nn], a[mt], b0, b1);
-    }
-  }
-#pragma unroll
-  for (int nn = 0; nn < 2; ++nn) {
-    const int nt = 2 * warp + nn, part = nt >> 2, d = (nt & 3) * 8 + 2 * t;
-    const float bias0 = bqkv[part * C + j * DH + d];
-    const float bias1 = bqkv[part * C + j * DH + d + 1];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * mt + g + 8 * h;  // 0..63
-        const float v0 = acc[mt][nn][2 * h] + bias0, v1 = acc[mt][nn][2 * h + 1] + bias1;
-        if (part == 0) {
-          st2(s_q + r * LDQ + d, v0, v1);
-        } else if (part == 1) {
-          st2(s_k + r * LDQ + d, v0, v1);
-        } else {
-          s_vt[d * LDV + r] = __float2bfloat16_rn(v0);
-          s_vt[(d + 1) * LDV + r] = __float2bfloat16_rn(v1);
-        }
-      }
-  }
-}
 
 // fp32 on the CUDA cores: q | k | v of head j into s_q, s_k, s_v [49 x
 // FLD]; row(r) points at token r's C channels.  Each dot product over C is

@@ -133,6 +133,24 @@ def _attn_smem(c: int, wpb: int, kc: int, stages: int) -> int:
             + 2 * 2 * (64 * 40 + 32 * 72) + (wpb + 2) * 9616 + 256)
 
 
+def ring_plan(c: int, wpb: int, per_sm_max: int = 2):
+    """The weight ring of a ring kernel (K4, K6) at C channels with ``wpb``
+    windows a block: ``kc`` (32 or 64 channels) a chunk and ``stages`` (3
+    to 5) slots, the most bytes in flight (stages - 1 slots) at which
+    ``per_sm_max`` blocks share an SM, else at which fewer do, the wider
+    chunk on a tie.  Returns (kc, stages, shared bytes, blocks an SM), or
+    None where not even one block fits."""
+    options = [(kc, st) for kc in (64, 32) for st in range(5, 2, -1) if c % kc == 0]
+    size = {o: _attn_smem(c, wpb, *o) for o in options}
+    for per_sm in range(per_sm_max, 0, -1):
+        fit = [o for o in options
+               if size[o] <= SMEM_BLOCK_LIMIT and per_sm * (size[o] + 1024) <= SMEM_SM]
+        if fit:
+            kc, stages = max(fit, key=lambda o: ((o[1] - 1) * o[0], o[0]))
+            return kc, stages, size[(kc, stages)], per_sm
+    return None
+
+
 def attn_plan(c: int, b: int, hp: int, wp: int) -> dict:
     """K4's launch for C channels over ``b`` maps of hp x wp.  The mode is
     C's: up to C = 512 a block takes two windows (``wpb`` 2), one to each
@@ -140,22 +158,12 @@ def attn_plan(c: int, b: int, hp: int, wp: int) -> dict:
     768 on, whose two LN tiles would not fit, a ``cluster`` of two blocks
     takes one window, each block half of the heads and of the
     out-projection's columns, so that Swin-B's stage 3 (60 windows) runs
-    120 blocks.  Then the ring: ``kc`` (32 or 64 channels) a chunk and
-    ``stages`` (3 to 5) slots, the most bytes in flight (stages - 1 slots)
-    at which two blocks share an SM, else at which one block fits, the
-    wider chunk on a tie; and ``smem_bytes``."""
+    120 blocks.  Then the ring (``ring_plan``) and ``smem_bytes``."""
     wpb = 2 if c <= 512 else 1
     cluster = 3 - wpb
-    options = [(kc, st) for kc in (64, 32) for st in range(5, 2, -1) if c % kc == 0]
-    size = {o: _attn_smem(c, wpb, *o) for o in options}
-    for per_sm in (2, 1):
-        fit = [o for o in options
-               if size[o] <= SMEM_BLOCK_LIMIT and per_sm * (size[o] + 1024) <= SMEM_SM]
-        if fit:
-            break
-    kc, stages = max(fit, key=lambda o: ((o[1] - 1) * o[0], o[0]))
+    kc, stages, smem, per_sm = ring_plan(c, wpb)
     windows = b * (hp // WINDOW) * (wp // WINDOW)
-    return dict(wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=size[(kc, stages)],
+    return dict(wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=smem,
                 blocks=-(-windows // wpb) * cluster, blocks_per_sm=per_sm)
 
 

@@ -21,21 +21,22 @@ mask and softmax; P rounded before P·V).  The twin
 dtype, as ``_einsum_window_attention_qkv`` does; in fp32 the three agree.
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it launches
-``csrc/window_attn_qkv.cu`` or raises.  The wrappers compute no gradient: a
-CUDA input that needs one raises, and training goes through
-``WindowAttentionQKVFn``.
+``csrc/window_attn_qkv.cu`` or raises; K6's launch plan is ``qkv_plan``.
+The wrappers compute no gradient: a CUDA input that needs one raises, and
+training goes through ``WindowAttentionQKVFn``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .swin_attention import (
     HEAD_DIM, MAX_ATTN_C, WINDOW, _DTYPE_CODE, _attend, _check_no_grad, _check_shape,
-    _check_x, _f32, _mm, _partition, _reverse)
+    _check_x, _f32, _mm, _partition, _reverse, ring_plan)
 
 
 def window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
@@ -108,6 +109,59 @@ def _check_bias_mask(x, bias, mask, num_heads: int):
         _check_shape(mask, (hp // WINDOW, wp // WINDOW, n, n), "mask", x.device)
 
 
+# K6's launch plan (csrc/window_attn_qkv.cu, bf16).  A block's fixed cost
+# (its x tiles, filling the ring), in rounds of products and attention.
+QKV_PROLOGUE_ROUNDS = 0.5
+H100_SMS = 132
+
+
+def qkv_plans(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> list[dict]:
+    """Every launch K6 can take for C channels over ``b`` maps of hp x wp:
+    ``wpb`` windows a block (2: one to each warpgroup, both walking the
+    block's heads, so that each weight tile serves two windows; 1: the two
+    warpgroups take the even and the odd heads), the heads split over
+    ``hsplit`` blocks (1, 2 or 4; no cluster: heads write disjoint output
+    columns), and the ring (``ring_plan``; two blocks an SM only up to C =
+    128, the kernel's launch bounds).  Each carries its ``blocks``,
+    ``waves`` on ``sms`` SMs, ``work`` a block as a share of a block of two
+    windows and all heads, and ``cost``, waves x (work + the prologue's
+    share)."""
+    heads = c // HEAD_DIM
+    windows = b * (hp // WINDOW) * (wp // WINDOW)
+    plans = []
+    for wpb in (2, 1):
+        ring = ring_plan(c, wpb, 2 if c <= 128 else 1)
+        if ring is None:
+            continue
+        kc, stages, smem, per_sm = ring
+        for hsplit in (1, 2, 4):
+            if heads % (hsplit * (3 - wpb)):
+                continue
+            blocks = -(-windows // wpb) * hsplit
+            waves = -(-blocks // (sms * per_sm))
+            work = wpb / 2 / hsplit
+            plans.append(dict(wpb=wpb, hsplit=hsplit, kc=kc, stages=stages, smem_bytes=smem,
+                              blocks=blocks, blocks_per_sm=per_sm, waves=waves, work=work,
+                              cost=waves * (work + QKV_PROLOGUE_ROUNDS / heads)))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def qkv_plan(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> dict:
+    """K6's launch: the plan of ``qkv_plans`` of least cost; on a tie the
+    one whose weight tiles serve two windows, then the one of fewer blocks.
+    For Swin-B's stage 2 over 5 frames (300 windows, 16 heads) pair mode
+    would run 150 blocks of one an SM on 132 SMs, a second wave 14% full.
+    Cached (the wrapper asks at every launch): do not modify the dict."""
+    return min(qkv_plans(c, b, hp, wp, sms),
+               key=lambda p: (p["cost"], p["wpb"] != 2, p["blocks"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
     """Windowed MHA with the qkv projection inside → ``[B, Hp, Wp, C]``, the
     attention output before the out-projection.
@@ -115,7 +169,7 @@ def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int)
     x ``[B, Hp, Wp, C]`` the post-LN1, pad-zeroed, pre-rolled map; wqkv
     ``[3C, C]``, bqkv ``[3C]``; bias ``[h, 49, 49]`` fp32; mask ``[Hp/7,
     Wp/7, 49, 49]`` fp32 or None.  CPU tensors: the plain version.  CUDA
-    tensors: kernel K6."""
+    tensors: kernel K6, launched with ``qkv_plan``."""
     if x.device.type == "cpu":
         return window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window, num_heads)
     _check_map(x, window, num_heads, "window attention qkv")
@@ -124,23 +178,36 @@ def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int)
     _check_shape(bqkv, (3 * c,), "bqkv", x.device)
     _check_bias_mask(x, bias, mask, num_heads)
     _check_no_grad((x, wqkv, bqkv, bias), "window attention qkv")
+    wqkv = wqkv.to(x.dtype).contiguous()
+    if wqkv.data_ptr() % 16:
+        raise ValueError("wqkv must be 16-byte aligned (the kernel reads it by TMA)")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    args = [x, wqkv.to(x.dtype).contiguous(), _f32(bqkv), _f32(bias),
-            None if mask is None else _f32(mask), out]
-    lib = _build.load("window_attn_qkv")
-    fn = lib.window_attn_qkv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c,
-             num_heads, _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
-    _build.check(lib, err, "window_attn_qkv_fwd")
+    launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads)
     window_attention_qkv.launches += 1
     return out
 
 
 window_attention_qkv.launches = 0
+
+
+def launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads: int, plan=None):
+    """Launch K6 on checked CUDA inputs (``window_attention_qkv``; wqkv
+    already in x's dtype) into ``out`` with ``plan`` (default ``qkv_plan``
+    for this device's SMs); counts no launch."""
+    b, hp, wp, c = x.shape
+    lib = _build.load("window_attn_qkv")
+    if plan is None:
+        plan = qkv_plan(c, b, hp, wp, _sm_count(x.device.index))
+    args = [x, wqkv, _f32(bqkv), _f32(bias), None if mask is None else _f32(mask), out]
+    fn = lib.window_attn_qkv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c, num_heads,
+             _DTYPE_CODE[x.dtype], plan["wpb"], plan["hsplit"], plan["kc"], plan["stages"],
+             plan["smem_bytes"], _build.stream_ptr(x.device))
+    _build.check(lib, err, "window_attn_qkv_fwd")
 
 
 def window_attention(q, k, v, bias, mask, window: int):

@@ -32,8 +32,8 @@ from ..ops import _build
 
 SLOTS = 8192   # blocks whose counters are kept
 _ANCHORS = [
-    ('#include "window_attn_core.cuh"\n',
-     '#include "window_attn_core.cuh"\n__device__ long long g_phases[8192 * 8];\n'),
+    ('#include "swin_hopper.cuh"\n',
+     '#include "swin_hopper.cuh"\n__device__ long long g_phases[8192 * 8];\n'),
     ("  // prologue: the barriers; the windows' tiles",
      "  long long T0 = clock64(), Tw = 0, Tq = 0, Ta = 0;\n"
      "  // prologue: the barriers; the windows' tiles"),

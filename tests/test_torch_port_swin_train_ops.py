@@ -38,7 +38,7 @@ from diffusionvid_tpu.ops.swin_attention_pallas import (
 from diffusionvid_torch.ops import _build
 from diffusionvid_torch.ops.swin_attention import swin_block_attn, swin_block_mlp
 from diffusionvid_torch.ops.window_attention import (
-    WindowAttentionQKVFn, window_attention, window_attention_qkv,
+    WindowAttentionQKVFn, qkv_plan, qkv_plans, window_attention, window_attention_qkv,
     window_attention_qkv_einsum, window_attention_qkv_ref, window_attention_ref)
 
 WIN, N = 7, 49
@@ -245,6 +245,8 @@ def _k6_bad(case):
         args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
     if case == "requires_grad":
         args[0] = args[0].float().requires_grad_()
+    if case == "unaligned_wqkv":
+        args[1] = _meta(3 * 128 * 128 + 1, dtype=torch.bfloat16)[1:].view(3 * 128, 128)
     return args
 
 
@@ -252,10 +254,57 @@ def _k6_bad(case):
     ("float16", TypeError), ("window", ValueError), ("map_not_padded", ValueError),
     ("head_dim", ValueError), ("too_wide", ValueError), ("bias_shape", ValueError),
     ("mask_shape", ValueError), ("wqkv_shape", ValueError), ("bqkv_shape", ValueError),
-    ("not_contiguous", ValueError), ("requires_grad", NotImplementedError)])
+    ("not_contiguous", ValueError), ("requires_grad", NotImplementedError),
+    ("unaligned_wqkv", ValueError)])
 def test_qkv_wrapper_rejects(stop_at_launch, case, error):
     with pytest.raises(error):
         window_attention_qkv(*_k6_bad(case))
+
+
+# (C, B, Hp, Wp): the four Swin-B stage maps of a 5-frame train sample and of
+# a 4-frame chunk at 608x1024, then Swin-T's widths over 2 frames at 64x96
+# (chip_smoke.py's K6 checks)
+QKV_PLAN_CASES = [(128, 5, 154, 259), (256, 5, 77, 133), (512, 5, 42, 70), (1024, 5, 21, 35),
+                  (128, 4, 154, 259), (256, 4, 77, 133), (512, 4, 42, 70), (1024, 4, 21, 35),
+                  (96, 2, 21, 28), (192, 2, 14, 14), (384, 2, 7, 7), (768, 2, 7, 7)]
+
+
+@pytest.mark.parametrize("c,b,hp,wp", QKV_PLAN_CASES)
+def test_qkv_plan_fits_the_card(c, b, hp, wp):
+    """K6's launch plan: the shared memory that csrc/window_attn_qkv.cu
+    lays out (K4's SmemBf16) fits one block, and as many blocks an SM as
+    planned; block i takes windows (i // hsplit) wpb + t, t < wpb, and the
+    heads' share i % hsplit, which covers every (window, head) once; the
+    ring keeps at least two chunks in flight; and at Swin-B's stage 2 over
+    5 frames the plan's waves x work a block beats pair mode's 2 waves."""
+    plan = qkv_plan(c, b, hp, wp, sms=132)
+    wpb, hsplit, kc, stages = plan["wpb"], plan["hsplit"], plan["kc"], plan["stages"]
+    heads, windows = c // 32, b * (hp // 7) * (wp // 7)
+    spl = 3 - wpb                                           # heads a ring slot holds
+    assert wpb in (1, 2) and hsplit in (1, 2, 4) and heads % (hsplit * spl) == 0
+    assert kc in (32, 64) and c % kc == 0 and 3 <= stages <= 5
+    ring = stages * 2 * 96 * spl * kc                       # weight rows, bf16
+    tiles = wpb * 2 * 49 * (c + 8)                          # x tiles, bf16
+    kv = 2 * 2 * (64 * 40 + 32 * 72)                        # k, v^T of each warpgroup
+    nn = (wpb + 2) * 9616                                   # masks, two attention biases
+    assert plan["smem_bytes"] == ring + tiles + kv + nn + 256 <= 232_448
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= 233_472
+    assert plan["blocks_per_sm"] == 1 or c <= 128           # the kernel's launch bounds
+    cover = np.zeros((windows, heads), np.int64)
+    hpb = heads // hsplit
+    for i in range(plan["blocks"]):
+        for t in range(wpb):
+            win = (i // hsplit) * wpb + t
+            if win < windows:                               # a missing second window stores nothing
+                cover[win, (i % hsplit) * hpb:(i % hsplit + 1) * hpb] += 1
+    assert (cover == 1).all()
+    assert plan["waves"] == -(-plan["blocks"] // (132 * plan["blocks_per_sm"]))
+    assert plan["cost"] == min(p["cost"] for p in qkv_plans(c, b, hp, wp, sms=132))
+    if (c, b) == (512, 5):
+        pair = [p for p in qkv_plans(c, b, hp, wp, sms=132)
+                if (p["wpb"], p["hsplit"]) == (2, 1)][0]
+        assert pair["waves"] * pair["work"] == 2
+        assert plan["waves"] * plan["work"] < 2
 
 
 def _k7_bad(case):
