@@ -6,7 +6,8 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (``nvidia-smi``); fails
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
-              then ``ptxas``, K4's and K6's registers and spills per width;
+              then ``ptxas``, K4's, K5's and K6's registers and spills per
+              kernel;
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
@@ -28,7 +29,13 @@ Phases, one JSON line each:
               its whole function), its card time ``kernel_ms`` and its
               launch ``plan`` per stage, launches twice to show that it is
               deterministic, times its backward and checks its autograd
-              gradients against the twin's in float32;
+              gradients against the twin's in float32.  K5 records its path
+              (fused or wgmma) and plan per stage, launches twice to show
+              that it is deterministic, times its card time ``kernel_ms`` and
+              the library chain (layer_norm, linear, gelu, linear, add) as
+              ``unfused_ms``, and on the wgmma path holds the LN pass's y
+              and the fc1 product's hidden map h against their plain
+              versions;
   4. tiny     a depth-18 model, then a Swin-T model in each kernel mode
               (v3: K4/K5, v2: K6, v1: K7), on 64x96 frames through the whole
               x1 streaming path, once on the card through the kernels and
@@ -183,6 +190,8 @@ def device_ms(fn, kernels, iters: int = 20, launches_per_call: int | None = None
 K3_KERNELS = ("roi_prepass_kernel", "roi_align_bwd_kernel")
 # K6's bf16 kernel
 K6_KERNELS = ("attn_qkv_bf16_kernel",)
+# K5's bf16 kernels: the fused kernel, or the LN pass and the two products
+K5_KERNELS = ("mlp_bf16_kernel", "mlp_ln_kernel", "mlp_gemm_kernel")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -511,6 +520,38 @@ def _unfused_attn_half(x, attn, mask, heads: int, hw):
     return x + F.linear(window_attention(q, k, v, bias, mask, 7), wproj, bproj.to(dt))
 
 
+def k5_unfused(x, mlp):
+    """K5's function by library calls, for ``unfused_ms``: ``F.layer_norm``
+    → ``F.linear`` → ``F.gelu`` → ``F.linear`` → ``+ x`` in the compute
+    dtype, the weights cast once beforehand.  Returns the call."""
+    import torch.nn.functional as F
+    ln_g, ln_b, w1, b1, w2, b2 = (t.to(x.dtype) for t in mlp)
+    c = x.shape[-1]
+    return lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(x, (c,), ln_g, ln_b, 1e-5),
+                                                w1, b1)), w2, b2)
+
+
+def k5_hidden_check(x, mlp, tol, what: str) -> dict:
+    """The wgmma path's first two launches on their own: the LN pass's y
+    against ``swin_mlp_ln_ref`` and the fc1 product's h against
+    ``swin_mlp_fc1_ref`` of that y, so that a fault shows in the launch
+    where it happens."""
+    from diffusionvid_torch.ops.swin_attention import (
+        launch_mlp, swin_mlp_fc1_ref, swin_mlp_ln_ref)
+    ln_g, ln_b, w1, b1, w2, b2 = mlp
+    y, h = launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, torch.empty_like(x))
+    torch.cuda.synchronize()
+    res = {}
+    for key, got, want in (("y", y, swin_mlp_ln_ref(x, ln_g, ln_b).reshape(y.shape)),
+                           ("h", h, swin_mlp_fc1_ref(y, w1, b1))):
+        r = compare(got, want, *tol, f"{what} {key}")
+        r["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
+        require(r["mean_abs_err"] < MEAN_ERR[x.dtype],
+                f"{what} {key}: mean abs err {r['mean_abs_err']} over {MEAN_ERR[x.dtype]}")
+        res[key] = r
+    return res
+
+
 def _pass_means(rows, keys):
     """Means per launch over one backbone pass: each row weighted by the
     blocks of the pass it stands for."""
@@ -525,7 +566,10 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
     bound over one Swin-B pass."""
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops.swin_attention import (
-        attn_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+        attn_plan, mlp_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp,
+        swin_block_mlp_ref)
+    mlp_k = name == "swin_block_mlp"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # fp32: the same fp32 sums in another order, over up to 4096 terms.
     # bf16: TOLERANCE_BF16 below.
     tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
@@ -565,6 +609,15 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
             res.update(stage=s, shape=list(x.shape), shift=shift)
             if name == "swin_block_attn" and dtype == torch.bfloat16:
                 res["plan"] = attn_plan(c, frames, hp, wp)   # blocks, ring, shared bytes
+            plan = None
+            if mlp_k:
+                require(torch.equal(fn(*args), got), f"{what}: two launches differ")
+                res["deterministic"] = True
+                if dtype == torch.bfloat16:
+                    plan = mlp_plan(c, m, sms)
+                    res.update(path=plan["path"], plan=plan)
+                    if plan["path"] == "wgmma":
+                        res["hidden"] = k5_hidden_check(x, mlp, tol, what)
             worst = max(worst, res["max_abs_err"])
             del got, want
             if timed:
@@ -578,13 +631,21 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
                 if name == "swin_block_attn":
                     res["unfused_ms"] = cuda_time_ms(
                         lambda: _unfused_attn_half(x, attn, mask, heads, st["hw"]), iters=10)
+                if mlp_k:
+                    res["kernel_ms"] = device_ms(lambda: fn(*args), K5_KERNELS, 10,
+                                                 3 if plan["path"] == "wgmma" else 1)
+                    res["unfused_ms"] = cuda_time_ms(k5_unfused(x, mlp), iters=10)
+                    if plan["path"] == "wgmma":
+                        # the design's own floor: y and h written and read once more
+                        res["design_bound_ms_bytes"] = (
+                            nbytes + 2 * 5 * m * c * elt) / HBM_BYTES_PER_S * 1e3
             rows.append(res)
         del x, attn, mlp
         torch.cuda.empty_cache()
     out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows}
     if timing:
-        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes") + (
-            ("unfused_ms",) if name == "swin_block_attn" else ())
+        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "unfused_ms") + (
+            ("kernel_ms",) if mlp_k else ())
         out.update(_pass_means([r for r in rows if "blocks" in r], keys))
         out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
                            else "operations")
@@ -1346,8 +1407,8 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in reports.items()})
-    # empty when this checkout had built K4's or K6's library before
-    for source in ("swin_block_attn", "window_attn_qkv"):
+    # empty when this checkout had built K4's, K5's or K6's library before
+    for source in ("swin_block_attn", "swin_block_mlp", "window_attn_qkv"):
         emit("ptxas", source=source, report=ptxas_report(reports.get(source, "")))
 
     kernel_rows = phase_kernels(args.seed)
@@ -1383,6 +1444,8 @@ def main(argv=None) -> int:
             line[-1]["train_ms"] = k3_train["ms"]
         if name == "window_attn_qkv":
             line[-1].update(kernel_ms=bf["kernel_ms"], library_full_ms=bf["library_full_ms"])
+        if name == "swin_block_mlp":
+            line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,6 +21,7 @@ trunk's training path is ``ops/window_attention.py`` (K6).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -99,19 +100,42 @@ def swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
     return x + _reverse(_mm(o, wproj, bproj), w, b, hp, wp)
 
 
-def swin_block_mlp_ref(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = _EPS):
-    """The plain version of K5 (``swin_attention_pallas.py: _kernel_block_mlp``)."""
-    dt = x.dtype
-    y = _ln_f32(x, ln_g, ln_b, eps).to(dt)
+def swin_mlp_ln_ref(x, ln_g, ln_b, eps: float = _EPS):
+    """K5's first rounding point, ``y = round(LN2(x))``: the plain version
+    of the wgmma design's LN pass."""
+    return _ln_f32(x, ln_g, ln_b, eps).to(x.dtype)
+
+
+def swin_mlp_fc1_ref(y, w1, b1):
+    """``h = round(gelu(round(y w1^T + b1)))``, the exact erf GELU in fp32:
+    the plain version of the fc1 product."""
     z = _mm(y, w1, b1).float()
-    z = (0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))).to(dt)
-    return x + _mm(z, w2, b2)
+    return (0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))).to(y.dtype)
+
+
+def swin_mlp_fc2_ref(x, h, w2, b2):
+    """``out = x + round(h w2^T + b2)``: the plain version of the fc2 product."""
+    return x + _mm(h, w2, b2)
+
+
+def swin_block_mlp_ref(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = _EPS):
+    """The plain version of K5 (``swin_attention_pallas.py: _kernel_block_mlp``):
+    its three rounding points in turn."""
+    y = swin_mlp_ln_ref(x, ln_g, ln_b, eps)
+    return swin_mlp_fc2_ref(x, swin_mlp_fc1_ref(y, w1, b1), w2, b2)
 
 
 # ---------------------------------------------------------------- kernels
 
 def _f32(t):
     return t.to(torch.float32).contiguous()
+
+
+def _f32_a16(t):
+    """``_f32``, copied where it is not 16-byte aligned (a kernel reads it
+    by 16-byte loads)."""
+    t = _f32(t)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # K4's launch plan (csrc/swin_block_attn.cu, bf16).  An H100 SM has 228 KB
@@ -165,6 +189,96 @@ def attn_plan(c: int, b: int, hp: int, wp: int) -> dict:
     windows = b * (hp // WINDOW) * (wp // WINDOW)
     return dict(wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=smem,
                 blocks=-(-windows // wpb) * cluster, blocks_per_sm=per_sm)
+
+
+# K5's launch plan (csrc/swin_block_mlp.cu, bf16).  Up to C = 384 the fused
+# kernel keeps the hidden map on chip; from C = 512 on the LN pass and the
+# two wgmma products put it through device memory.
+MLP_WGMMA_MIN_C = 512
+MLP_BM, MLP_KC = 128, 64     # rows of a product's tile, channels of a k-chunk
+MLP_GELU_TABLE = 11_776      # fc1's GELU table (5,888 bf16 entries), bytes
+# The products' cost model, in the time of one k-chunk of a 128 x 256 tile
+# alone on an SM (measured on an H100 by utils/k5_bench.py --candidates and
+# the blocks' phase cycles): a chunk of a wave at bn columns and one or two
+# blocks an SM (two narrow tiles share the tensor cores; one alone leaves
+# them idle part of the time), and a block's fixed cost, its first boxes'
+# latency and the epilogue, which grows with bn.  Two blocks an SM hide
+# part of each other's fixed cost.
+MLP_CHUNK = {(256, 1): 1.0, (128, 1): 0.63, (128, 2): 1.1, (64, 1): 0.47, (64, 2): 0.92}
+MLP_FIXED, MLP_EPILOGUE = 4.5, 9.0
+H100_SMS = 132
+
+
+def _mlp_fused_smem(c: int) -> tuple[int, int]:
+    """The fused kernel's rows a block and shared bytes (``Tile`` in the
+    source)."""
+    tm = hc = 64 if c <= 512 else 32
+    return tm, 2 * (tm * (c + 8) + tm * (hc + 8) + hc * (c + 8) + c * (hc + 8))
+
+
+def mlp_gemm_smem(bn: int, stages: int, gelu: bool) -> int:
+    """A product block's shared bytes (``gemm_smem`` in the source): per
+    ring slot an A box of 128 rows and a weight box of ``bn`` rows, 64
+    channels each in bf16; 256 bytes of barriers; the tile's fp32 bias;
+    fc1's GELU table."""
+    return (stages * 2 * MLP_KC * (MLP_BM + bn) + 256 + 4 * bn
+            + (MLP_GELU_TABLE if gelu else 0))
+
+
+def mlp_gemm_plans(m: int, n: int, k: int, gelu: bool, sms: int = H100_SMS) -> list[dict]:
+    """Every launch of one wgmma product ``[m, k] x [n, k]^T`` (fc1 when
+    ``gelu``) on ``sms`` SMs: ``bn`` columns a tile (64, 128 or 256,
+    dividing n), one or two blocks an SM (two only up to bn 128, the
+    kernel's launch bounds), and the deepest ring (3 to 5 slots) whose
+    shared memory lets that many blocks share an SM.  Each carries its
+    ``tiles``, ``waves`` and ``cost``, waves x (the k-loop in
+    ``MLP_CHUNK`` units + a block's fixed cost, ``MLP_FIXED`` +
+    ``MLP_EPILOGUE`` x bn / 256)."""
+    nk = k // MLP_KC
+    plans = []
+    for bn in (256, 128, 64):
+        if n % bn:
+            continue
+        for per_sm in ((1, 2) if bn <= 128 else (1,)):
+            fit = [st for st in range(5, 2, -1)
+                   if mlp_gemm_smem(bn, st, gelu) <= SMEM_BLOCK_LIMIT
+                   and per_sm * (mlp_gemm_smem(bn, st, gelu) + 1024) <= SMEM_SM]
+            if not fit:
+                continue
+            tiles = -(-m // MLP_BM) * (n // bn)
+            waves = -(-tiles // (sms * per_sm))
+            plans.append(dict(bn=bn, stages=fit[0], smem_bytes=mlp_gemm_smem(bn, fit[0], gelu),
+                              blocks_per_sm=per_sm, tiles=tiles, waves=waves,
+                              cost=waves * (MLP_CHUNK[(bn, per_sm)] * nk + MLP_FIXED
+                                            + MLP_EPILOGUE * bn / 256)))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(c: int, m: int, sms: int = H100_SMS, path: str | None = None) -> dict:
+    """K5's launch for ``m`` token rows of C channels.  ``path`` is C's
+    unless named: ``"fused"`` up to C = 384 (one launch, ``tm`` rows a
+    block), ``"wgmma"`` from 512 on (the LN pass, then the fc1 product
+    [m, 4C] and the fc2 product [m, C], each with the plan of
+    ``mlp_gemm_plans`` of least cost; on a tie the one of fewer tiles).
+    At Swin-B's stage 2 (m = 11,760) fc1 takes 1,472 tiles of 128 x 128,
+    two blocks an SM, and fc2 368, one an SM: 93% of the last waves' slots
+    busy in both.  Cached (the wrapper asks at every launch): do not modify
+    the dict."""
+    path = path or ("wgmma" if c >= MLP_WGMMA_MIN_C else "fused")
+    if path == "fused":
+        tm, smem = _mlp_fused_smem(c)
+        return dict(path=path, tm=tm, smem_bytes=smem, tiles=-(-m // tm))
+    pick = {}
+    for name, n, k in (("fc1", 4 * c, c), ("fc2", c, 4 * c)):
+        pick[name] = min(mlp_gemm_plans(m, n, k, name == "fc1", sms),
+                         key=lambda p: (p["cost"], p["tiles"]))
+    return dict(path=path, **pick)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_x(x, what: str):
@@ -256,7 +370,8 @@ def swin_block_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = _EPS):
     """Swin MLP half-block → ``x + fc2(gelu(fc1(LN2(x))))``.
 
     x ``[..., C]`` contiguous; w1 ``[4C, C]``, b1 ``[4C]``, w2 ``[C, 4C]``,
-    b2 ``[C]``.  CPU tensors: the plain version.  CUDA tensors: kernel K5."""
+    b2 ``[C]``.  CPU tensors: the plain version.  CUDA tensors: kernel K5,
+    launched with ``mlp_plan``."""
     if x.device.type == "cpu":
         return swin_block_mlp_ref(x, ln_g, ln_b, w1, b1, w2, b2, eps)
     if x.dtype not in _DTYPE_CODE:
@@ -273,24 +388,51 @@ def swin_block_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = _EPS):
         _check_shape(t, shape, name, dev)
     _check_no_grad((x, ln_g, ln_b, w1, b1, w2, b2), "Swin MLP")
     out = torch.empty_like(x)
-    m = x.numel() // c
-    if m == 0:
+    if x.numel() == 0:
         return out
     w1, w2 = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
-        raise ValueError("x, w1 and w2 must be 16-byte aligned (the kernel copies "
-                         "16-byte pieces)")
-    args = [x, _f32(ln_g), _f32(ln_b), w1, _f32(b1), w2, _f32(b2), out]
-    lib = _build.load("swin_block_mlp")
-    fn = lib.swin_block_mlp_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    err = fn(*[t.data_ptr() for t in args], m, c, float(eps),
-             _DTYPE_CODE[x.dtype], _build.stream_ptr(dev))
-    _build.check(lib, err, "swin_block_mlp_fwd")
+        raise ValueError("x, w1 and w2 must be 16-byte aligned (the kernel reads them "
+                         "by TMA and 16-byte copies)")
+    launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, out, eps)
     swin_block_mlp.launches += 1
     return out
 
 
 swin_block_mlp.launches = 0
+
+
+def launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, out, eps: float = _EPS, plan=None):
+    """Launch K5 on checked CUDA inputs (``swin_block_mlp``; w1, w2 already
+    in x's dtype) into ``out`` with ``plan`` (bf16 only; default
+    ``mlp_plan`` for this device's SMs); counts no launch.  Returns the
+    wgmma path's scratch maps ``(y [M, C], h [M, 4C])``, else None."""
+    c = x.shape[-1]
+    m = x.numel() // c
+    lib = _build.load("swin_block_mlp")
+    params = [x, _f32(ln_g), _f32(ln_b), w1, _f32(b1), w2, _f32(b2), out]
+    if x.dtype == torch.bfloat16:
+        plan = plan or mlp_plan(c, m, _sm_count(x.device.index))
+        if plan["path"] == "wgmma":
+            params[1:3] = _f32_a16(ln_g), _f32_a16(ln_b)
+            y = torch.empty((m, c), dtype=x.dtype, device=x.device)
+            h = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
+            table = torch.empty(MLP_GELU_TABLE // 2, dtype=x.dtype, device=x.device)
+            fc1, fc2 = plan["fc1"], plan["fc2"]
+            fn = lib.swin_block_mlp_wgmma
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [
+                ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            err = fn(*[t.data_ptr() for t in (*params, y, h, table)], m, c, float(eps),
+                     *[p[k] for p in (fc1, fc2) for k in ("bn", "stages", "smem_bytes")],
+                     _build.stream_ptr(x.device))
+            _build.check(lib, err, "swin_block_mlp_wgmma")
+            return y, h
+    fn = lib.swin_block_mlp_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    err = fn(*[t.data_ptr() for t in params], m, c, float(eps),
+             _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
+    _build.check(lib, err, "swin_block_mlp_fwd")
+    return None

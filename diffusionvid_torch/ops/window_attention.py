@@ -35,8 +35,8 @@ import torch
 
 from . import _build
 from .swin_attention import (
-    HEAD_DIM, MAX_ATTN_C, WINDOW, _DTYPE_CODE, _attend, _check_no_grad, _check_shape,
-    _check_x, _f32, _mm, _partition, _reverse, ring_plan)
+    H100_SMS, HEAD_DIM, MAX_ATTN_C, WINDOW, _DTYPE_CODE, _attend, _check_no_grad,
+    _check_shape, _check_x, _f32, _mm, _partition, _reverse, _sm_count, ring_plan)
 
 
 def window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
@@ -112,7 +112,6 @@ def _check_bias_mask(x, bias, mask, num_heads: int):
 # K6's launch plan (csrc/window_attn_qkv.cu, bf16).  A block's fixed cost
 # (its x tiles, filling the ring), in rounds of products and attention.
 QKV_PROLOGUE_ROUNDS = 0.5
-H100_SMS = 132
 
 
 def qkv_plans(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> list[dict]:
@@ -155,11 +154,6 @@ def qkv_plan(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> dict:
     Cached (the wrapper asks at every launch): do not modify the dict."""
     return min(qkv_plans(c, b, hp, wp, sms),
                key=lambda p: (p["cost"], p["wpb"] != 2, p["blocks"]))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):

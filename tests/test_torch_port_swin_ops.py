@@ -32,8 +32,10 @@ from diffusionvid_tpu.ops.swin_attention_pallas import (
 
 from diffusionvid_torch.models.swin import relative_position_index, shift_attn_mask
 from diffusionvid_torch.ops import _build
+from diffusionvid_torch.ops import swin_attention
 from diffusionvid_torch.ops.swin_attention import (
-    attn_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp, swin_block_mlp_ref)
+    _ln_f32, _mm, attn_plan, mlp_gemm_smem, mlp_plan, swin_block_attn, swin_block_attn_ref,
+    swin_block_mlp, swin_block_mlp_ref, swin_mlp_fc1_ref, swin_mlp_fc2_ref, swin_mlp_ln_ref)
 
 B, C, HEADS, WIN = 2, 64, 2, 7
 HV, WV, HP, WP = 12, 19, 14, 21
@@ -113,6 +115,26 @@ def test_mlp_plain_vs_pallas_interpreted(dtype):
     _close(got, want, atol, rtol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlp_plain_is_its_three_launches(dtype):
+    """The plain version of K5 is the composition of the plain versions of
+    the wgmma path's three launches (LN pass, fc1, fc2), bit for bit the
+    one-piece formula it replaced, in bf16 and fp32."""
+    tdt = DTYPES[dtype][0]
+    x, _, p = _params(8)
+    xt = _t(x).to(tdt)
+    ln_g, ln_b, w1, b1, w2, b2 = (_t(p[k]) for k in ("ln_g", "ln_b", "w1", "b1", "w2", "b2"))
+    y = _ln_f32(xt, ln_g, ln_b, 1e-5).to(tdt)
+    z = _mm(y, w1, b1).float()
+    z = (0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))).to(tdt)
+    whole = xt + _mm(z, w2, b2)
+    y3 = swin_mlp_ln_ref(xt, ln_g, ln_b)
+    h3 = swin_mlp_fc1_ref(y3, w1, b1)
+    assert torch.equal(y3, y) and torch.equal(h3, z)
+    assert torch.equal(swin_mlp_fc2_ref(xt, h3, w2, b2), whole)
+    assert torch.equal(swin_block_mlp_ref(xt, ln_g, ln_b, w1, b1, w2, b2), whole)
+
+
 def test_pad_mask_is_in_rolled_coordinates():
     """Shifting the map without shifting the pad mask's addressing changes
     the result: the mask follows the roll (the case a full-size map hits at
@@ -157,18 +179,59 @@ def _k5_args(c=128, dtype=torch.bfloat16):
             _meta(4 * c), _meta(c, 4 * c), _meta(c)]
 
 
-@pytest.mark.parametrize("kernel", ["swin_block_attn", "swin_block_mlp"])
+@pytest.mark.parametrize("kernel", ["swin_block_attn", "swin_block_mlp", "swin_block_mlp_c512"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_wrapper_launches_kernel_off_the_cpu(stop_at_launch, kernel, dtype):
     if kernel == "swin_block_attn":
         wrapper = swin_block_attn
         args, kw = _k4_args(dtype=dtype)
     else:
-        wrapper, (args, kw) = swin_block_mlp, (_k5_args(dtype=dtype), {})
+        c = 512 if kernel.endswith("c512") else 128
+        wrapper, (args, kw) = swin_block_mlp, (_k5_args(c=c, dtype=dtype), {})
     before = wrapper.launches
-    with pytest.raises(_ReachedLaunch, match=kernel):
+    with pytest.raises(_ReachedLaunch, match=kernel.removesuffix("_c512")):
         wrapper(*args, **kw)
     assert wrapper.launches == before
+
+
+class _FakeLib:
+    """Stands in for K5's library: records which entry point a wrapper call
+    reached and with what integer arguments."""
+
+    def __init__(self):
+        self.calls = []
+        for name in ("swin_block_mlp_fwd", "swin_block_mlp_wgmma"):
+            def fn(*args, name=name):
+                self.calls.append((name, [a for a in args if isinstance(a, int)]))
+                return 0
+            setattr(self, name, fn)
+
+
+@pytest.mark.parametrize("c", [128, 384, 512, 768, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_mlp_wrapper_takes_the_planned_path(monkeypatch, c, dtype):
+    """Off the CPU, bf16 from C = 512 on reaches the wgmma path's entry point
+    with mlp_plan's tiles, rings and shared bytes (no flag sends it back to
+    the fused kernel); below 512, and in fp32, the fused entry point.  Each
+    call counts one launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(swin_attention, "_sm_count", lambda index: 132)
+    before = swin_block_mlp.launches
+    swin_block_mlp(*_k5_args(c=c, dtype=dtype))
+    assert swin_block_mlp.launches == before + 1
+    [(name, ints)] = lib.calls
+    m = 2 * 14 * 21
+    if dtype == torch.bfloat16 and c >= 512:
+        plan = mlp_plan(c, m)
+        assert name == "swin_block_mlp_wgmma" and plan["path"] == "wgmma"
+        # ..., M, C, (eps), the two products' plans, the stream
+        assert ints[-9:-1] == [m, c, *[plan[p][k] for p in ("fc1", "fc2")
+                                       for k in ("bn", "stages", "smem_bytes")]]
+    else:
+        assert name == "swin_block_mlp_fwd"
+        assert ints[-4:-1] == [m, c, 1 if dtype == torch.bfloat16 else 0]  # M, C, (eps), dtype
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
@@ -277,13 +340,55 @@ def _k5_bad(case):
         args[0] = _meta(2, 21, 14, 128, dtype=torch.bfloat16).transpose(1, 2)
     if case == "requires_grad":
         args[3] = args[3].requires_grad_()
+    if case == "unaligned":
+        args[0] = _meta(2 * 14 * 21 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 14, 21, 128)
     return args
 
 
 @pytest.mark.parametrize("case,error", [
     ("float16", TypeError), ("width", ValueError), ("w1_shape", ValueError),
     ("b2_shape", ValueError), ("not_contiguous", ValueError),
-    ("requires_grad", NotImplementedError)])
+    ("requires_grad", NotImplementedError), ("unaligned", ValueError)])
 def test_mlp_wrapper_rejects(stop_at_launch, case, error):
     with pytest.raises(error):
         swin_block_mlp(*_k5_bad(case))
+
+
+# (C, M): the Swin-B stage maps of a 4-frame chunk at 608x1024 (M = 4 Hp Wp),
+# Swin-T's widths over 2 frames at 64x96, and M = 98 at the wgmma widths
+MLP_PLAN_CASES = [(128, 159_544), (256, 40_964), (512, 11_760), (1024, 2_940),
+                  (96, 1_176), (192, 392), (384, 98), (768, 98), (512, 98), (1024, 98)]
+
+
+@pytest.mark.parametrize("c,m", MLP_PLAN_CASES)
+def test_mlp_plan_fits_the_card(c, m):
+    """K5's launch plan: the path by width (fused up to C = 384, wgmma from
+    512 on); each product's tiles of 128 rows x bn cover [M, N] once; the
+    shared bytes csrc/swin_block_mlp.cu lays out (ring slots of an A box
+    and a W box of 64 channels, barriers, the tile's bias, fc1's GELU
+    table) fit a block and the planned blocks an SM; the ring holds at
+    least 3 slots; at Swin-B's stages 2 and 3 each product's last wave is
+    at least half full on the H100's 132 SMs."""
+    plan = mlp_plan(c, m)
+    if c <= 384:
+        assert plan["path"] == "fused"
+        assert (plan["tiles"] - 1) * plan["tm"] < m <= plan["tiles"] * plan["tm"]
+        return
+    assert plan["path"] == "wgmma"
+    for name, n, k in (("fc1", 4 * c, c), ("fc2", c, 4 * c)):
+        p = plan[name]
+        bn, stages, per_sm = p["bn"], p["stages"], p["blocks_per_sm"]
+        assert bn in (64, 128, 256) and n % bn == 0 and k % 64 == 0
+        row_tiles = -(-m // 128)
+        assert p["tiles"] == row_tiles * (n // bn)            # each tile once
+        assert (row_tiles - 1) * 128 < m <= row_tiles * 128
+        ring = stages * (128 * 64 + bn * 64) * 2
+        table = 5_888 * 2 if name == "fc1" else 0
+        assert p["smem_bytes"] == ring + 256 + 4 * bn + table == mlp_gemm_smem(
+            bn, stages, name == "fc1")
+        assert p["smem_bytes"] <= 232_448 and per_sm * (p["smem_bytes"] + 1024) <= 233_472
+        assert 3 <= stages <= 5 and per_sm in ((1, 2) if bn <= 128 else (1,))
+        wave = 132 * per_sm
+        assert p["waves"] == -(-p["tiles"] // wave)
+        if m in (11_760, 2_940):   # no thin last wave
+            assert p["tiles"] % wave == 0 or p["tiles"] % wave >= wave // 2
