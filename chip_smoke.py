@@ -6,12 +6,18 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (``nvidia-smi``); fails
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
-              then ``ptxas``, K4's, K5's and K6's registers and spills per
-              kernel;
+              then ``ptxas``, K2's, K4's, K5's and K6's registers and spills
+              per kernel;
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
-              bound from bytes and flops.  The ROIAlign backward (K3) runs
+              bound from bytes and flops.  DynamicConv (K2) runs at an
+              R-101 chunk's 2,400 proposals and, in bf16, at a Swin-B
+              chunk's 1,200, records its design and launch plan, launches
+              twice to show that it is deterministic, times its card time
+              ``kernel_ms`` and the library chain (bmm, layer_norm, relu,
+              bmm, layer_norm, relu) as ``unfused_ms``, and is checked at
+              1, 7 and 133 proposals.  The ROIAlign backward (K3) runs
               at the R-101 train shapes (5 frames at 608x1024, 300 ROIs),
               with spread ROIs and with crowded ones (most on p4 and p5,
               some the whole image), and on a wide map; it is launched twice
@@ -169,21 +175,27 @@ def device_ms(fn, kernels, iters: int = 20, launches_per_call: int | None = None
     ``cuda_time_ms`` would time the host.  With ``launches_per_call``, the
     mean over the kernel events the trace holds times that count: a trace
     that lost some events (seen on the card) then still gives a launch's
-    time."""
+    time.  A trace that holds none of them (also seen on the card, for
+    any kernel, with the code unchanged) is taken again, up to three
+    times; then the call is timed with CUDA events, and a ``profiler``
+    line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels)]
-    require(sum(times) > 0, f"no device time in kernels {kernels}")
-    if launches_per_call:
-        return sum(times) / len(times) * launches_per_call / 1e3
-    return sum(times) / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels)]
+        if sum(times) > 0:
+            if launches_per_call:
+                return sum(times) / len(times) * launches_per_call / 1e3
+            return sum(times) / iters / 1e3
+    emit("profiler", kernels=list(kernels), traces=3, timed_by="cuda events")
+    return cuda_time_ms(fn, iters)
 
 
 # K3's kernels: the prepass and the per-level kernel
@@ -263,9 +275,18 @@ def kernel_k1(gen, dev, dtype, timing: bool):
     return res
 
 
-def kernel_k2(gen, dev, dtype, timing: bool):
-    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
-    s = FLAGSHIP["frames"] * FLAGSHIP["props"]
+# K2's proposals a call: an R-101 chunk (8 frames) and a Swin-B chunk (4
+# frames) of 300 proposals; and sizes that leave blocks of the ring design
+# with one proposal, or with one more than others, checked but not timed
+K2_SIZES = (FLAGSHIP["frames"] * FLAGSHIP["props"], SWIN_FRAMES * FLAGSHIP["props"])
+K2_EDGE_SIZES = (1, 7, 133)
+# K2's kernels: the ring design (bf16) and the first design (fp32)
+K2_KERNELS = ("dynconv_ring_kernel", "dynamic_conv_kernel")
+
+
+def k2_inputs(gen, dev, dtype, s: int):
+    """roi [s, 49, 256], p1t and p2e [s, 64, 256] in ``dtype`` and the four
+    fp32 LayerNorm vectors, drawn from ``gen``."""
     p, e, d = 49, 64, 256
     roi = torch.randn(s, p, d, generator=gen).to(dev, dtype)
     p1t = (torch.randn(s, e, d, generator=gen) * 0.1).to(dev, dtype)
@@ -274,32 +295,89 @@ def kernel_k2(gen, dev, dtype, timing: bool):
            (0.1 * torch.randn(e, generator=gen)).to(dev),
            (1 + 0.1 * torch.randn(d, generator=gen)).to(dev),
            (0.1 * torch.randn(d, generator=gen)).to(dev)]
-    got = dynamic_conv_fused(roi, p1t, p2e, *lns)
-    want = dynamic_conv_ref(roi, p1t, p2e, *lns)
-    torch.cuda.synchronize()
+    return roi, p1t, p2e, lns
+
+
+def k2_unfused(roi, p1t, p2e, lns):
+    """K2's function by library calls, for ``unfused_ms``: ``torch.bmm`` →
+    ``F.layer_norm`` → ``relu`` → ``torch.bmm`` → ``F.layer_norm`` →
+    ``relu`` in the compute dtype, the LayerNorm vectors cast once
+    beforehand.  Returns the call."""
+    import torch.nn.functional as F
+    g1, b1, g2, b2 = (t.to(roi.dtype) for t in lns)
+    p1 = p1t.transpose(1, 2)
+
+    def run():
+        x = torch.relu(F.layer_norm(torch.bmm(roi, p1), (64,), g1, b1, 1e-5))
+        return torch.relu(F.layer_norm(torch.bmm(x, p2e), (256,), g2, b2, 1e-5))
+    return run
+
+
+def k2_bound(roi, p1t, p2e, lns) -> tuple[float, str]:
+    s, p, d = roi.shape
+    e = p1t.shape[1]
+    nbytes = (2 * roi.numel() + p1t.numel() + p2e.numel()) * roi.element_size() \
+        + sum(t.numel() for t in lns) * 4
+    return bound_ms(nbytes, 2 * s * (p * d * e) * 2, roi.dtype)
+
+
+def kernel_k2(gen, dev, dtype, timing: bool):
+    """K2 against its plain version at an R-101 chunk's proposals (S =
+    2,400), then, in bf16, at a Swin-B chunk's (1,200), each launched twice
+    to show that it is deterministic and, with ``timing``, timed (``ms``,
+    the card's ``kernel_ms``, ``plain_ms``, the library chain's
+    ``unfused_ms``) beside its bound; then at the edge sizes."""
+    from diffusionvid_torch.ops.dynamic_conv import (
+        dynamic_conv_fused, dynamic_conv_ref, dynconv_plan)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # bf16: the tolerance of tests/test_dynamic_conv_pallas.py (three
     # roundings to bf16 whose fp32 inputs differ in summation order)
     tol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
-    res = compare(got, want, *tol, f"K2 {dtype}")
-    if dtype == torch.float32:
-        # the autograd.Function's backward recomputes through the plain version
-        args = [t[:64].clone().requires_grad_() for t in (roi, p1t, p2e)] \
-            + [t.clone().requires_grad_() for t in lns]
-        ref = [a.detach().clone().requires_grad_() for a in args]
-        (dynamic_conv_fused(*args) ** 2).sum().backward()
-        (dynamic_conv_ref(*ref) ** 2).sum().backward()
-        res["grad_max_rel_err"] = max(
-            float((a.grad - r.grad).abs().max() / r.grad.abs().max()) for a, r in zip(args, ref))
-        require(res["grad_max_rel_err"] < 1e-4,
-                f"K2 backward: rel err {res['grad_max_rel_err']} over 1e-4")
-    if timing:
-        elt = roi.element_size()
-        nbytes = (roi.numel() + p1t.numel() + p2e.numel() + got.numel()) * elt \
-            + sum(t.numel() for t in lns) * 4
-        flops = 2 * s * (p * d * e) * 2
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
-        res["ms"] = cuda_time_ms(lambda: dynamic_conv_fused(roi, p1t, p2e, *lns))
-        res["plain_ms"] = cuda_time_ms(lambda: dynamic_conv_ref(roi, p1t, p2e, *lns))
+    sizes = K2_SIZES if dtype == torch.bfloat16 else K2_SIZES[:1]
+    rows = []
+    for s in sizes:
+        roi, p1t, p2e, lns = k2_inputs(gen, dev, dtype, s)
+        got = dynamic_conv_fused(roi, p1t, p2e, *lns)
+        want = dynamic_conv_ref(roi, p1t, p2e, *lns)
+        torch.cuda.synchronize()
+        row = compare(got, want, *tol, f"K2 {dtype} S={s}")
+        row.update(s=s, design="ring" if dtype == torch.bfloat16 else "v1")
+        require(torch.equal(dynamic_conv_fused(roi, p1t, p2e, *lns), got),
+                f"K2 {dtype} S={s}: two launches differ")
+        row["deterministic"] = True
+        if dtype == torch.bfloat16:
+            row["plan"] = dynconv_plan(s, sms)
+        if dtype == torch.float32:
+            # the autograd.Function's backward recomputes through the plain version
+            args = [t[:64].clone().requires_grad_() for t in (roi, p1t, p2e)] \
+                + [t.clone().requires_grad_() for t in lns]
+            ref = [a.detach().clone().requires_grad_() for a in args]
+            (dynamic_conv_fused(*args) ** 2).sum().backward()
+            (dynamic_conv_ref(*ref) ** 2).sum().backward()
+            row["grad_max_rel_err"] = max(
+                float((a.grad - r.grad).abs().max() / r.grad.abs().max())
+                for a, r in zip(args, ref))
+            require(row["grad_max_rel_err"] < 1e-4,
+                    f"K2 backward: rel err {row['grad_max_rel_err']} over 1e-4")
+        if timing:
+            call = (roi, p1t, p2e, *lns)
+            row["bound_ms"], row["bound_by"] = k2_bound(roi, p1t, p2e, lns)
+            row["ms"] = cuda_time_ms(lambda: dynamic_conv_fused(*call))
+            row["kernel_ms"] = device_ms(lambda: dynamic_conv_fused(*call), K2_KERNELS, 20, 1)
+            row["plain_ms"] = cuda_time_ms(lambda: dynamic_conv_ref(*call))
+            row["unfused_ms"] = cuda_time_ms(k2_unfused(roi, p1t, p2e, lns))
+        rows.append(row)
+        del roi, p1t, p2e, lns, got, want
+    res = {k: v for k, v in rows[0].items() if k != "s"}
+    res["sizes"] = rows
+    edge = []
+    for s in K2_EDGE_SIZES:
+        roi, p1t, p2e, lns = k2_inputs(gen, dev, dtype, s)
+        got = dynamic_conv_fused(roi, p1t, p2e, *lns)
+        r = compare(got, dynamic_conv_ref(roi, p1t, p2e, *lns), *tol, f"K2 {dtype} S={s}")
+        edge.append({"s": s, "max_abs_err": r["max_abs_err"]})
+    res["edge_sizes"] = edge
+    res["max_abs_err"] = max([r["max_abs_err"] for r in rows] + [r["max_abs_err"] for r in edge])
     return res
 
 
@@ -1407,8 +1485,8 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in reports.items()})
-    # empty when this checkout had built K4's, K5's or K6's library before
-    for source in ("swin_block_attn", "swin_block_mlp", "window_attn_qkv"):
+    # empty when this checkout had built K2's, K4's, K5's or K6's library before
+    for source in ("dynamic_conv", "swin_block_attn", "swin_block_mlp", "window_attn_qkv"):
         emit("ptxas", source=source, report=ptxas_report(reports.get(source, "")))
 
     kernel_rows = phase_kernels(args.seed)
@@ -1444,7 +1522,7 @@ def main(argv=None) -> int:
             line[-1]["train_ms"] = k3_train["ms"]
         if name == "window_attn_qkv":
             line[-1].update(kernel_ms=bf["kernel_ms"], library_full_ms=bf["library_full_ms"])
-        if name == "swin_block_mlp":
+        if name in ("dynamic_conv", "swin_block_mlp"):
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -272,9 +272,11 @@ class DynamicHead(nn.Module):
         self.head_series = nn.ModuleList([RCNNHead(**kw) for _ in range(num_heads)])
         self.head_series_cond = nn.ModuleList(
             [RCNNHead(**kw, conditioned=True) for _ in range(num_heads_local)])
+        # the global cross-attention runs only in ``condition``, which needs a
+        # conditioned stage; the JAX head creates its parameters only there
         self.global_attention = nn.ModuleList(
             [nn.ModuleList([MultiheadAttention(d_model, nheads, dtype)])
-             for _ in range(global_stages if global_enable else 0)])
+             for _ in range(global_stages if global_enable and num_heads_local > 0 else 0)])
         self.time_mlp = nn.Sequential(
             SinusoidalPositionEmbeddings(d_model),
             Linear(d_model, 4 * d_model, dtype=dtype), nn.GELU(),

@@ -29,6 +29,7 @@ from diffusionvid_tpu.ops.roi_align_pallas import multilevel_roi_align_mxu as j_
 
 from diffusionvid_torch.engine.postprocess import select_topk_detections
 from diffusionvid_torch.ops import _build
+from diffusionvid_torch.ops import dynamic_conv as dc
 from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
 from diffusionvid_torch.ops.fps import farthest_point_sample, pairwise_l2_distance
 from diffusionvid_torch.ops.memory import FeatureMemory, update_erase_memory
@@ -162,16 +163,53 @@ def _k2_args(s=3, e=64, dtype=torch.bfloat16):
             + [_meta(n) for n in (e, e, 256, 256)])
 
 
-@pytest.mark.parametrize("kernel", ["roi_align_fwd", "dynamic_conv"])
-def test_wrapper_launches_kernel_off_the_cpu(stop_at_launch, kernel):
+class _Library:
+    """Stands in for a loaded library: stops at the entry point asked for."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __getattr__(self, entry):
+        raise _ReachedLaunch(f"{self.name}.{entry}")
+
+
+@pytest.mark.parametrize("kernel,dtype,entry", [
+    ("roi_align_fwd", torch.bfloat16, "roi_align_fwd"),
+    ("dynamic_conv", torch.bfloat16, "dynamic_conv.dynamic_conv_ring"),
+    ("dynamic_conv", torch.float32, "dynamic_conv.dynamic_conv_fwd")],
+    ids=["roi_align_fwd", "dynamic_conv", "dynamic_conv_fp32"])
+def test_wrapper_launches_kernel_off_the_cpu(monkeypatch, kernel, dtype, entry):
+    """K2 takes the ring design in bf16 and the first design in fp32: the
+    library's entry point each one reaches."""
+    monkeypatch.setattr(_build, "load", _Library)
+    monkeypatch.setattr(dc, "_FNS", {})
     if kernel == "roi_align_fwd":
-        wrapper, args = multilevel_roi_align, _k1_args()
+        wrapper, args = multilevel_roi_align, _k1_args(dtype=dtype)
     else:
-        wrapper, args = dynamic_conv_fused, _k2_args()
+        wrapper, args = dynamic_conv_fused, _k2_args(dtype=dtype)
     before = wrapper.launches
-    with pytest.raises(_ReachedLaunch, match=kernel):
+    with pytest.raises(_ReachedLaunch, match=entry):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("s", [1, 7, 1200, 1500, 2400])
+def test_dynconv_plan_fits_the_card(s):
+    """The ring design's plan on a 132-SM card: every proposal taken once,
+    the shared bytes the layout's sum within the block's limit, two
+    proposals or more in the ring."""
+    plan = dc.dynconv_plan(s, 132)
+    grid, stages = plan["grid"], plan["stages"]
+    assert 1 <= grid <= min(s, 132)
+    taken = sorted(p for b in range(grid) for p in range(b, s, grid))
+    assert taken == list(range(s))
+    per_block = [len(range(b, s, grid)) for b in range(grid)]
+    assert (min(per_block), max(per_block)) == plan["per_block"]
+    box = 64 * 64 * 2                       # 64 rows of 64 bf16 channels
+    slot = (4 + 4) * box + 4 * box          # roi and p1t, then p2e: 4 boxes each
+    ln = (64 + 64 + 256 + 256) * 4          # g1, b1, g2, b2 in fp32
+    assert plan["smem_bytes"] == stages * slot + ln + 256 <= 232448
+    assert stages >= 2
 
 
 def _k1_bad(case):
@@ -219,13 +257,15 @@ def _k2_bad(case):
         args[5] = args[5].to(torch.bfloat16)
     if case == "ln_shape":
         args[3] = _meta(32)
+    if case == "unaligned":                 # roi 2 bytes past a 16-byte boundary
+        args[0] = _meta(3 * 49 * 256 + 1, dtype=torch.bfloat16)[1:].view(3, 49, 256)
     return args
 
 
 @pytest.mark.parametrize("case,error", [
     ("float16", TypeError), ("dynamic_dim", ValueError), ("p2e_dtype", ValueError),
     ("p1t_rows", ValueError), ("not_contiguous", ValueError),
-    ("ln_dtype", ValueError), ("ln_shape", ValueError)])
+    ("ln_dtype", ValueError), ("ln_shape", ValueError), ("unaligned", ValueError)])
 def test_dynamic_conv_wrapper_rejects(stop_at_launch, case, error):
     with pytest.raises(error):
         dynamic_conv_fused(*_k2_bad(case))

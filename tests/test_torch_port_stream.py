@@ -82,15 +82,33 @@ def test_memory_after_start_video(runs):
         assert rel_err(m.feats.numpy(), jm.feats) < 1e-3
 
 
-@pytest.mark.parametrize("chunk", [0, 1])
-def test_detections_frame_by_frame(runs, chunk):
-    _, jdets, _, dets = runs
-    jd, d = jdets[chunk], dets[chunk]
+def _frames_agree(jd, d):
     for f in range(d.boxes.shape[0]):
         assert rel_err(d.scores[f], jd.scores[f]) < 1e-3, f"frame {f} scores"
         assert rel_err(d.boxes[f], jd.boxes[f]) < 1e-3, f"frame {f} boxes"
         np.testing.assert_array_equal(d.labels[f].numpy(), np.asarray(jd.labels[f]))
         np.testing.assert_array_equal(d.valid[f].numpy(), np.asarray(jd.valid[f]))
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_detections_frame_by_frame(runs, chunk):
+    _, jdets, _, dets = runs
+    _frames_agree(jdets[chunk], dets[chunk])
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["global", "no_global"])
+def plain_runs(request):
+    return run_both(*jax_model_and_params(num_heads=2, num_heads_local=0,
+                                          global_enable=request.param))
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_plain_diffusiondet_frame_by_frame(plain_runs, chunk):
+    """No conditioned stage (NUM_HEADS_LOCAL 0, plain DiffusionDet as in
+    configs/vid_R_101_DiffusionDET.yaml), with GLOBAL.ENABLE set or not:
+    the last shared stage's outputs are the detections."""
+    _, jdets, _, dets = plain_runs
+    _frames_agree(jdets[chunk], dets[chunk])
 
 
 def test_fold_topk_vs_jax():

@@ -44,11 +44,11 @@ ARCH = dict(depth=18, num_classes=K, num_proposals=P, num_heads=2, num_heads_loc
 CFG_UNIFORM = np.asarray([0.5, 0.05, 0.7], np.float32)
 
 
-def _port_model(seed=0):
+def _port_model(seed=0, arch=ARCH):
     """The tiny model, set up so that the two sides' gradients compare well
     (``chip_smoke.conditioned_train_model``: every ReLU far from its kink)."""
     return conditioned_train_model(torch.Generator().manual_seed(seed),
-                                   torch.from_numpy(_batch()[0][0]), **ARCH)
+                                   torch.from_numpy(_batch()[0][0]), **arch)
 
 
 def _jax_params(model):
@@ -113,10 +113,13 @@ def test_prepare_diffusion_targets_on_jax_draws():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
 
 
-def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
-    model = _port_model()
+def _train_vs_jax(arch):
+    """The stage outputs, assignments, losses and gradients of the model
+    ``arch`` against the JAX package's, as the module docstring says."""
+    stages = arch["num_heads"] + arch["num_heads_local"]
+    model = _port_model(arch=arch)
     params = _jax_params(model)
-    jmodel = JaxArch(**ARCH, compute_dtype=jnp.float32)
+    jmodel = JaxArch(**arch, compute_dtype=jnp.float32)
     arrays = _batch()
     jbatch = jt.TrainBatch(*[jnp.asarray(a) for a in arrays])
     rng = jax.random.PRNGKey(5)
@@ -137,10 +140,10 @@ def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
             logits, boxes = model(torch.from_numpy(arrays[0][s]),
                                   torch.from_numpy(np.array(noisy)), draws.t[s].long(),
                                   NUM_GLOBAL, draws.null[s])
-        assert logits.shape == (3, B, P, K) and boxes.shape == (3, B, P, 4)
+        assert logits.shape == (stages, B, P, K) and boxes.shape == (stages, B, P, 4)
         assert rel_err(logits, j_logits) < 1e-3 and rel_err(boxes, j_boxes) < 1e-3
         gt = [arrays[i][s] for i in (2, 1, 3)]
-        for st in range(3):
+        for st in range(stages):
             want = jax.vmap(jc.simota_match)(j_logits[st], j_boxes[st],
                                              *[jnp.asarray(a) for a in gt], whwh_b)
             got = tc.simota_match(logits[st], boxes[st],
@@ -157,7 +160,7 @@ def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
     total, losses = tt.make_loss_fn(model, NUM_GLOBAL)(_port_batch(arrays), draws)
     total.backward()
     assert rel_err(total.detach(), w_total) < 1e-4
-    assert sorted(losses) == sorted(w_losses) and "loss_ce_1" in losses
+    assert sorted(losses) == sorted(w_losses) and f"loss_ce_{stages - 2}" in losses
     for k, v in w_losses.items():
         assert rel_err(losses[k].detach(), v) < 1e-4, k
 
@@ -175,6 +178,17 @@ def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
             checked.add(name.rsplit(".", 1)[-1])
     # FrozenBN's four tensors have gradients on both sides
     assert {"running_mean", "running_var", "weight", "bias"} <= checked
+
+
+def test_train_loss_and_gradients_vs_jax(fixed_cfg_mask):
+    _train_vs_jax(ARCH)
+
+
+@pytest.mark.parametrize("global_enable", [True, False], ids=["global", "no_global"])
+def test_train_plain_diffusiondet_vs_jax(fixed_cfg_mask, global_enable):
+    """No conditioned stage (plain DiffusionDet, NUM_HEADS_LOCAL 0), with
+    GLOBAL.ENABLE set or not: the two shared stages are supervised alone."""
+    _train_vs_jax(dict(ARCH, num_heads_local=0, global_enable=global_enable))
 
 
 @pytest.mark.parametrize("kind", ["resnet", "swin"])

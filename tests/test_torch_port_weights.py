@@ -27,13 +27,14 @@ SWIN_T = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "sw
 
 
 def jax_model_and_params(depth=18, num_classes=5, num_heads=1,
-                         num_heads_local=1, res_stage=1, seed=0, swin=False):
+                         num_heads_local=1, res_stage=1, seed=0, swin=False,
+                         global_enable=True):
     """A small fp32 JAX DiffusionDetArch initialised with ``jax.jit``: a
     ResNet of ``depth``, or with ``swin`` a Swin-T trunk."""
     model = JaxArch(depth=depth, num_classes=num_classes, num_proposals=PROPS,
                     num_heads=num_heads, num_heads_local=num_heads_local,
                     res_stage=res_stage, compute_dtype=jnp.float32,
-                    **(SWIN_T if swin else {}))
+                    global_enable=global_enable, **(SWIN_T if swin else {}))
     noisy = jnp.tile(jnp.asarray([8.0, 8.0, 60.0, 40.0]), (2, PROPS, 1))
     init = jax.jit(lambda r: model.init(
         {"params": r, "cfg": jax.random.PRNGKey(1)}, jnp.zeros((2, H, W, 3)),
@@ -76,8 +77,9 @@ def port_model(jmodel, variables):
     model = DiffusionDetArch(
         depth=jmodel.depth, num_classes=jmodel.num_classes, num_proposals=jmodel.num_proposals,
         num_heads=jmodel.num_heads, num_heads_local=jmodel.num_heads_local,
-        res_stage=jmodel.res_stage, backbone_type=jmodel.backbone_type,
-        swin_size=jmodel.swin_size, fpn_in=jmodel.fpn_in, compute_dtype=torch.float32)
+        res_stage=jmodel.res_stage, global_enable=jmodel.global_enable,
+        backbone_type=jmodel.backbone_type, swin_size=jmodel.swin_size, fpn_in=jmodel.fpn_in,
+        compute_dtype=torch.float32)
     model.load_state_dict(state_dict_from_jax(variables["params"]), strict=True)
     return model.eval()
 
@@ -133,3 +135,17 @@ def test_strict_load_and_names(pair):
     assert "head.head_series.0.reg_module.7.bias" in names
     assert f"head.global_attention.{jmodel.res_stage - 1}.0.out_proj.weight" in names
     assert "head.time_mlp.3.weight" in names
+
+
+@pytest.mark.parametrize("global_enable", [True, False], ids=["global", "no_global"])
+def test_strict_load_without_conditioned_stage(global_enable):
+    """Plain DiffusionDet (no conditioned stage): the JAX head never runs
+    its global cross-attention, so it has no parameters for it, and the
+    port builds none, whether GLOBAL.ENABLE is set or not."""
+    jmodel, variables = jax_model_and_params(num_heads=2, num_heads_local=0,
+                                             global_enable=global_enable)
+    model = port_model(jmodel, variables)
+    names = set(model.state_dict())
+    assert not any(n.startswith(("head.global_attention.", "head.head_series_cond."))
+                   for n in names)
+    assert "head.head_series.1.inst_interact.dynamic_layer.weight" in names
