@@ -6,12 +6,22 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (``nvidia-smi``); fails
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
-              then ``ptxas``, K2's, K4's, K5's and K6's registers and spills
-              per kernel;
+              then ``ptxas``, K1's, K2's, K4's, K5's and K6's registers and
+              spills per kernel;
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
-              bound from bytes and flops.  DynamicConv (K2) runs at an
+              bound from bytes and flops.  ROIAlign (K1) runs at an R-101
+              chunk's 8 frames and, in bf16, a Swin-B chunk's 4 (300 ROIs a
+              frame): its levels against ``_levels`` for every ROI, two
+              bit-equal launches, its footprint per level against the 784
+              taps a ROI of the first design, the bytes its design moves,
+              its plan, card time ``kernel_ms``, ``ms`` and host time
+              ``host_ms``; then edge cases, checked but not timed (1 and 37
+              ROIs, frames on one level, ROIs under one cell, elongated
+              boxes, boxes over every border or of zero size, and boxes on
+              each level boundary and an ulp or two either side).
+              DynamicConv (K2) runs at an
               R-101 chunk's 2,400 proposals and, in bf16, at a Swin-B
               chunk's 1,200, records its design and launch plan, launches
               twice to show that it is deterministic, times its card time
@@ -51,7 +61,10 @@ Phases, one JSON line each:
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
               finite outputs and the kernels' launch counts, prints fps,
-              peak memory and one chunk's device time by kernel;
+              peak memory and one chunk's device time by kernel; then
+              ``k1_stream``: K1 on the 4 launches of the last chunk, checked
+              in bf16 as in phase 3 and timed, with its footprint per level,
+              its inputs saved to ``build/chip_smoke/k1_stream_inputs.pt``;
   6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
               24 global frames then 6 chunks of 4 frames at 608x1024; then
               ``flagship_swin_v1``, the trunk in mode v1 (K7), 2 chunks;
@@ -75,7 +88,8 @@ Phases, one JSON line each:
               with its bound, its ROIs and longest tile list per level and
               its plan.
 Then the ``kernels`` line (every kernel with its launches on its flagship
-path, error against its plain version, times and bound), the card's name and
+path, error against its plain version, times and bound; K1's with its card
+time, host time and card time on the stream's inputs), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
 """
@@ -83,8 +97,10 @@ failed check exits nonzero before that line.  Needs the repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -243,35 +259,244 @@ def flagship_rois(gen, b: int, r: int, h: int, w: int):
     return boxes.contiguous()
 
 
-def kernel_k1(gen, dev, dtype, timing: bool):
-    from diffusionvid_torch.ops.roi_align import (
-        multilevel_roi_align, multilevel_roi_align_ref, _levels)
-    f, c = FLAGSHIP["frames"], FLAGSHIP["c"]
-    h, w = FLAGSHIP["h"], FLAGSHIP["w"]
-    scales = (1 / 8, 1 / 16, 1 / 32)
-    feats = [torch.randn(f, -(-h // s), -(-w // s), c, generator=gen).to(dev, dtype)
-             for s in (8, 16, 32)]
-    rois = flagship_rois(gen, f, FLAGSHIP["props"], h, w).to(dev)
-    lv = _levels(feats, rois, scales)
-    counts = [int((lv == i).sum()) for i in range(3)]
-    require(min(counts) > 0, f"K1 test rois miss a level: {counts}")
-    got = multilevel_roi_align(feats, rois, scales)
-    want = multilevel_roi_align_ref(feats, rois, scales)
+def host_ms(fn, iters: int = 20) -> float:
+    """The median host time to enqueue one call of ``fn`` (no
+    synchronisation around the call)."""
+    fn()
     torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+# K1's frames a call: an R-101 chunk (8 frames) and a Swin-B chunk (4), 300
+# ROIs each; its kernels: the footprint design (bf16) and the first (fp32)
+K1_FRAMES = (FLAGSHIP["frames"], SWIN_FRAMES)
+K1_KERNELS = ("roi_footprint_kernel", "roi_align_fwd_kernel")
+K1_SCALES = (1 / 8, 1 / 16, 1 / 32)
+
+
+def k1_maps(gen, dev, dtype, frames: int, h: int = FLAGSHIP["h"], w: int = FLAGSHIP["w"],
+            c: int = FLAGSHIP["c"]):
+    """p3..p5 of ``frames`` frames at ``h`` x ``w``, NHWC, drawn from ``gen``."""
+    return [torch.randn(frames, -(-h // s), -(-w // s), c, generator=gen).to(dev, dtype)
+            for s in (8, 16, 32)]
+
+
+def k1_footprint(feats, rois, scales, level) -> dict:
+    """K1's footprint on these inputs (``roi_footprints``): per level the
+    ROIs and the mean distinct rows, columns and cells a ROI, against the
+    784 taps a ROI the first design made; and ``design_bytes``, what the
+    footprint design moves: each ROI's cells once, the output, the ROIs
+    and the levels."""
+    from diffusionvid_torch.ops import roi_align as ra
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    fp = ra.roi_footprints(rois, level, shapes, scales)
+    cells = fp[..., 0] * fp[..., 1]
+    per_level = []
+    for i in range(3):
+        sel = level == i
+        n = int(sel.sum())
+        per_level.append({"rois": n, "rows": float(fp[..., 0][sel].float().mean()) if n else 0.0,
+                          "cols": float(fp[..., 1][sel].float().mean()) if n else 0.0,
+                          "cells": float(cells[sel].float().mean()) if n else 0.0})
+    c, elt = feats[0].shape[3], feats[0].element_size()
+    out_bytes = rois.shape[0] * rois.shape[1] * 49 * c * elt
+    return {"footprint_cells": {"levels": per_level, "mean": float(cells.float().mean()),
+                                "taps": 784},
+            "design_bytes": float(cells.sum()) * c * elt + out_bytes + rois.numel() * 4
+            + level.numel() * 4}
+
+
+def k1_bound(feats, rois) -> tuple[float, str]:
+    """K1's bound: one read of the maps and the ROIs, one write of the
+    output and the levels; 16 taps (32 flops) an output element."""
+    elt = feats[0].element_size()
+    out = rois.shape[0] * rois.shape[1] * 49 * feats[0].shape[3]
+    nbytes = (sum(t.numel() for t in feats) * elt + rois.numel() * 4
+              + rois.shape[0] * rois.shape[1] * 4 + out * elt)
+    return bound_ms(nbytes, out * 4 * 4 * 2, feats[0].dtype)
+
+
+def k1_case(feats, rois, scales=K1_SCALES, what="K1") -> dict:
+    """K1 on one set of inputs: the wrapper's output against the plain
+    version (fp32: (1e-5, 1e-5); bf16: (1e-5, 2^-6)); the levels the kernel
+    wrote against ``_levels`` on the card for every ROI
+    (``levels_equal``); a second launch bit-equal in output and levels
+    (``deterministic``); the ROIs a level."""
+    from diffusionvid_torch.ops import roi_align as ra
+    dtype = feats[0].dtype
+    got = ra.multilevel_roi_align(feats, rois, scales)
+    again, level = ra._launch_fwd(feats, rois, scales)
+    want = ra.multilevel_roi_align_ref(feats, rois, scales)
+    ref_level = ra._levels(feats, rois, scales)
+    torch.cuda.synchronize()
+    if not torch.equal(level, ref_level):
+        idx = (level != ref_level).nonzero()[:8]
+        emit("mismatch", what=f"{what} levels", index=idx.tolist(),
+             rois=rois[tuple(idx.T)].tolist(), got=level[tuple(idx.T)].tolist(),
+             want=ref_level[tuple(idx.T)].tolist())
+    require(torch.equal(level, ref_level), f"{what} {dtype}: levels differ from _levels")
+    require(torch.equal(got, again), f"{what} {dtype}: two launches differ")
     # bf16: kernel and plain version both sum in fp32 (in another order) and
     # round once, so an element may differ by one bf16 ulp, 2^-7 relative
     tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2 ** -6)
-    res = compare(got, want, *tol, f"K1 {dtype}")
-    res["rois_per_level"] = counts
-    if timing:
-        elt = feats[0].element_size()
-        nbytes = (sum(t.numel() for t in feats) * elt + rois.numel() * 4
-                  + lv.numel() * 4 + got.numel() * elt)
-        flops = got.numel() * 4 * 4 * 2
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype)
-        res["ms"] = cuda_time_ms(lambda: multilevel_roi_align(feats, rois, scales))
+    res = compare(got, want, *tol, f"{what} {dtype}")
+    res.update(levels_equal=True, deterministic=True,
+               rois_per_level=[int((level == i).sum()) for i in range(3)])
+    return res
+
+
+def k1_timing(feats, rois, scales=K1_SCALES, plain: bool = True) -> dict:
+    """K1's times on these inputs: ``kernel_ms`` (the card's time in the
+    kernel, ``torch.profiler``), ``ms`` (CUDA events around back-to-back
+    wrapper calls), ``host_ms`` (the host's time to enqueue a call), the
+    plain version's ``plain_ms`` and the bound."""
+    from diffusionvid_torch.ops import roi_align as ra
+    call = lambda: ra.multilevel_roi_align(feats, rois, scales)  # noqa: E731
+    res = dict(zip(("bound_ms", "bound_by"), k1_bound(feats, rois)))
+    res.update(kernel_ms=device_ms(call, K1_KERNELS, 20, 1), ms=cuda_time_ms(call),
+               host_ms=host_ms(call))
+    if plain:
         res["plain_ms"] = cuda_time_ms(
-            lambda: multilevel_roi_align_ref(feats, rois, scales), iters=5)
+            lambda: ra.multilevel_roi_align_ref(feats, rois, scales), iters=5)
+    return res
+
+
+def boundary_rois():
+    """Square boxes, at the origin and off it, whose side sits on each
+    level boundary of sqrt(area) (112, 224 and 448 pixels) and one and two
+    ulps either side."""
+    sides = []
+    for s in (112.0, 224.0, 448.0):
+        v = torch.tensor(s)
+        for k in range(-2, 3):
+            x = v
+            for _ in range(abs(k)):
+                x = torch.nextafter(x, torch.tensor(0.0 if k < 0 else 1e4))
+            sides.append(float(x))
+    boxes = [[x, y, x + s, y + s] for s in sides for x, y in ((0.0, 0.0), (100.25, 50.5))]
+    return torch.tensor(boxes, dtype=torch.float32)[None]
+
+
+def k1_edge_rois(gen, case: str, h: int, w: int):
+    """The edge cases' ROIs, 2 frames each (``boundary``: 1 frame)."""
+    if case in ("r1", "r37"):
+        return flagship_rois(gen, 2, int(case[1:]), h, w)
+    if case == "boundary":
+        return boundary_rois()
+    r = 64
+    ctr = torch.rand(2, r, 2, generator=gen) * torch.tensor([w, h])
+    if case == "one_level":       # frame 0 all on p3 (sides 16-100), frame 1 all on p5 (500-900)
+        side = torch.empty(2, r, 2)
+        side[0].uniform_(16, 100, generator=gen)
+        side[1].uniform_(500, 900, generator=gen)
+    elif case == "tiny":          # under one p3 cell (8 pixels)
+        side = torch.empty(2, r, 2).uniform_(0.25, 7.5, generator=gen)
+    elif case == "elongated":     # the wide case: 28 columns spread over about 112
+        side = torch.empty(2, r, 2)
+        side[..., 0].uniform_(600, 1000, generator=gen)
+        side[..., 1].uniform_(20, 60, generator=gen)
+        side[:, 1::2] = side[:, 1::2].flip(-1) * torch.tensor([1.0, 0.6])
+    else:                         # borders: over every border, outside, zero sizes
+        side = torch.empty(2, r, 2).uniform_(40, 400, generator=gen)
+        ctr[:, 0::4, 0] = torch.tensor([-20.0, w + 20.0]).repeat(r // 8)
+        ctr[:, 1::4, 1] = torch.tensor([-20.0, h + 20.0]).repeat(r // 8)
+    boxes = torch.cat([ctr - side / 2, ctr + side / 2], -1)
+    if case == "borders":
+        boxes[:, 2::8] = torch.tensor([-100.0, -80.0, w + 90.0, h + 70.0])
+        boxes[:, 3::8] = torch.tensor([w + 40.0, h + 30.0, w + 300.0, h + 200.0])
+        boxes[:, 5::8, 2] = boxes[:, 5::8, 0]        # zero width
+        boxes[:, 6::8, 3] = boxes[:, 6::8, 1]        # zero height
+        boxes[:, 7::8, 2:] = boxes[:, 7::8, :2]      # zero both
+    return boxes.contiguous()
+
+
+K1_EDGE_CASES = ("r1", "r37", "one_level", "tiny", "elongated", "borders", "boundary")
+
+
+def kernel_k1(gen, dev, dtype, timing: bool):
+    """K1 against its plain version at an R-101 chunk's 8 frames and, in
+    bf16, a Swin-B chunk's 4 (300 ``flagship_rois`` a frame), each with its
+    levels against ``_levels``, two bit-equal launches, its footprint and,
+    with ``timing``, its times; then the edge cases, checked but not
+    timed."""
+    from diffusionvid_torch.ops import roi_align as ra
+    h, w = FLAGSHIP["h"], FLAGSHIP["w"]
+    frames = K1_FRAMES if dtype == torch.bfloat16 else K1_FRAMES[:1]
+    rows = []
+    for f in frames:
+        feats = k1_maps(gen, dev, dtype, f)
+        rois = flagship_rois(gen, f, FLAGSHIP["props"], h, w).to(dev)
+        row = {"frames": f, **k1_case(feats, rois, what=f"K1 {f} frames")}
+        require(min(row["rois_per_level"]) > 0, f"K1 test rois miss a level: {row}")
+        level = ra._levels(feats, rois, K1_SCALES)
+        row.update(k1_footprint(feats, rois, K1_SCALES, level))
+        if dtype == torch.bfloat16:
+            row["design"] = "footprint"
+            row["plan"] = ra.fwd_plan(f, FLAGSHIP["props"], FLAGSHIP["c"])
+        else:
+            row["design"] = "v1"
+        if timing:
+            row.update(k1_timing(feats, rois))
+        rows.append(row)
+        del feats, rois
+    res = {k: v for k, v in rows[0].items() if k != "frames"}
+    res["sizes"] = rows
+    edge = []
+    for case in K1_EDGE_CASES:
+        feats = k1_maps(gen, dev, dtype, 2 if case != "boundary" else 1)
+        rois = k1_edge_rois(gen, case, h, w).to(dev)
+        r = k1_case(feats, rois, what=f"K1 edge {case}")
+        level = ra._levels(feats, rois, K1_SCALES)
+        fp = k1_footprint(feats, rois, K1_SCALES, level)["footprint_cells"]
+        edge.append({"case": case, "rois": list(rois.shape[:2]), "max_abs_err": r["max_abs_err"],
+                     "rois_per_level": r["rois_per_level"],
+                     "mean_cells": fp["mean"], "levels_equal": True, "deterministic": True})
+        if case == "boundary":
+            require(len([n for n in r["rois_per_level"] if n]) == 3,
+                    f"K1 boundary boxes miss a level: {r['rois_per_level']}")
+        del feats, rois
+    res["edge"] = edge
+    res["max_abs_err"] = max([r["max_abs_err"] for r in rows] + [e["max_abs_err"] for e in edge])
+    return res
+
+
+def phase_k1_stream(captured) -> dict:
+    """K1 on the inputs of the R-101 x1 stream's last chunk (one launch a
+    decoder stage, kept by ``phase_flagship``), in bf16: against its plain
+    version with its levels and two bit-equal launches, its footprint
+    (the stream's proposals are not spread like phase 3's boxes), times
+    and bound.  The inputs go to ``build/chip_smoke/k1_stream_inputs.pt``
+    for ``diffusionvid_torch/utils/k1_bench.py``."""
+    from diffusionvid_torch.ops import roi_align as ra
+    require(len(captured) == 4, f"k1_stream: {len(captured)} K1 launches captured, expected 4")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    maps = {}                 # one copy of the maps the launches share
+    for c in captured:
+        if id(c["features"]) not in maps:
+            maps[id(c["features"])] = [f.cpu() for f in c["features"]]
+    torch.save([{"features": maps[id(c["features"])], "rois": c["rois"].cpu(),
+                 "scales": c["scales"]} for c in captured], out_dir / "k1_stream_inputs.pt")
+    stages = []
+    for i, cap in enumerate(captured):
+        feats, rois, scales = cap["features"], cap["rois"], cap["scales"]
+        require(feats[0].dtype == torch.bfloat16, f"k1_stream: maps are {feats[0].dtype}")
+        row = {"stage": i, "rois": list(rois.shape[:2]),
+               **k1_case(feats, rois, scales, what=f"k1_stream stage {i}")}
+        row.update(k1_footprint(feats, rois, scales, ra._levels(feats, rois, scales)))
+        row.update(k1_timing(feats, rois, scales, plain=False))
+        stages.append(row)
+    res = {k: sum(s[k] for s in stages) / len(stages)
+           for k in ("kernel_ms", "ms", "host_ms", "bound_ms")}
+    res.update(max_abs_err=max(s["max_abs_err"] for s in stages), levels_equal=True,
+               deterministic=True, stages=stages, card=torch.cuda.get_device_name(0))
+    emit("k1_stream", **res)
     return res
 
 
@@ -1071,12 +1296,36 @@ def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3"):
     require(max(errs.values()) < res["rtol"], f"tiny {kind}: card vs CPU over rtol: {errs}")
 
 
+@contextlib.contextmanager
+def capture_k1(keep: list):
+    """Append the inputs of every K1 launch (``roi_align._launch_fwd``) to
+    ``keep``: copies of the maps, one for the launches that share them, and
+    of the ROIs."""
+    from diffusionvid_torch.ops import roi_align as ra
+    inner, maps = ra._launch_fwd, {}
+
+    def launch(features, rois, spatial_scales):
+        key = tuple(f.data_ptr() for f in features)
+        if key not in maps:
+            maps[key] = [f.clone() for f in features]
+        keep.append(dict(features=maps[key], rois=rois.clone(), scales=tuple(spatial_scales)))
+        return inner(features, rois, spatial_scales)
+
+    ra._launch_fwd = launch
+    try:
+        yield
+    finally:
+        ra._launch_fwd = inner
+
+
 def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
-                   swin_kernel: str = "v3") -> dict:
+                   swin_kernel: str = "v3", keep_k1: list | None = None) -> dict:
     """A flagship config at full width, bf16: 24 global frames, then
     ``n_chunks`` chunks of INFER_BATCH frames at 608x1024; a Swin trunk in
     mode ``swin_kernel``.  A first pass warms up; the launch counts and
-    times are of the second."""
+    times are of the second.  With ``keep_k1``, the K1 inputs of the
+    first pass's last chunk (the second's are the same) are appended to
+    it."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.streaming import StreamingDetector
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
@@ -1101,18 +1350,20 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
               for _ in range(n_chunks)]
     whwh = torch.tensor([w, h, w, h], dtype=torch.float32, device="cuda")
 
-    def drive():
+    def drive(keep=None):
         state = det.start_video(seed, gframes, whwh)
         torch.cuda.synchronize()
         t_start = time.perf_counter()
         outs = []
-        for c in chunks:
-            state, dets = det.process_chunk(state, c, whwh)
+        for i, c in enumerate(chunks):
+            last = keep is not None and i == len(chunks) - 1
+            with capture_k1(keep) if last else contextlib.nullcontext():
+                state, dets = det.process_chunk(state, c, whwh)
             outs.append(dets)
         torch.cuda.synchronize()
         return state, outs, t_start
 
-    drive()                                   # warm-up: allocator, cuDNN plans
+    drive(keep_k1)                            # warm-up: allocator, cuDNN plans
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -1485,15 +1736,20 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in reports.items()})
-    # empty when this checkout had built K2's, K4's, K5's or K6's library before
-    for source in ("dynamic_conv", "swin_block_attn", "swin_block_mlp", "window_attn_qkv"):
+    # empty when this checkout had built K1's, K2's, K4's, K5's or K6's library before
+    for source in ("roi_align_fwd", "dynamic_conv", "swin_block_attn", "swin_block_mlp",
+                   "window_attn_qkv"):
         emit("ptxas", source=source, report=ptxas_report(reports.get(source, "")))
 
     kernel_rows = phase_kernels(args.seed)
     phase_tiny(args.seed, "resnet")
     for mode in SWIN_MODE_KERNELS:
         phase_tiny(args.seed, "swin", mode)
-    launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship")
+    k1_inputs = []
+    launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship",
+                              keep_k1=k1_inputs)
+    k1_stream = phase_k1_stream(k1_inputs)
+    del k1_inputs
     swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
     for name in ("swin_block_attn", "swin_block_mlp"):
         launches[name] = swin[name]
@@ -1518,6 +1774,9 @@ def main(argv=None) -> int:
                      "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
                      "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
                      "bound_by": bf["bound_by"], "library_ms": bf.get("library_ms")})
+        if name == "roi_align_fwd":
+            line[-1].update(kernel_ms=bf["kernel_ms"], host_ms=bf["host_ms"],
+                            stream_kernel_ms=k1_stream["kernel_ms"])
         if name == "roi_align_bwd":
             line[-1]["train_ms"] = k3_train["ms"]
         if name == "window_attn_qkv":

@@ -11,16 +11,18 @@ contiguous; the output is the flat ``[B, R, p*p, C]`` tile in row-major
 
 Level assignment follows detectron2 (canonical box 224 at level 4).  The
 border rule is the CUDA one: a sample is zero if its coordinate is below -1
-or above the size, and is clamped otherwise.  The kernels and the plain
-versions share ``fpn_level_assignment``, computed here in PyTorch, so both
-pool every ROI from the same level.  The gradient reaches the features
-only: the ROI gradient is zero, as in the JAX package's ``_pra_bwd`` and
-the reference CUDA backward.
+or above the size, and is clamped otherwise.  The plain versions and K3
+assign levels with ``fpn_level_assignment`` in PyTorch; K1 assigns them in
+the kernel with the same operations in the same order, and returns them
+for K3, so every path pools a ROI from the same level.  The gradient
+reaches the features only: the ROI gradient is zero, as in the JAX
+package's ``_pra_bwd`` and the reference CUDA backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -38,7 +40,10 @@ def fpn_level_assignment(rois, num_levels: int, min_level: int,
                          canonical_level: int = 4):
     """detectron2 ``assign_boxes_to_levels``: level =
     floor(canonical_level + log2(sqrt(area)/canonical_box_size)), clamped.
-    Returns int32 [B, R] in [0, num_levels)."""
+    Returns int32 [B, R] in [0, num_levels).  On CUDA PyTorch divides by
+    the Python number as a multiplication by its fp32 reciprocal, as XLA
+    does for the JAX package's version; K1 computes the same operations
+    (``csrc/roi_align_fwd.cu: roi_level``)."""
     area = ((rois[..., 2] - rois[..., 0]).clamp(min=0)
             * (rois[..., 3] - rois[..., 1]).clamp(min=0))
     lvl = torch.floor(canonical_level
@@ -224,7 +229,13 @@ def _check_kernel_inputs(features, rois, spatial_scales, output_size,
             raise ValueError(f"feature map shape {tuple(f.shape)} is not [B, H, W, {c}]")
         if not f.is_contiguous():
             raise ValueError("feature maps must be contiguous NHWC")
+        if dt == torch.bfloat16 and f.data_ptr() % 16:
+            raise ValueError("bfloat16 feature maps must start on 16 bytes")
     _check_common(rois, len(features), b, c, dt, output_size, sampling_ratio, aligned)
+    if dt == torch.bfloat16 and c % K1_LANE_CH:
+        # the footprint design reads and writes 16 bytes (8 channels) a lane
+        raise ValueError(f"K1 takes bfloat16 maps with a multiple of {K1_LANE_CH} "
+                         f"channels, got {c}")
 
 
 def _check_bwd_inputs(g, rois, feature_shapes, spatial_scales, out_dtype,
@@ -242,28 +253,110 @@ def _check_bwd_inputs(g, rois, feature_shapes, spatial_scales, out_dtype,
                   output_size, sampling_ratio, aligned)
 
 
-def _launch_fwd(features, rois, level, spatial_scales):
+# K1's footprint design (csrc/roi_align_fwd.cu, bf16): one block of 14 warps
+# per (frame, ROI) and slice of 256 channels, 8 channels (16 bytes) a lane;
+# two buffers of K1_CELLS staged cells of 512 bytes, then the ROI's tables
+# (struct Tables: 1,760 bytes)
+K1_THREADS = 14 * 32
+K1_LANE_CH = 8
+K1_SLICE = 32 * K1_LANE_CH
+K1_CELL = K1_SLICE * 2
+K1_CELLS = 108
+K1_TABLES = 1760
+# C entry point of each design: (name, argument types after the maps'
+# sizes, scales, pointers and B, R, C)
+_ENTRIES = {
+    "footprint": ("roi_align_fwd_footprint", [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "v1": ("roi_align_fwd", [ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(b: int, r: int, c: int) -> dict:
+    """The footprint design's launch for ``b`` frames of ``r`` ROIs and
+    ``c`` channels: a block per (ROI, frame, slice of 256 channels) as
+    ``grid``, its ``threads``, the ``cells`` each of its two buffers
+    stages (28 at least: one band row of the widest footprint) and its
+    shared bytes, which the C entry point checks against its layout.
+    Cached (the wrapper asks at every launch): do not modify the dict."""
+    return dict(grid=(r, b, -(-c // K1_SLICE)), threads=K1_THREADS, cells=K1_CELLS,
+                smem_bytes=2 * K1_CELLS * K1_CELL + K1_TABLES)
+
+
+# design -> (library, entry name, typed ctypes function), filled at first use
+_FNS: dict = {}
+
+
+def _entry(design: str):
+    """The library and the ctypes function of a K1 design, typed once."""
+    hit = _FNS.get(design)
+    if hit is None:
+        lib = _build.load("roi_align_fwd")
+        name, args = _ENTRIES[design]
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + args)
+        hit = _FNS[design] = (lib, name, fn)
+    return hit
+
+
+def launch_k1(features, rois, spatial_scales, out, level, design: str | None = None):
+    """Launch K1 on checked CUDA inputs (``_check_kernel_inputs``) into
+    ``out`` ``[B, R, 49, C]`` and ``level`` int32 ``[B, R]``; counts no
+    launch.  ``design``: ``"footprint"`` (bf16 only, the default for bf16,
+    with ``fwd_plan``) or ``"v1"`` (the first design, the default for
+    fp32).  Naming a design is for the benchmark (``utils/k1_bench.py``);
+    the wrapper takes the default."""
     f0, f1, f2 = features
+    bf16 = f0.dtype == torch.bfloat16
+    design = design or ("footprint" if bf16 else "v1")
+    if design == "footprint" and not bf16:
+        raise TypeError("the footprint design of K1 takes bfloat16")
+    lib, name, fn = _entry(design)
     b, r = rois.shape[:2]
     c = f0.shape[3]
-    out = torch.empty((b, r, 49, c), dtype=f0.dtype, device=rois.device)
-    if b * r == 0:
-        return out
-    lib = _build.load("roi_align_fwd")
-    fn = lib.roi_align_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    err = fn(f0.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-             f0.shape[1], f0.shape[2], f1.shape[1], f1.shape[2],
-             f2.shape[1], f2.shape[2],
-             *[float(s) for s in spatial_scales],
-             rois.data_ptr(), level.data_ptr(), out.data_ptr(),
-             b, r, c, _DTYPE_CODE[f0.dtype], _build.stream_ptr(rois.device))
-    _build.check(lib, err, "roi_align_fwd")
-    multilevel_roi_align.launches += 1
-    return out
+    s0, s1, s2 = spatial_scales
+    args = (f0.data_ptr(), f1.data_ptr(), f2.data_ptr(), f0.shape[1], f0.shape[2],
+            f1.shape[1], f1.shape[2], f2.shape[1], f2.shape[2], s0, s1, s2,
+            rois.data_ptr(), level.data_ptr(), out.data_ptr(), b, r, c)
+    stream = _build.stream_ptr(rois.device)
+    if design == "footprint":
+        plan = fwd_plan(b, r, c)
+        err = fn(*args, plan["cells"], plan["smem_bytes"], stream)
+    else:
+        err = fn(*args, _DTYPE_CODE[f0.dtype], stream)
+    _build.check(lib, err, name)
+
+
+def _launch_fwd(features, rois, spatial_scales):
+    """K1: the pooled ROIs and the levels the kernel assigned."""
+    b, r = rois.shape[:2]
+    f0 = features[0]
+    out = torch.empty((b, r, 49, f0.shape[3]), dtype=f0.dtype, device=rois.device)
+    level = torch.empty((b, r), dtype=torch.int32, device=rois.device)
+    if b * r:
+        launch_k1(features, rois, spatial_scales, out, level)
+        multilevel_roi_align.launches += 1
+    return out, level
+
+
+def roi_footprints(rois, level, feature_shapes, spatial_scales):
+    """K1's footprint of each ROI: the number of distinct rows and of
+    distinct columns of its level that carry a non-zero band weight
+    (``_band_params``), int64 ``[B, R, 2]``.  The footprint design reads
+    rows x columns cells a ROI; the first design made 784 taps."""
+    ys, xs, lvl_h, lvl_w = _sample_coords(rois, level, feature_shapes, spatial_scales,
+                                          7, 2, True)
+    counts = []
+    for coords, size, n in ((ys, lvl_h, max(h for h, _ in feature_shapes)),
+                            (xs, lvl_w, max(w for _, w in feature_shapes))):
+        lo, w0, w1 = _band_params(coords, size[..., None])
+        hit = torch.zeros((*lo.shape[:-1], n + 1), dtype=torch.bool, device=rois.device)
+        hit.scatter_(-1, torch.where(w0 != 0, lo, n), True)     # n: no cell
+        hit.scatter_(-1, torch.where(w1 != 0, lo + 1, n), True)
+        counts.append(hit[..., :n].sum(-1))
+    return torch.stack(counts, -1)
 
 
 # K3's launch plan (csrc/roi_align_bwd.cu): at most 256 cells (rows x
@@ -430,21 +523,22 @@ class _RoiAlignFn(torch.autograd.Function):
     the JAX package's ``_pra_bwd`` and the reference CUDA backward."""
 
     @staticmethod
-    def forward(ctx, rois, level, spatial_scales, *features):
+    def forward(ctx, rois, spatial_scales, *features):
+        out, level = _launch_fwd(features, rois, spatial_scales)
         ctx.save_for_backward(rois, level)
         ctx.scales = spatial_scales
         ctx.shapes = [(f.shape[1], f.shape[2]) for f in features]
         ctx.dtype = features[0].dtype
-        return _launch_fwd(features, rois, level, spatial_scales)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        if not any(ctx.needs_input_grad[3:]):
+        if not any(ctx.needs_input_grad[2:]):
             return (None,) * len(ctx.needs_input_grad)
         rois, level = ctx.saved_tensors
         grads = _launch_bwd(grad.to(ctx.dtype).contiguous(), rois, level,
                             ctx.shapes, ctx.scales)
-        return (None, None, None, *grads)
+        return (None, None, *grads)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
@@ -454,16 +548,15 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
     """Multilevel ROIAlignV2 → ``[B, R, p*p, C]`` in the features' dtype.
 
     On CPU tensors this is the plain version, differentiable by autograd.
-    On CUDA tensors it launches kernel K1 (``csrc/roi_align_fwd.cu``), and
-    its gradient launches kernel K3 (``csrc/roi_align_bwd.cu``), or it
-    raises."""
+    On CUDA tensors it launches kernel K1 (``csrc/roi_align_fwd.cu``), which
+    also assigns the levels, and its gradient launches kernel K3
+    (``csrc/roi_align_bwd.cu``) on those levels, or it raises."""
     if rois.device.type == "cpu":
         return multilevel_roi_align_ref(features, rois, spatial_scales,
                                         output_size, sampling_ratio, aligned)
     _check_kernel_inputs(features, rois, spatial_scales, output_size,
                          sampling_ratio, aligned)
-    level = _levels(features, rois, spatial_scales).contiguous()
-    return _RoiAlignFn.apply(rois, level, tuple(spatial_scales), *features)
+    return _RoiAlignFn.apply(rois, tuple(spatial_scales), *features)
 
 
 multilevel_roi_align.launches = 0

@@ -40,7 +40,6 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[2]
-K1_KERNELS = ("roi_align_fwd_kernel",)
 
 
 def event_ms(fn, iters: int) -> dict:
@@ -151,8 +150,8 @@ def main(argv=None) -> int:
         feats = [torch.randn(frames, -(-h // st), -(-w // st), c, generator=gen).to(dev, dtype)
                  for st in (8, 16, 32)]
         rois = cs.flagship_rois(gen, frames, props, h, w).to(dev)
-        row["k1"] = medians(lambda: ra.multilevel_roi_align(feats, rois, scales), K1_KERNELS,
-                            args.iters)
+        row["k1"] = medians(lambda: ra.multilevel_roi_align(feats, rois, scales),
+                            cs.K1_KERNELS, args.iters)
         res["sizes"].append(row)
         del feats, rois
         torch.cuda.empty_cache()

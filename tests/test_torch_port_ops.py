@@ -34,6 +34,7 @@ from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv
 from diffusionvid_torch.ops.fps import farthest_point_sample, pairwise_l2_distance
 from diffusionvid_torch.ops.memory import FeatureMemory, update_erase_memory
 from diffusionvid_torch.ops.nms import batched_nms_mask, nms_mask
+from diffusionvid_torch.ops import roi_align as ra
 from diffusionvid_torch.ops.roi_align import fpn_level_assignment, multilevel_roi_align
 from diffusionvid_torch.structures.boxes import (
     clip_to_image, cxcywh_to_xyxy, decode_boxes, pairwise_iou, xyxy_to_cxcywh)
@@ -75,6 +76,60 @@ def test_roi_align_plain_vs_pallas_interpreted():
     got = multilevel_roi_align([_t(f) for f in feats], _t(boxes), SCALES)
     assert got.shape == want.shape == (1, 50, 49, 32)
     assert rel_err(got.numpy(), want) < 1e-5
+
+
+def _boundary_boxes():
+    """Square boxes at the origin and off it whose side sits on each level
+    boundary of sqrt(area) (112, 224 and 448 pixels) and one ulp either
+    side."""
+    sides = [np.nextafter(np.float32(s), np.float32(to))
+             for s in (112, 224, 448) for to in (0, s, 1e4)]
+    boxes = [[x, y, x + s, y + s] for s in sides for x, y in ((0, 0), (100.25, 50.5))]
+    return np.asarray(boxes, np.float32)[None]
+
+
+def test_roi_align_levels_vs_jax_at_the_boundaries():
+    """At every level boundary and one ulp either side the plain level
+    assignment agrees with the JAX package's, and both sides of the p3/p4
+    and p4/p5 boundaries are taken."""
+    boxes = _boundary_boxes()
+    lv = fpn_level_assignment(_t(boxes), 3, 3).numpy()
+    np.testing.assert_array_equal(lv, np.asarray(j_levels(jnp.asarray(boxes), 3, 3)))
+    assert set(lv.ravel().tolist()) == {0, 1, 2}
+
+
+def _footprints_brute(rois, level, shapes):
+    """Distinct rows and columns with a non-zero band weight, ROI by ROI,
+    from ``_band_params`` sample by sample."""
+    ys, xs, lh, lw = ra._sample_coords(rois, level, shapes, SCALES, 7, 2, True)
+    b, r = rois.shape[:2]
+    out = np.zeros((b, r, 2), np.int64)
+    for i in range(b):
+        for j in range(r):
+            for a, (coords, size) in enumerate(((ys, lh), (xs, lw))):
+                lo, w0, w1 = ra._band_params(coords[i, j], size[i, j])
+                cells = {int(l) for l, w in zip(lo, w0) if w != 0}
+                cells |= {int(l) + 1 for l, w in zip(lo, w1) if w != 0}
+                out[i, j, a] = len(cells)
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "boundary", "tiny_maps"])
+def test_roi_footprints_vs_brute_force(case):
+    """K1's footprint function against a brute-force count, on ROIs over
+    every border, zero-width ones, and maps of one and two cells."""
+    sizes = ((32, 48), (16, 24), (8, 12))
+    if case == "boundary":
+        boxes = _boundary_boxes()
+    else:
+        _, boxes = _roi_inputs(2, 60, 8)
+        if case == "tiny_maps":
+            sizes = ((2, 3), (1, 2), (1, 1))
+    rois = _t(boxes)
+    level = fpn_level_assignment(rois, 3, 3)
+    got = ra.roi_footprints(rois, level, sizes, SCALES)
+    np.testing.assert_array_equal(got.numpy(), _footprints_brute(rois, level, sizes))
+    assert int(got.max()) <= 28
 
 
 @pytest.mark.parametrize("r", [50, 37])
@@ -174,15 +229,18 @@ class _Library:
 
 
 @pytest.mark.parametrize("kernel,dtype,entry", [
-    ("roi_align_fwd", torch.bfloat16, "roi_align_fwd"),
+    ("roi_align_fwd", torch.bfloat16, "roi_align_fwd.roi_align_fwd_footprint"),
+    ("roi_align_fwd", torch.float32, "roi_align_fwd.roi_align_fwd$"),
     ("dynamic_conv", torch.bfloat16, "dynamic_conv.dynamic_conv_ring"),
     ("dynamic_conv", torch.float32, "dynamic_conv.dynamic_conv_fwd")],
-    ids=["roi_align_fwd", "dynamic_conv", "dynamic_conv_fp32"])
+    ids=["roi_align_fwd", "roi_align_fwd_fp32", "dynamic_conv", "dynamic_conv_fp32"])
 def test_wrapper_launches_kernel_off_the_cpu(monkeypatch, kernel, dtype, entry):
-    """K2 takes the ring design in bf16 and the first design in fp32: the
-    library's entry point each one reaches."""
+    """K1 takes the footprint design in bf16 and the first design in fp32,
+    K2 the ring design in bf16 and the first design in fp32: the library's
+    entry point each one reaches."""
     monkeypatch.setattr(_build, "load", _Library)
     monkeypatch.setattr(dc, "_FNS", {})
+    monkeypatch.setattr(ra, "_FNS", {})
     if kernel == "roi_align_fwd":
         wrapper, args = multilevel_roi_align, _k1_args(dtype=dtype)
     else:
@@ -212,6 +270,29 @@ def test_dynconv_plan_fits_the_card(s):
     assert stages >= 2
 
 
+@pytest.mark.parametrize("b,r", [(8, 300), (4, 300), (1, 1), (2, 37)])
+def test_fwd_plan_fits_the_card(b, r):
+    """K1's footprint plan: every (frame, ROI) taken once a channel slice,
+    the shared bytes the layout's sum within the block's limit, two blocks
+    an SM, and room in a buffer for one band row of the widest footprint
+    (28 columns)."""
+    for c in (64, 256, 512):
+        plan = ra.fwd_plan(b, r, c)
+        gr, gb, gz = plan["grid"]
+        assert (gr, gb) == (r, b) and gz * 256 >= c > (gz - 1) * 256
+        taken = sorted(y * r + x for y in range(gb) for x in range(gr))   # ROI y * R + x
+        assert taken == list(range(b * r))
+        assert plan["threads"] == 14 * 32
+        assert plan["cells"] >= 28
+        # row and column offsets, Wx, the bins' rows and weights, their
+        # counts (8), the two counts, the sides' column ranges, side 1's
+        # first bin, the level, padding and the 28 samples of 4 words
+        # (csrc: Tables)
+        tables = 4 * (28 + 28 + 7 * 28 + 7 * 4 + 7 * 4 + 8 + 2 + 4 + 1 + 1 + 4 + 28 * 4)
+        assert plan["smem_bytes"] == 2 * plan["cells"] * 512 + tables <= 232448
+        assert 2 * (plan["smem_bytes"] + 1024) <= 233472     # two blocks an SM
+
+
 def _k1_bad(case):
     feats, rois, scales = _k1_args()
     if case == "float16":
@@ -228,13 +309,18 @@ def _k1_bad(case):
         feats[2] = feats[2].float()
     if case == "rois_float64":
         rois = rois.double()
+    if case == "unaligned":                 # p4 2 bytes past a 16-byte boundary
+        feats[1] = _meta(2 * 16 * 24 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 24, 64)
+    if case == "channels_not_16_bytes":     # even, but 60 bf16 channels are 120 bytes
+        return _k1_args(c=60), {}
     return (feats, rois, scales), {}
 
 
 @pytest.mark.parametrize("case,error", [
     ("float16", TypeError), ("two_levels", ValueError), ("output_size", ValueError),
     ("odd_channels", ValueError), ("not_contiguous", ValueError),
-    ("mixed_dtypes", ValueError), ("rois_float64", ValueError)])
+    ("mixed_dtypes", ValueError), ("rois_float64", ValueError),
+    ("unaligned", ValueError), ("channels_not_16_bytes", ValueError)])
 def test_roi_align_wrapper_rejects(stop_at_launch, case, error):
     args, kw = _k1_bad(case)
     with pytest.raises(error):

@@ -128,14 +128,15 @@ def test_forward_with_grad_goes_to_the_kernel(stop_at_launch):
 
 
 def test_autograd_backward_is_k3(monkeypatch):
-    """The autograd function's backward launches K3 on the forward's level
-    assignment and gives the ROIs no gradient."""
+    """The autograd function's backward launches K3 on the levels the
+    forward's K1 launch returned and gives the ROIs no gradient."""
     calls = {}
 
-    def fake_fwd(features, rois, level, scales):
+    def fake_fwd(features, rois, scales):
+        level = ra._levels(features, rois, scales)
         calls["fwd_level"] = level
         return torch.zeros(rois.shape[0], rois.shape[1], 49, features[0].shape[3],
-                           dtype=features[0].dtype)
+                           dtype=features[0].dtype), level
 
     def fake_bwd(g, rois, level, shapes, scales):
         calls["bwd"] = (g.dtype, level, shapes)
@@ -147,8 +148,7 @@ def test_autograd_backward_is_k3(monkeypatch):
     feats, boxes, _ = _bwd_inputs(5, r=10, c=64)
     fs = [_t(f).requires_grad_() for f in feats]
     rois = _t(boxes).requires_grad_()
-    level = ra._levels(fs, rois, SCALES)
-    out = ra._RoiAlignFn.apply(rois, level, SCALES, *fs)
+    out = ra._RoiAlignFn.apply(rois, SCALES, *fs)
     out.sum().backward()
     assert calls["bwd"][1] is calls["fwd_level"] and calls["bwd"][2] == list(SIZES)
     assert all(float(f.grad.min()) == float(f.grad.max()) == 2.0 for f in fs)
