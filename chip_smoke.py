@@ -7,7 +7,7 @@ Phases, one JSON line each:
               without a CUDA device;
   2. build    compiles every ``diffusionvid_torch/csrc/*.cu`` with nvcc;
               then ``ptxas``, K1's, K2's, K4's, K5's and K6's registers and
-              spills per kernel;
+              spills per kernel, and K7's bf16 kernel on a line of its own;
   3. kernels  each kernel against its plain PyTorch version at the shapes
               of the flagship paths, in bfloat16 and float32, with the
               tolerance stated; times the kernel, the plain version and the
@@ -45,7 +45,12 @@ Phases, one JSON line each:
               its whole function), its card time ``kernel_ms`` and its
               launch ``plan`` per stage, launches twice to show that it is
               deterministic, times its backward and checks its autograd
-              gradients against the twin's in float32.  K5 records its path
+              gradients against the twin's in float32.  K7 records its launch
+              ``plan`` per stage, launches twice to show that it is
+              deterministic, times its card time ``kernel_ms`` and its host
+              time ``host_ms``, and in bf16 is launched with every plan of
+              ``window_plans`` on a Swin-T-width map of 216 windows, whose
+              window runs and last waves are left partly empty.  K5 records its path
               (fused or wgmma) and plan per stage, launches twice to show
               that it is deterministic, times its card time ``kernel_ms`` and
               the library chain (layer_norm, linear, gelu, linear, add) as
@@ -67,7 +72,8 @@ Phases, one JSON line each:
               its inputs saved to ``build/chip_smoke/k1_stream_inputs.pt``;
   6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
               24 global frames then 6 chunks of 4 frames at 608x1024; then
-              ``flagship_swin_v1``, the trunk in mode v1 (K7), 2 chunks;
+              ``flagship_swin_v1``, the trunk in mode v1 (K7), 2 chunks,
+              with K7's card time in the profiled chunk;
   7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
               (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
               and on the CPU through the plain versions, same weights, batch
@@ -89,7 +95,8 @@ Phases, one JSON line each:
               its plan.
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
-time, host time and card time on the stream's inputs), the card's name and
+time, host time and card time on the stream's inputs; K7's with its card
+time, host time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
 """
@@ -218,6 +225,8 @@ def device_ms(fn, kernels, iters: int = 20, launches_per_call: int | None = None
 K3_KERNELS = ("roi_prepass_kernel", "roi_align_bwd_kernel")
 # K6's bf16 kernel
 K6_KERNELS = ("attn_qkv_bf16_kernel",)
+# K7's bf16 kernel (the same name in the first design)
+K7_KERNELS = ("attn_bf16_kernel",)
 # K5's bf16 kernels: the fused kernel, or the LN pass and the two products
 K5_KERNELS = ("mlp_bf16_kernel", "mlp_ln_kernel", "mlp_gemm_kernel")
 
@@ -1036,11 +1045,13 @@ def _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads: int) -> float:
 def _window_check(name, gen, dev, dtype, timing: bool):
     """K6 (``window_attn_qkv``, on 5-frame maps, the train step's) or K7
     (``window_attn``, 4-frame maps, the v1 stream's) at the four Swin-B stage
-    maps, then at Swin-T's, with shift 0 and 3, against the plain version.
-    With ``timing``, per Swin-B stage also the plain version's time, the
-    bound, ``library_ms`` (``_sdpa_ms``) and, for K6, ``bwd_ms``
-    (``_k6_backward_ms``), and their means over one backbone pass.  K6 in
-    fp32 also checks its autograd gradients at stage 1, shift 3."""
+    maps, then at Swin-T's, with shift 0 and 3, against the plain version,
+    launched twice (bit-equal), with the bf16 launch plan.  With ``timing``,
+    per Swin-B stage also the card time ``kernel_ms``, the plain version's
+    time, the bound, ``library_ms`` (``_sdpa_ms``) and, for K6, ``bwd_ms``
+    (``_k6_backward_ms``), for K7 ``host_ms``, and their means over one
+    backbone pass.  K6 in fp32 also checks its autograd gradients at stage
+    1, shift 3; K7 in bf16 runs ``k7_every_plan``."""
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops import window_attention as wa
     qkv = name == "window_attn_qkv"
@@ -1085,11 +1096,10 @@ def _window_check(name, gen, dev, dtype, timing: bool):
             require(res["mean_abs_err"] < MEAN_ERR[dtype],
                     f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
             res.update(stage=s, shape=list(x.shape), shift=shift)
-            if qkv:
-                require(torch.equal(fn(*args), got), f"{what}: two launches differ")
-                res["deterministic"] = True
-                if dtype == torch.bfloat16:
-                    res["plan"] = wa.qkv_plan(c, frames, hp, wp, sms)
+            require(torch.equal(fn(*args), got), f"{what}: two launches differ")
+            res["deterministic"] = True
+            if dtype == torch.bfloat16:
+                res["plan"] = (wa.qkv_plan if qkv else wa.window_plan)(c, frames, hp, wp, sms)
             worst = max(worst, res["max_abs_err"])
             del got, want
             if timed:
@@ -1100,11 +1110,14 @@ def _window_check(name, gen, dev, dtype, timing: bool):
                 res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
                 res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
                 res["library_ms"] = _sdpa_ms(q, k, v, bias, mask, heads)
+                res["kernel_ms"] = device_ms(lambda: fn(*args),
+                                             K6_KERNELS if qkv else K7_KERNELS, 10, 1)
                 if qkv:
-                    res["kernel_ms"] = device_ms(lambda: fn(*args), K6_KERNELS, 10, 1)
                     res["library_full_ms"] = cuda_time_ms(
                         k6_library(x, wqkv, bqkv, bias, mask, heads), iters=10)
                     res["bwd_ms"] = _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads)
+                else:
+                    res["host_ms"] = host_ms(lambda: fn(*args))
             if qkv and dtype == torch.float32 and s == 1 and shift:
                 extra["grad_max_rel_err"] = _k6_grads(x, wqkv, bqkv, bias, mask, heads)
                 extra["grad_stage"] = s
@@ -1114,14 +1127,60 @@ def _window_check(name, gen, dev, dtype, timing: bool):
             torch.cuda.empty_cache()
         del x, attn, q, k, v
         torch.cuda.empty_cache()
+    if not qkv and dtype == torch.bfloat16:
+        extra["plans"] = k7_every_plan(gen, dev, tol)
+        worst = max(worst, extra["plans"]["max_abs_err"])
     out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows, **extra}
     if timing:
-        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "library_ms") + (
-            ("kernel_ms", "library_full_ms", "bwd_ms") if qkv else ())
+        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "library_ms", "kernel_ms") + (
+            ("library_full_ms", "bwd_ms") if qkv else ("host_ms",))
         out.update(_pass_means([r for r in rows if "blocks" in r], keys))
         out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
                            else "operations")
     return out
+
+
+# K7's edge map: Swin-T's 12 heads (C = 384) over 3 maps of 56 x 63 (216
+# windows), launched with every plan of window_plans: partial window runs,
+# last waves partly empty, every head group (up to 12, one block an SM)
+K7_EDGE = dict(c=384, frames=3, hp=56, wp=63)
+
+
+def k7_every_plan(gen, dev, tol) -> dict:
+    """K7 in bf16 at ``K7_EDGE`` with shift 0 and 3, launched with each plan
+    of ``window_plans`` on this card's SMs (``launch_window``), against the
+    plain version: the worst error and how many plans left a window run or
+    the last wave partly empty."""
+    from diffusionvid_torch.models.swin import shift_attn_mask
+    from diffusionvid_torch.ops import window_attention as wa
+    c, b, hp, wp = K7_EDGE["c"], K7_EDGE["frames"], K7_EDGE["hp"], K7_EDGE["wp"]
+    heads, windows = c // 32, b * (hp // 7) * (wp // 7)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q, k, v = (torch.randn(b, hp, wp, c, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    bias = (torch.randn(heads, 49, 49, generator=gen) * 0.5).to(dev)
+    plans, worst = wa.window_plans(c, b, hp, wp, sms), 0.0
+    for shift in (0, 3):
+        mask = None
+        if shift:
+            mask = torch.from_numpy(shift_attn_mask(hp, wp, 7, shift)).to(dev).reshape(
+                hp // 7, wp // 7, 49, 49)
+        want = wa.window_attention_ref(q, k, v, bias, mask, 7)
+        for plan in plans:
+            out = torch.full_like(q, float("nan"))
+            wa.launch_window(q, k, v, bias, mask, out, plan)
+            torch.cuda.synchronize()
+            what = (f"window_attn bf16 edge shift {shift} group {plan['group']} "
+                    f"wpb {plan['wpb']}")
+            res = compare(out, want, *tol, what)
+            mean = float((out.float() - want.float()).abs().mean())
+            require(mean < MEAN_ERR[torch.bfloat16], f"{what}: mean abs err {mean}")
+            worst = max(worst, res["max_abs_err"])
+    return {"shape": [b, hp, wp, c], "windows": windows, "plans": len(plans),
+            "groups": sorted({p["group"] for p in plans}),
+            "partial_runs": sum(windows % p["wpb"] != 0 for p in plans),
+            "partial_waves": sum(p["blocks"] % (sms * p["blocks_per_sm"]) != 0 for p in plans),
+            "max_abs_err": worst}
 
 
 # bf16 kernel vs plain version on the card, same inputs: both round at the
@@ -1404,26 +1463,34 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "kept_per_frame": float(outs[-1].valid.sum(-1).float().mean()),
            "card": torch.cuda.get_device_name(0)}
-    res.update(profile_chunk(det, state, chunks[0], whwh, phase))
+    # v1: K7's card time in the profiled chunk (its 24 launches of one pass)
+    res.update(profile_chunk(det, state, chunks[0], whwh, phase,
+                             K7_KERNELS if swin_kernel == "v1" else ()))
+    if swin_kernel == "v1":
+        res["k7_chunk_kernel_ms"] = res.pop("kernels_ms")
     emit(phase, **res)
+    if swin_kernel == "v1":
+        launches["k7_chunk_kernel_ms"] = res["k7_chunk_kernel_ms"]
     del det, model, state, outs
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_chunk(det, state, frames, whwh, phase: str) -> dict:
+def profile_chunk(det, state, frames, whwh, phase: str, kernels=()) -> dict:
     """Device time of one chunk by kernel name (``torch.profiler``); the
     full table goes to ``build/chip_smoke/<phase>_chunk_profile.txt``."""
-    res = profile_device(lambda: det.process_chunk(state, frames, whwh), f"{phase}_chunk")
+    res = profile_device(lambda: det.process_chunk(state, frames, whwh), f"{phase}_chunk",
+                         kernels)
     res["profiled_chunk_wall_ms"] = res.pop("profiled_wall_ms")
     return res
 
 
-def profile_device(run, name: str) -> dict:
+def profile_device(run, name: str, kernels=()) -> dict:
     """Device time of ``run()`` by kernel name (``torch.profiler``), its
     share of the wall time, the device operations launched and the host
-    operators that took the most host time; the full table goes to
-    ``build/chip_smoke/<name>_profile.txt``."""
+    operators that took the most host time; with ``kernels``, also
+    ``kernels_ms``, the device time of the kernels whose names hold one of
+    them.  The full table goes to ``build/chip_smoke/<name>_profile.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1443,12 +1510,16 @@ def profile_device(run, name: str) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"{name}_profile.txt").write_text(
         averages.table(sort_by="self_device_time_total", row_limit=60))
-    return {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
-            "device_ops": sum(e.count for e in events),
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
-            "top_host_ms": {f"{e.key[:40]} x{e.count}": e.self_cpu_time_total / 1e3
-                            for e in host}}
+    res = {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
+           "device_ops": sum(e.count for e in events),
+           "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+           "top_host_ms": {f"{e.key[:40]} x{e.count}": e.self_cpu_time_total / 1e3
+                           for e in host}}
+    if kernels:
+        res["kernels_ms"] = sum(e.self_device_time_total for e in events
+                                if any(k in e.key for k in kernels)) / 1e3
+    return res
 
 
 # ---------------------------------------------------------------- train paths
@@ -1740,6 +1811,10 @@ def main(argv=None) -> int:
     for source in ("roi_align_fwd", "dynamic_conv", "swin_block_attn", "swin_block_mlp",
                    "window_attn_qkv"):
         emit("ptxas", source=source, report=ptxas_report(reports.get(source, "")))
+    # K7's bf16 kernel, in window_attn_qkv.cu beside K6
+    k7_ptxas = {k: v for k, v in ptxas_report(reports.get("window_attn_qkv", "")).items()
+                if K7_KERNELS[0] in k}
+    emit("ptxas", source="window_attn_qkv", kernel="K7", report=k7_ptxas)
 
     kernel_rows = phase_kernels(args.seed)
     phase_tiny(args.seed, "resnet")
@@ -1753,8 +1828,8 @@ def main(argv=None) -> int:
     swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
     for name in ("swin_block_attn", "swin_block_mlp"):
         launches[name] = swin[name]
-    launches["window_attn"] = phase_flagship(
-        args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_v1", "v1")["window_attn"]
+    v1 = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_v1", "v1")
+    launches["window_attn"], v1_k7_ms = v1["window_attn"], v1["k7_chunk_kernel_ms"]
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []
@@ -1781,6 +1856,9 @@ def main(argv=None) -> int:
             line[-1]["train_ms"] = k3_train["ms"]
         if name == "window_attn_qkv":
             line[-1].update(kernel_ms=bf["kernel_ms"], library_full_ms=bf["library_full_ms"])
+        if name == "window_attn":
+            line[-1].update(kernel_ms=bf["kernel_ms"], host_ms=bf["host_ms"],
+                            v1_chunk_kernel_ms=v1_k7_ms, ptxas=k7_ptxas)
         if name in ("dynamic_conv", "swin_block_mlp"):
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
     print(json.dumps({"kernels": line}))

@@ -9,7 +9,9 @@
 // full/empty mbarriers, and copies each round's attention bias; the
 // consumers multiply by wgmma (products), split a head's q | k | v
 // (split_qkv) and run its attention in registers (attend_head_wg).  The
-// design and its reasons are in swin_block_attn.cu's header.
+// design and its reasons are in swin_block_attn.cu's header.  K7's bf16
+// path (window_attn_qkv.cu) runs the same attention core (attend_head)
+// over q, k and v tiles that TMA wrote row-major (SwizzledKV).
 // ops/_build.py hashes this header into every library.
 
 #pragma once
@@ -300,20 +302,64 @@ __device__ __forceinline__ void split_qkv(const float (&acc)[48], const float* b
   }
 }
 
+// The k and v tiles the attention core reads, as the B fragments of its
+// two products.  K4's and K6's: k row-major [64 x LDQ] and v transposed
+// [DH x LDV] (split_qkv writes them; rows past 48 hold finite values).
+struct PaddedKV {
+  const bf16* k;
+  const bf16* vt;
+  // keys 8n .. 8n + 7 against channels 0..31: the b0, b1 of k-steps 0 and 1
+  __device__ __forceinline__ void k_frag(uint32_t (&b)[4], int n, int lane) const {
+    ldsm_x4(b, k + (8 * n + (lane & 7)) * LDQ + 8 * (lane >> 3));
+  }
+  // keys 16kk .. 16kk + 15 against channels 16np .. 16np + 15: b0, b1 of
+  // channel n-tiles 2np and 2np + 1
+  __device__ __forceinline__ void v_frag(uint32_t (&b)[4], int np, int kk, int lane) const {
+    ldsm_x4(b, vt + (16 * np + 8 * (lane >> 4) + (lane & 7)) * LDV + 16 * kk +
+                   8 * ((lane >> 3) & 1));
+  }
+};
+
+// the same fragments of row-major v (rows keys, columns channels): ldmatrix
+// with .trans gives each thread the column pairs of the B layout
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// K7's tiles: one head's [49 x 32] q, k or v as TMA writes it, 64-byte
+// rows with the 64-byte swizzle (16-byte chunk c of row r at chunk c ^ ((r
+// >> 1) & 3)), each tile 512-byte aligned.  Rows past 48 are never read:
+// a fragment row past 48 reads row 48 (a query row there is not stored, a
+// key there gets -inf, and its p = 0 meets row 48's finite v).
+__device__ __forceinline__ int swz64(int r, int chunk) {
+  return r * DH + ((chunk ^ ((r >> 1) & 3)) << 3);
+}
+struct SwizzledKV {
+  const bf16* k;
+  const bf16* v;
+  __device__ __forceinline__ void k_frag(uint32_t (&b)[4], int n, int lane) const {
+    ldsm_x4(b, k + swz64(min(8 * n + (lane & 7), N - 1), lane >> 3));
+  }
+  __device__ __forceinline__ void v_frag(uint32_t (&b)[4], int np, int kk, int lane) const {
+    ldsm_x4_t(b, v + swz64(min(16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7), N - 1),
+                           2 * np + (lane >> 4)));
+  }
+};
+
 // One head's attention on the 4 warps of a warpgroup, from q in registers
-// (split_qkv), s_k [64 x LDQ] and s_vt [DH x LDV]: warp l owns query rows
-// 16l .. 16l + 15
-// and all 64 keys (keys past 48 get -inf); the scores stay in registers,
-// softmax with quad shuffles, and the probabilities become the A
-// fragments of P.V directly.  bh and mk (or null) are the head's bias and
-// the window's mask, [49, 49] fp32 in shared memory.  The head's 32
-// output columns of each row r < 49 go to row(r) (a bf16 pointer) when
-// `store`.
-template <class Row>
-__device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const bf16* s_k,
-                                               const bf16* s_vt,
-                                               const float* bh, const float* mk, Row row,
-                                               bool store) {
+// (the A fragments of the score product's two k-steps) and the k and v
+// tiles of `kv` (PaddedKV or SwizzledKV): warp l owns query rows 16l ..
+// 16l + 15 and all 64 keys (keys past 48 get -inf); the scores stay in
+// registers, softmax with quad shuffles, and the probabilities become the
+// A fragments of P.V directly.  bh and mk (or null) are the head's bias and
+// the window's mask, [49, 49] fp32.  out(acc, qa, qb) gets the fp32 sums of
+// the thread's rows qa and qb (qa + 8): acc[n][0..1] of row qa and
+// acc[n][2..3] of row qb at columns 8n + 2t, + 1 (t = lane & 3).
+template <class KV, class Out>
+__device__ __forceinline__ void attend_head(const uint32_t (&a)[2][4], const KV& kv,
+                                            const float* bh, const float* mk, Out out) {
   const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
   const int qa = 16 * lw + g, qb = qa + 8;
@@ -322,7 +368,7 @@ __device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const 
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     uint32_t b[4];
-    ldsm_x4(b, s_k + (8 * n + (lane & 7)) * LDQ + 8 * (lane >> 3));
+    kv.k_frag(b, n, lane);
     mma16816(s[n], a[0], b[0], b[1]);
     mma16816(s[n], a[1], b[2], b[3]);
   }
@@ -382,19 +428,33 @@ __device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const 
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
       uint32_t b[4];  // b0, b1 of channel n-tiles 2np and 2np + 1
-      ldsm_x4(b, s_vt + (16 * np + 8 * (lane >> 4) + (lane & 7)) * LDV + 16 * kk +
-                     8 * ((lane >> 3) & 1));
+      kv.v_frag(b, np, kk, lane);
       mma16816(acc[2 * np], pa, b[0], b[1]);
       mma16816(acc[2 * np + 1], pa, b[2], b[3]);
     }
   }
-  if (!store) return;
+  out(acc, qa, qb);
+}
+
+// K4's and K6's attention: attend_head over PaddedKV (s_k, s_vt in shared
+// memory), bh and mk in shared memory; the head's 32 output columns of
+// each row r < 49 go to row(r) (a bf16 pointer) when `store`.
+template <class Row>
+__device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const bf16* s_k,
+                                               const bf16* s_vt,
+                                               const float* bh, const float* mk, Row row,
+                                               bool store) {
+  attend_head(a, PaddedKV{s_k, s_vt}, bh, mk,
+              [&](const float (&acc)[4][4], int qa, int qb) {
+                if (!store) return;
+                const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (qa < N) st2(row(qa) + c, acc[n][0], acc[n][1]);
-    if (qb < N) st2(row(qb) + c, acc[n][2], acc[n][3]);
-  }
+                for (int n = 0; n < 4; ++n) {
+                  const int c = 8 * n + 2 * t;
+                  if (qa < N) st2(row(qa) + c, acc[n][0], acc[n][1]);
+                  if (qb < N) st2(row(qb) + c, acc[n][2], acc[n][3]);
+                }
+              });
 }
 
 template <int R>

@@ -1,14 +1,14 @@
 // The Swin window-attention core shared by K4 (swin_block_attn.cu) and by
 // K6 and K7 (window_attn_qkv.cu): the fp32 qkv projection of one head of
-// one 7x7 window (the fp32 paths of K4 and K6), then its attention (bf16:
-// K7's; K4's and K6's bf16 paths attend in swin_hopper.cuh),
+// one 7x7 window (the fp32 paths of K4 and K6), then its fp32 attention (the
+// fp32 paths of all three; their bf16 paths attend in swin_hopper.cuh),
 //   s = round(q k^T * 32^-0.5) + bias[head] (+ mask[window])   fp32
 //   p = softmax(s) in fp32 (max, exp, divide), rounded
 //   o = p v                                                  fp32 sum
 // the rounding points of the Pallas kernels' _attention_stripe.  A Store
-// functor takes each output pair or element, so each kernel puts the
-// head's output where it needs it (a shared tile, a scratch buffer, the
-// output map).  ops/_build.py hashes this header into every library.
+// functor takes each output element, so each kernel puts the head's output
+// where it needs it (a shared tile, a scratch buffer, the output map).
+// ops/_build.py hashes this header into every library.
 
 #pragma once
 
@@ -71,15 +71,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragment of a row-major bf16 tile: rows ra and rb, columns k0..k0+15
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A, int ld, int ra,
-                                       int rb, int k0, int t) {
-  a[0] = ld32(A + ra * ld + k0 + 2 * t);
-  a[1] = ld32(A + rb * ld + k0 + 2 * t);
-  a[2] = ld32(A + ra * ld + k0 + 8 + 2 * t);
-  a[3] = ld32(A + rb * ld + k0 + 8 + 2 * t);
-}
-
 // The window (b, wr, wc) of block blockIdx.x over B maps of Hp x Wp, and
 // its index wmap within its map (the mask's [window row, window col]).
 struct Window {
@@ -119,103 +110,6 @@ __device__ void project_head_f32(Row row, const float* wqkv, const float* bqkv, 
     }
   }
   __syncthreads();
-}
-
-// bf16, one head, from s_q, s_k [64 x LDQ] (row-major) and s_vt [DH x
-// LDV] (v transposed); rows past 48 may hold anything finite.  Warp w < 4
-// owns query rows 16w..16w+15 and all 64 keys (keys past 48 get -inf):
-// the scores stay in registers, softmax with quad shuffles, and the
-// probabilities become the A fragments of P.V directly.  Each thread
-// fetches its bias (bh [49, 49]) and mask (mk [49, 49] or null) values
-// before the score products, so that their latency overlaps them.
-// store(row, col, o0, o1) gets the fp32 outputs of columns col, col + 1
-// (0..31) of each row < 49.  Warps 4..7 return at once.
-template <class Store>
-__device__ __forceinline__ void attend_head_bf16(const bf16* s_q, const bf16* s_k,
-                                                 const bf16* s_vt, const float* bh,
-                                                 const float* mk, Store store) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp >= 4) return;
-  const int g = lane >> 2, t = lane & 3;
-  const int qa = 16 * warp + g, qb = qa + 8;
-  const int r0 = min(qa, N - 1), r1 = min(qb, N - 1);
-  float bv[8][4], mv[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cc = min(8 * nt + 2 * t + (e & 1), N - 1), r = e < 2 ? r0 : r1;
-      bv[nt][e] = bh[r * N + cc];
-      mv[nt][e] = mk ? mk[r * N + cc] : 0.f;
-    }
-  float s[8][4] = {};
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t a[4];
-    load_a(a, s_q, LDQ, qa, qb, 16 * ks, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* kr = s_k + (8 * nt + g) * LDQ + 16 * ks;
-      mma16816(s[nt], a, ld32(kr + 2 * t), ld32(kr + 8 + 2 * t));
-    }
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * nt + 2 * t + (e & 1);
-      float v = round_bf16(s[nt][e] * SCALE);
-      if (col < N) {
-        v += bv[nt][e];
-        if (mk) v += mv[nt][e];
-      } else {
-        v = -INFINITY;
-      }
-      s[nt][e] = v;
-      if (e < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
-    }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float v = expf(s[nt][e] - (e < 2 ? mx0 : mx1));
-      s[nt][e] = v;
-      if (e < 2) sum0 += v; else sum1 += v;
-    }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-  // o = p v; the score accumulators of n-tiles 2kk, 2kk+1 are the A
-  // fragment of keys 16kk..16kk+15
-  float acc[4][4] = {};
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack2(s[2 * kk][0] / sum0, s[2 * kk][1] / sum0);
-    a[1] = pack2(s[2 * kk][2] / sum1, s[2 * kk][3] / sum1);
-    a[2] = pack2(s[2 * kk + 1][0] / sum0, s[2 * kk + 1][1] / sum0);
-    a[3] = pack2(s[2 * kk + 1][2] / sum1, s[2 * kk + 1][3] / sum1);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const bf16* vr = s_vt + (8 * nt + g) * LDV + 16 * kk;
-      mma16816(acc[nt], a, ld32(vr + 2 * t), ld32(vr + 8 + 2 * t));
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = 8 * nt + 2 * t;
-    if (qa < N) store(qa, c, acc[nt][0], acc[nt][1]);
-    if (qb < N) store(qb, c, acc[nt][2], acc[nt][3]);
-  }
 }
 
 // fp32 on the CUDA cores, one head, from q/k/v [49 x FLD] in shared memory,

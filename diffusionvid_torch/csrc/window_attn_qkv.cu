@@ -65,20 +65,50 @@
 //   The numbers' source: chip_smoke.py (the K6 rows and the ptxas phase)
 //   and diffusionvid_torch/utils/k6_bench.py.
 //
-// Design (bf16), K7: one block of 8 warps per window, looping over the
-//   heads; per head it copies the head's 32 columns of q, k and v of the
-//   window's 49 tokens (rows past 48 repeat row 48; v transposed), then runs
-//   the attention core of window_attn_core.cuh (attend_head_bf16): four
-//   warps each hold 16 query rows of the 64-key score tile in registers, the
-//   probabilities become the A fragments of P.V directly, and the head's 32
-//   output columns go straight to the output map.  Rows are padded by 16
-//   bytes, so the 8 rows a fragment load touches fall on 8 distinct bank
-//   groups.  Shared memory 14,848 B.
+// Design (bf16), K7: bytes bound (24.5 flops a byte of q, k, v and out),
+//   so the design keeps device memory busy at every stage.
+//   - Work: a block takes a head group (`group` heads, dividing the heads)
+//     and a run of `wpb` consecutive windows, and walks the run's
+//     (window, head) items window by window, heads inner.  Heads write
+//     disjoint output columns, so no block needs another's result and no
+//     cluster is needed (K6's hsplit argument).  The launch plan
+//     (ops/window_attention.py: window_plan) picks group and wpb by SM time
+//     on the card's SMs, so that Swin-B's stages 2 and 3 (240 and 60
+//     windows of 16 and 32 heads over 4 frames) run about two blocks an SM
+//     instead of one block a window.  The group's fp32 biases are copied
+//     into shared memory once and serve every window of the run.
+//   - The ring: a producer warp streams each item's q, k and v tiles of the
+//     head (one TMA box [32 ch, 1 head, 7 cols, 7 rows, 1 map] of a 5D map
+//     over [B, Hp, Wp, heads, 32] each, 64-byte swizzle) through `stages`
+//     slots with full/empty mbarriers, so that the next items land while
+//     this one attends: stages - 2 items, 9.4 KB each, in flight a block.
+//   - The attention: the two consumer warpgroups take the even and the odd
+//     items, so every warp attends; each runs attend_head of swin_hopper.cuh
+//     over SwizzledKV, q's A fragments and k's B fragments by ldmatrix and
+//     v's by ldmatrix.trans from the row-major tile (no transpose), the
+//     mask through L1 from device memory.
+//   - The output: each warp writes its 16 rows of o over its own q rows of
+//     the slot, and the producer sends the head's [49 x 32] box to the map
+//     by one TMA store before it refills the slot.
+//   Shared memory (WinSmem): stages x 10,752 (three 3,584-byte tiles), the
+//   group's biases group x 9,616, 256 of barriers; the entry point checks
+//   the plan's bytes against it.  Tensor maps are cached by (pointer,
+//   shape), so a repeated call encodes none.
+//   What holds it at about 45% of its bytes bound on an H100: the
+//   consumers' register softmax (instruction rate and latency), not the
+//   loads: a deeper ring, larger head groups, 16-byte stores by the
+//   consumers in place of the TMA store and a third block an SM did not
+//   make it faster.  A masked launch pays 10-20% more, for the mask's
+//   loads through L1.
+//   The numbers' source: chip_smoke.py (the K7 rows and the ptxas phase)
+//   and diffusionvid_torch/utils/k7_bench.py.
 //
 // Design (fp32, for the checks): the same phases on the CUDA cores, one
 //   block per window; x is read from device memory (each dot product over C
 //   is one warp, coalesced, with a shuffle sum), q/k/v and the scores live
 //   in shared memory (29,204 B).
+
+#include <mutex>
 
 #include "swin_hopper.cuh"
 
@@ -99,10 +129,6 @@ struct Params {
   int hsplit, kc, stages;  // K6 bf16: the launch plan's head split and ring
 };
 
-__device__ __forceinline__ void cp16(bf16* dst, const bf16* src) {
-  *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-}
-
 __device__ __forceinline__ const float* head_bias(const Params& p, int j) {
   return p.bias + static_cast<size_t>(j) * N * N;
 }
@@ -111,16 +137,6 @@ __device__ __forceinline__ const float* window_mask(const Params& p, const Windo
 }
 
 // ------------------------------------------------------------------ bf16
-
-// head j's attention into columns 32j.. of the output map
-__device__ __forceinline__ void attend_bf16(const Params& p, const Window& w, const bf16* s_q,
-                                            const bf16* s_k, const bf16* s_vt, int j) {
-  bf16* out = static_cast<bf16*>(p.out);
-  attend_head_bf16(s_q, s_k, s_vt, head_bias(p, j), window_mask(p, w),
-                   [&](int r, int c, float o0, float o1) {
-                     st2(out + w.offset(p.Hp, p.Wp, p.C, r) + j * DH + c, o0, o1);
-                   });
-}
 
 // K6, bf16 (the design above): block blockIdx.x takes windows win0 ..
 // win0 + WPB - 1 and heads head0 .. head0 + heads / hsplit - 1
@@ -233,33 +249,240 @@ cudaError_t run_qkv_width(const Params& p, int windows, int wpb, int smem_bytes,
   return cudaErrorInvalidValue;
 }
 
-// K7, bf16
-__global__ void __launch_bounds__(THREADS)
-attn_bf16_kernel(Params p) {
-  __shared__ __align__(16) bf16 s_q[64 * LDQ];
-  __shared__ __align__(16) bf16 s_k[64 * LDQ];
-  __shared__ __align__(16) bf16 s_vt[DH * LDV];
-  const Window w(p.Hp, p.Wp);
-  const bf16* q = static_cast<const bf16*>(p.x);
-  const bf16* k = static_cast<const bf16*>(p.k);
-  const bf16* v = static_cast<const bf16*>(p.v);
-  for (int j = 0; j < p.heads; ++j) {
-    // head j's 32 columns of the 64 rows (rows past 48 repeat row 48), one
-    // 16-byte piece of q, k and v per thread
-    {
-      const int r = threadIdx.x >> 2, d8 = (threadIdx.x & 3) * 8;
-      const size_t off = w.offset(p.Hp, p.Wp, p.C, min(r, N - 1)) + j * DH + d8;
-      cp16(s_q + r * LDQ + d8, q + off);
-      cp16(s_k + r * LDQ + d8, k + off);
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(v + off));
-      const bf16* vv = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) s_vt[(d8 + u) * LDV + r] = vv[u];
-    }
-    __syncthreads();
-    attend_bf16(p, w, s_q, s_k, s_vt, j);
-    __syncthreads();
+// ------------------------------------------------------------------ K7, bf16
+
+constexpr int TILE7 = 3584;                   // a head's [49 x 32] bf16 tile (3,136
+                                              // bytes), 512-byte aligned (the swizzle)
+constexpr int TILE7_ELEMS = TILE7 / 2;
+constexpr int BOX7 = N * DH * 2;              // the bytes TMA moves a tile
+constexpr int SLOT7 = 3 * TILE7;              // q | k | v of one (window, head)
+constexpr int MAX_STAGES7 = 8;
+constexpr int SMEM_LIMIT7 = 232448;           // a block's shared memory on sm_90
+
+// K7's shared memory (byte offsets): the ring, the head group's biases, the
+// mbarriers.  ops/window_attention.py: window_plans computes the same sum.
+struct WinSmem {
+  size_t ring, bias, bars, bytes;
+  __host__ __device__ WinSmem(int group, int stages) {
+    ring = 0;
+    bias = ring + static_cast<size_t>(stages) * SLOT7;
+    bars = bias + static_cast<size_t>(group) * NN_BYTES;
+    bytes = bars + 256;
   }
+};
+
+// per ring slot: full (the producer's arrival with the slot's TMA bytes)
+// and empty (the 4 warps of the warpgroup that attended it, once o is in
+// the slot)
+struct Bars7 {
+  uint64_t full[MAX_STAGES7], empty[MAX_STAGES7];
+};
+static_assert(sizeof(Bars7) <= 256, "K7 barriers");
+
+struct WinParams {
+  const float* bias;
+  const float* mask;  // may be null
+  int Hp, Wp, heads, windows;
+  int group, wpb, stages;  // the launch plan
+};
+
+// the 5D box (c0 .. c4) of tensor map tm into shared memory, its bytes
+// counted on bar; and from shared memory to device memory
+__device__ __forceinline__ void tma_5d(void* dst, const CUtensorMap* tm, int c1, int c2, int c3,
+                                       int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tm)), "r"(0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* tm, const void* src, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(src)), "r"(0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4) : "memory");
+}
+
+// K7 (the design above): block blockIdx.x takes head group blockIdx.x %
+// (heads / group) and window run blockIdx.x / (heads / group); its item i
+// is window win0 + i / group, head head0 + i % group.
+__global__ void __launch_bounds__(RING_THREADS, 2)
+attn_bf16_kernel(WinParams p, const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int stages = p.stages, group = p.group;
+  const WinSmem L(group, stages);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ngroups = p.heads / group;
+  const int head0 = (blockIdx.x % ngroups) * group, win0 = (blockIdx.x / ngroups) * p.wpb;
+  const int items = min(p.wpb, p.windows - win0) * group;
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  float* s_bias = reinterpret_cast<float*>(smem + L.bias);
+  Bars7* bars = reinterpret_cast<Bars7*>(smem + L.bars);
+
+  // the prologue: the barriers, and the group's biases by cp.async
+  if (tid >= THREADS) {
+    if (tid == THREADS) {
+      if (smem_u32(smem) & 1023) __trap();
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(&bars->full[s], 1);
+        mbar_init(&bars->empty[s], 4);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  } else {
+    const float* src = p.bias + static_cast<size_t>(head0) * N * N;
+    for (int i = tid; i < group * N * N; i += THREADS)
+      cp_async4(s_bias + (i / (N * N)) * NN_FLOATS + i % (N * N), src + i);
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // the item's box coordinates: (channel 0,) head, column, row, map
+  auto box = [&](int i, int& h, int& col, int& row, int& b) {
+    const WindowAt w(win0 + i / group, p.Hp, p.Wp);
+    h = head0 + i % group;
+    col = w.wc * WIN;
+    row = w.wr * WIN;
+    b = w.b;
+  };
+
+  if (tid >= THREADS) {
+    // the producer: lane 0 fills slot i % stages with item i once the
+    // slot's last item has left by its TMA store
+    if (lane != 0) return;
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_q)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_k)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_v)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_o)) : "memory");
+    auto store = [&](int i) {  // item i's o, in its slot's q tile
+      int h, col, row, b;
+      box(i, h, col, row, b);
+      mbar_wait(&bars->empty[i % stages], (i / stages) & 1);
+      tma_store_5d(&tm_o, ring + (i % stages) * (SLOT7 / 2), h, col, row, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    };
+    for (int i = 0; i < items; ++i) {
+      if (i >= stages) {
+        store(i - stages);
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      int h, col, row, b;
+      box(i, h, col, row, b);
+      uint64_t* full = &bars->full[i % stages];
+      bf16* slot = ring + (i % stages) * (SLOT7 / 2);
+      mbar_expect(full, 3 * BOX7);
+      tma_5d(slot, &tm_q, h, col, row, b, full);
+      tma_5d(slot + TILE7_ELEMS, &tm_k, h, col, row, b, full);
+      tma_5d(slot + 2 * TILE7_ELEMS, &tm_v, h, col, row, b, full);
+    }
+    for (int i = max(items - stages, 0); i < items; ++i) store(i);
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    return;
+  }
+
+  // the consumers: warpgroup wg attends items wg, wg + 2, ...
+  const int wg = tid >> 7, lw = (tid >> 5) & 3, t = lane & 3;
+  for (int i = wg; i < items; i += 2) {
+    const int slot = i % stages;
+    mbar_wait(&bars->full[slot], (i / stages) & 1);
+    bf16* s_q = ring + slot * (SLOT7 / 2);
+    const WindowAt w(win0 + i / group, p.Hp, p.Wp);
+    // q's A fragments of this warp's rows 16 lw .. + 15 (past 48: row 48)
+    uint32_t qa[2][4];
+    {
+      const int r = min(16 * lw + (lane & 7) + 8 * ((lane >> 3) & 1), N - 1);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) ldsm_x4(qa[ks], s_q + swz64(r, 2 * ks + (lane >> 4)));
+    }
+    attend_head(qa, SwizzledKV{s_q + TILE7_ELEMS, s_q + 2 * TILE7_ELEMS},
+                s_bias + (i % group) * NN_FLOATS,
+                p.mask ? p.mask + static_cast<size_t>(w.wmap) * N * N : nullptr,
+                [&](const float (&acc)[4][4], int ra, int rb) {
+                  // o over this warp's own q rows, which only it has read
+#pragma unroll
+                  for (int n = 0; n < 4; ++n) {
+                    if (ra < N)
+                      *reinterpret_cast<uint32_t*>(s_q + swz64(ra, n) + 2 * t) =
+                          pack2(acc[n][0], acc[n][1]);
+                    if (rb < N)
+                      *reinterpret_cast<uint32_t*>(s_q + swz64(rb, n) + 2 * t) =
+                          pack2(acc[n][2], acc[n][3]);
+                  }
+                });
+    // the TMA store reads o through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars->empty[slot]);
+  }
+}
+
+// K7's plan against its layout (ops/window_attention.py: window_plan)
+bool window_plan_ok(int heads, int group, int wpb, int stages, int smem_bytes) {
+  return group >= 1 && heads % group == 0 && wpb >= 1 && stages >= 3 &&
+         stages <= MAX_STAGES7 && smem_bytes <= SMEM_LIMIT7 &&
+         WinSmem(group, stages).bytes == static_cast<size_t>(smem_bytes);
+}
+
+// A [B, Hp, Wp, C] bf16 map as the 5D tensor [B, Hp, Wp, heads, 32] (dims
+// innermost first), boxes of one head's 32 channels of a 7 x 7 window,
+// 64-byte swizzle.  Cached by (pointer, shape): the same arguments give
+// the same map, so a hit is always right.
+bool head_tile_map(CUtensorMap* tm, const void* p, int B, int Hp, int Wp, int C) {
+  struct Entry {
+    const void* p;
+    int B, Hp, Wp, C;
+    CUtensorMap tm;
+  };
+  static Entry cache[64];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int e = 0; e < used; ++e) {
+    const Entry& c = cache[e];
+    if (c.p == p && c.B == B && c.Hp == Hp && c.Wp == Wp && c.C == C) {
+      *tm = c.tm;
+      return true;
+    }
+  }
+  EncodeFn encode = encode_fn();
+  if (!encode) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * sizeof(bf16);
+  const cuuint64_t dims[5] = {DH, static_cast<cuuint64_t>(C / DH), static_cast<cuuint64_t>(Wp),
+                              static_cast<cuuint64_t>(Hp), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[4] = {DH * sizeof(bf16), row, row * Wp, row * Wp * Hp};
+  const cuuint32_t box[5] = {DH, 1, WIN, WIN, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  if (encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[next];
+  e = Entry{p, B, Hp, Wp, C, *tm};
+  next = (next + 1) % 64;
+  if (used < 64) ++used;
+  return true;
+}
+
+cudaError_t run_window_bf16(const void* q, const void* k, const void* v, void* out,
+                            const WinParams& p, int B, int C, int smem_bytes, cudaStream_t st) {
+  if (!window_plan_ok(p.heads, p.group, p.wpb, p.stages, smem_bytes))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm[4];
+  const void* maps[4] = {q, k, v, out};
+  for (int m = 0; m < 4; ++m)
+    if (!head_tile_map(&tm[m], maps[m], B, p.Hp, p.Wp, C)) return cudaErrorNotSupported;
+  cudaError_t err = cudaFuncSetAttribute(attn_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.heads / p.group) * ((p.windows + p.wpb - 1) / p.wpb);
+  attn_bf16_kernel<<<blocks, RING_THREADS, smem_bytes, st>>>(p, tm[0], tm[1], tm[2], tm[3]);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ fp32
@@ -351,18 +574,25 @@ extern "C" int window_attn_qkv_fwd(const void* x, const void* wqkv, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7.  dtype as above.
+// K7.  dtype: 0 = float32 (the first design, one block a window; the plan
+// is not read), 1 = bfloat16 with the launch plan of ops/window_attention.py:
+// window_plan (group heads a block, dividing the heads; wpb windows a
+// block; 3 to 8 ring slots; smem_bytes its shared memory, which must equal
+// WinSmem's sum: cudaErrorInvalidValue otherwise).  q, k, v and out 16-byte
+// aligned.  Launches on `stream`; returns the launch's error.
 extern "C" int window_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                                const void* mask, void* out, int B, int Hp, int Wp, int C,
-                               int heads, int dtype, void* stream) {
+                               int heads, int dtype, int group, int wpb, int stages,
+                               int smem_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int windows = B * (Hp / WIN) * (Wp / WIN);
+  if (dtype == 1) {
+    const WinParams p{static_cast<const float*>(bias), static_cast<const float*>(mask),
+                      Hp, Wp, heads, windows, group, wpb, stages};
+    return static_cast<int>(run_window_bf16(q, k, v, out, p, B, C, smem_bytes, st));
+  }
   Params p{q, k, v, nullptr, nullptr, static_cast<const float*>(bias),
            static_cast<const float*>(mask), out, B, Hp, Wp, C, heads, 0, 0, 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = B * (Hp / WIN) * (Wp / WIN);
-  if (dtype == 1) {
-    attn_bf16_kernel<<<blocks, THREADS, 0, st>>>(p);
-  } else {
-    attn_f32_kernel<<<blocks, THREADS, 0, st>>>(p);
-  }
+  attn_f32_kernel<<<windows, THREADS, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

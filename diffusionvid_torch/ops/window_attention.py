@@ -21,7 +21,8 @@ mask and softmax; P rounded before P·V).  The twin
 dtype, as ``_einsum_window_attention_qkv`` does; in fp32 the three agree.
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it launches
-``csrc/window_attn_qkv.cu`` or raises; K6's launch plan is ``qkv_plan``.
+``csrc/window_attn_qkv.cu`` or raises; K6's launch plan is ``qkv_plan``,
+K7's (bf16) ``window_plan``.
 The wrappers compute no gradient: a CUDA input that needs one raises, and
 training goes through ``WindowAttentionQKVFn``.
 """
@@ -35,8 +36,9 @@ import torch
 
 from . import _build
 from .swin_attention import (
-    H100_SMS, HEAD_DIM, MAX_ATTN_C, WINDOW, _DTYPE_CODE, _attend, _check_no_grad,
-    _check_shape, _check_x, _f32, _mm, _partition, _reverse, _sm_count, ring_plan)
+    H100_SMS, HEAD_DIM, MAX_ATTN_C, SMEM_BLOCK_LIMIT, SMEM_SM, WINDOW, _DTYPE_CODE, _attend,
+    _check_no_grad, _check_shape, _check_x, _f32, _mm, _partition, _reverse, _sm_count,
+    ring_plan)
 
 
 def window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
@@ -204,10 +206,79 @@ def launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads: int, plan=None):
     _build.check(lib, err, "window_attn_qkv_fwd")
 
 
+# K7's launch plan (csrc/window_attn_qkv.cu, bf16).  A block's fixed cost
+# in head-windows: its barriers and the ring's first fill, then each head of
+# its group's bias copied once.
+WINDOW_PROLOGUE = 2.0
+WINDOW_BIAS = 0.25
+WINDOW_TILE = 3584          # a head's [49 x 32] bf16 q, k or v tile, 512-byte aligned
+WINDOW_MAX_STAGES = 6       # the plan's deepest ring (the kernel takes up to 8)
+
+
+def window_smem(group: int, stages: int) -> int:
+    """K7's shared bytes (``WinSmem``): ``stages`` ring slots of a head's
+    q, k and v tiles, the group's fp32 biases ([49, 49] padded to 9,616
+    bytes each), 256 of barriers."""
+    return stages * 3 * WINDOW_TILE + group * 9616 + 256
+
+
+def window_plans(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> list[dict]:
+    """Every launch K7 can take for C channels over ``b`` maps of hp x wp.
+    A block takes a head ``group`` (dividing the heads; its biases stay in
+    shared memory) and a run of ``wpb`` windows, and walks its (window,
+    head) items, heads inner, through a ring of ``stages`` slots: the
+    deepest up to WINDOW_MAX_STAGES at which two blocks share an SM (the
+    kernel's launch bounds), else one.  For each group, ``wpb`` is the
+    shortest run that puts at most n x sms blocks on the card, n = 1 .. 8,
+    and one window a block.  Each plan carries its ``blocks``,
+    ``blocks_per_sm``, ``waves`` of resident blocks, ``work`` (head-windows
+    a block) and ``cost``: the most blocks an SM runs times their work,
+    over the blocks it runs at once, plus a prologue per wave, in
+    head-windows."""
+    heads = c // HEAD_DIM
+    windows = b * (hp // WINDOW) * (wp // WINDOW)
+    plans = []
+    for group in (g for g in range(1, heads + 1) if heads % g == 0):
+        for per_sm in (2, 1):
+            fit = [s for s in range(3, WINDOW_MAX_STAGES + 1)
+                   if per_sm * (window_smem(group, s) + 1024) <= SMEM_SM
+                   and window_smem(group, s) <= SMEM_BLOCK_LIMIT]
+            if fit:
+                break
+        if not fit:
+            continue
+        stages = fit[-1]
+        groups = heads // group
+        runs_options = {max(1, n * sms // groups) for n in range(1, 9)} | {windows}
+        for wpb in sorted({-(-windows // min(r, windows)) for r in runs_options}):
+            blocks = groups * -(-windows // wpb)
+            per_sm_run = -(-blocks // sms)              # blocks the busiest SM runs
+            at_once = min(per_sm_run, per_sm)
+            work = group * wpb
+            cost = (per_sm_run * work / at_once
+                    + -(-per_sm_run // per_sm) * (WINDOW_PROLOGUE + WINDOW_BIAS * group))
+            plans.append(dict(group=group, wpb=wpb, stages=stages,
+                              smem_bytes=window_smem(group, stages), blocks=blocks,
+                              blocks_per_sm=per_sm, waves=-(-blocks // (sms * per_sm)),
+                              work=work, cost=cost))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def window_plan(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> dict:
+    """K7's launch: the plan of ``window_plans`` of least cost; on a tie the
+    one of fewer blocks.  Swin-B's stages 2 and 3 over 4 frames (240 and 60
+    windows of 16 and 32 heads) then run about two blocks an SM, where one
+    block a window left 72 of 132 SMs idle at stage 3.  Cached (the wrapper
+    asks at every launch): do not modify the dict."""
+    return min(window_plans(c, b, hp, wp, sms), key=lambda p: (p["cost"], p["blocks"]))
+
+
 def window_attention(q, k, v, bias, mask, window: int):
     """Windowed MHA over pre-projected q/k/v maps ``[B, Hp, Wp, C]`` →
     ``[B, Hp, Wp, C]``; ``h = bias.shape[0]``.  CPU tensors: the plain
-    version.  CUDA tensors: kernel K7."""
+    version.  CUDA tensors: kernel K7, in bf16 launched with
+    ``window_plan``."""
     if q.device.type == "cpu":
         return window_attention_ref(q, k, v, bias, mask, window)
     h = bias.shape[0] if bias.dim() == 3 else 0
@@ -220,23 +291,34 @@ def window_attention(q, k, v, bias, mask, window: int):
                          f"{[t.dtype for t in (q, k, v)]}")
     _check_bias_mask(q, bias, mask, h)
     _check_no_grad((q, k, v, bias), "window attention")
-    b, hp, wp, c = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    args = [q, k, v, _f32(bias), None if mask is None else _f32(mask), out]
-    lib = _build.load("window_attn_qkv")
-    fn = lib.window_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c, h,
-             _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
-    _build.check(lib, err, "window_attn_fwd")
+    launch_window(q, k, v, bias, mask, out)
     window_attention.launches += 1
     return out
 
 
 window_attention.launches = 0
+
+
+def launch_window(q, k, v, bias, mask, out, plan=None):
+    """Launch K7 on checked CUDA inputs (``window_attention``) into ``out``;
+    in bf16 with ``plan`` (default ``window_plan`` for this device's SMs),
+    in fp32 the first design (no plan); counts no launch."""
+    b, hp, wp, c = q.shape
+    lib = _build.load("window_attn_qkv")
+    if q.dtype == torch.bfloat16 and plan is None:
+        plan = window_plan(c, b, hp, wp, _sm_count(q.device.index))
+    ring = [plan[k_] for k_ in ("group", "wpb", "stages", "smem_bytes")] if plan else [0] * 4
+    args = [q, k, v, _f32(bias), None if mask is None else _f32(mask), out]
+    fn = lib.window_attn_fwd
+    if getattr(fn, "argtypes", None) is None:   # once: ctypes rebuilds its converters each time
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c,
+             bias.shape[0], _DTYPE_CODE[q.dtype], *ring, _build.stream_ptr(q.device))
+    _build.check(lib, err, "window_attn_fwd")
 
 
 class WindowAttentionQKVFn(torch.autograd.Function):
