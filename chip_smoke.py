@@ -61,19 +61,27 @@ Phases, one JSON line each:
               (v3: K4/K5, v2: K6, v1: K7), on 64x96 frames through the whole
               x1 streaming path, once on the card through the kernels and
               once on the CPU through the plain versions, same weights and
-              noise, float32, TF32 off;
+              noise, float32, TF32 off; then the depth-18 model and Swin-T
+              in mode v3 through the x4 DDIM ensemble the same way, at a
+              renewal threshold that renews some slots and keeps others:
+              the renewal masks equal, no best score within 1e-4 of it;
   5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
               finite outputs and the kernels' launch counts, prints fps,
-              peak memory and one chunk's device time by kernel; then
+              peak memory, one chunk's device time by kernel and its NMS's
+              host time and passes; then
               ``k1_stream``: K1 on the 4 launches of the last chunk, checked
               in bf16 as in phase 3 and timed, with its footprint per level,
               its inputs saved to ``build/chip_smoke/k1_stream_inputs.pt``;
   6. flagship_swin ``configs/vid_Swin_B_DiffusionVID.yaml`` the same way:
               24 global frames then 6 chunks of 4 frames at 608x1024; then
               ``flagship_swin_v1``, the trunk in mode v1 (K7), 2 chunks,
-              with K7's card time in the profiled chunk;
+              with K7's card time in the profiled chunk; then
+              ``flagship_x4`` and ``flagship_swin_x4``, both flagships with
+              SAMPLE_STEP 4 (the x4 DDIM ensemble, 1,200 detections a frame
+              into one NMS): R-101 3 chunks of 8 (66 launches of K1/K2),
+              Swin-B 2 chunks of 4 (56 of K1/K2, 192 of K4/K5);
   7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
               (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
               and on the CPU through the plain versions, same weights, batch
@@ -95,8 +103,9 @@ Phases, one JSON line each:
               its plan.
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
-time, host time and card time on the stream's inputs; K7's with its card
-time, host time, card time in a v1 chunk and registers), the card's name and
+time, host time and card time on the stream's inputs; K1's, K2's, K4's and
+K5's with ``x4_launches`` on the x4 streams; K7's with its card time, host
+time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
 """
@@ -1300,11 +1309,78 @@ def _tiny_model(kind: str, gen, props: int):
     return model.eval()
 
 
-def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3"):
+RENEWAL_MARGIN = 1e-4
+
+
+@contextlib.contextmanager
+def best_scores(model):
+    """Yield a list that gets the best class score of every slot at each
+    DDIM step of ``model`` (its ``full_forward_test`` calls), on the CPU."""
+    out, inner = [], model.full_forward_test
+
+    def run(*args):
+        res = inner(*args)
+        out.append(torch.sigmoid(res[0]).amax(-1).cpu().double())
+        return res
+
+    model.full_forward_test = run
+    try:
+        yield out
+    finally:
+        del model.full_forward_test
+
+
+def _renewal_stats(best, steps: int, thresh: float):
+    """(least distance of a best score from ``thresh``, steps whose renewal
+    mask is mixed) over the steps that renew: all but a chunk's last."""
+    renew = [b for i, b in enumerate(best) if i % steps != steps - 1]
+    margin = min(float((b - thresh).abs().min()) for b in renew)
+    return margin, sum(0 < int((b > thresh).sum()) < b.numel() for b in renew)
+
+
+def pick_renewal_thresh(run, steps: int) -> float:
+    """A renewal threshold for an xN run, from ``run(thresh)``, the best
+    scores of the plain run at ``thresh``: with random weights they sit
+    near the 0.01 prior, so the default 0.5 would renew every slot.  Tries
+    the midpoints of the widest gaps between the first step's best scores
+    (which do not depend on the threshold) and takes the first at which
+    some renewing step's mask is mixed and no best score of a renewing step
+    lies within 3 * RENEWAL_MARGIN of it."""
+    first = torch.sort(run(0.5)[0].flatten()).values
+    for i in torch.argsort(first[1:] - first[:-1], descending=True)[:16].tolist():
+        thresh = float(first[i] + first[i + 1]) / 2
+        margin, mixed = _renewal_stats(run(thresh), steps, thresh)
+        if margin > 3 * RENEWAL_MARGIN and mixed:
+            return thresh
+    raise SmokeFailure("no renewal threshold with mixed masks and a margin")
+
+
+def _renewal_check(c_best, p_best, steps: int, thresh: float, what: str) -> dict:
+    """Card and CPU renew the same slots in every step that renews (all
+    but a chunk's last), no best score lies within RENEWAL_MARGIN of the
+    threshold there, and some such step's mask is mixed."""
+    require(len(c_best) == len(p_best) and len(p_best) % steps == 0,
+            f"{what}: {len(c_best)} and {len(p_best)} DDIM steps")
+    for i in range(len(p_best)):
+        if i % steps != steps - 1:
+            require(torch.equal(c_best[i] > thresh, p_best[i] > thresh),
+                    f"{what}: renewal masks differ at step call {i}")
+    margin, mixed = min(_renewal_stats(c_best, steps, thresh),
+                        _renewal_stats(p_best, steps, thresh))
+    require(margin > RENEWAL_MARGIN,
+            f"{what}: a best score within {margin} of the renewal threshold {thresh}")
+    require(mixed > 0, f"{what}: no step renewed some slots and kept others")
+    return {"renewal_thresh": thresh, "renewal_margin": margin, "mixed_steps": mixed,
+            "renewing_steps": len(p_best) // steps * (steps - 1)}
+
+
+def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int = 1):
     """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, its trunk in
     mode ``swin_kernel``, 16 proposals, 64x96 frames, float32, TF32 off: the
     card (kernels) against the CPU (plain versions), same weights and
-    noise."""
+    noise.  With ``sample_step`` > 1 the xN ensemble at a renewal
+    threshold picked on the CPU run (``pick_renewal_thresh``): the
+    renewal masks too."""
     import copy
 
     from diffusionvid_torch.engine.streaming import StreamingDetector
@@ -1318,30 +1394,43 @@ def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3"):
         cpu.backbone.bottom_up.kernel_mode = swin_kernel
     card = copy.deepcopy(cpu).cuda()
     kw = dict(infer_batch=2, mem_size=64, mem_dis_size=32, num_proposals=props,
-              detections_per_img=props)
+              detections_per_img=props, sample_step=sample_step)
     gframes = torch.rand(4, h, w, 3, generator=gen) * 255
     chunks = [torch.rand(2, h, w, 3, generator=gen) * 255 for _ in range(2)]
     whwh = torch.tensor([w, h, w, h], dtype=torch.float32)
-    noise = [torch.randn(2, props, 4, generator=gen) for _ in range(4)]
+    # 2 global chunks' draws, then a chunk's: 1 at x1; 2 at xN, then 2 a step
+    per_chunk = 1 if sample_step == 1 else 2 * sample_step
+    noise = [torch.randn(2, props, 4, generator=gen) for _ in range(2 + 2 * per_chunk)]
 
+    def stream(model, thresh):
+        with best_scores(model) as best:
+            det = StreamingDetector(model, score_renewal_thresh=thresh, **kw)
+            return *_run_stream(det, noise, gframes, chunks, whwh), best
+
+    thresh = 0.5
+    if sample_step > 1:
+        thresh = pick_renewal_thresh(lambda th: stream(cpu, th)[2], sample_step)
     reset_launches()
-    c_state, c_out = _run_stream(StreamingDetector(card, **kw), noise, gframes,
-                                 chunks, whwh)
+    c_state, c_out, c_best = stream(card, thresh)
     torch.cuda.synchronize()
     used = read_launches()
     path = ["roi_align_fwd", "dynamic_conv"] + (
         list(SWIN_MODE_KERNELS[swin_kernel]) if kind == "swin" else [])
     require(all((used[k] > 0) == (k in path) for k in used),
             f"tiny {kind} {swin_kernel}: card run launched {used}, expected exactly {path}")
-    p_state, p_out = _run_stream(StreamingDetector(cpu, **kw), noise, gframes,
-                                 chunks, whwh)
+    p_state, p_out, p_best = stream(cpu, thresh)
     require(c_state.mem.count == p_state.mem.count
             and c_state.mem_dis.count == p_state.mem_dis.count, "memory counts differ")
-    res = {"backbone": kind, "rtol": 1e-3, "launches": used}
+    res = {"backbone": kind, "sample_step": sample_step, "rtol": 1e-3, "launches": used}
     if kind == "swin":
         res["swin_kernel"] = swin_kernel
+    if sample_step > 1:
+        res.update(_renewal_check(c_best, p_best, sample_step, thresh,
+                                  f"tiny {kind} x{sample_step}"))
     errs = {"scores": 0.0, "boxes": 0.0, "memory": 0.0}
     for cd, pd in zip(c_out, p_out):
+        require(tuple(cd.boxes.shape) == tuple(pd.boxes.shape) == (2, sample_step * props, 4),
+                f"tiny {kind}: boxes shape {tuple(cd.boxes.shape)}")
         for key in ("scores", "boxes"):
             g, r = getattr(cd, key).cpu().double(), getattr(pd, key).double()
             errs[key] = max(errs[key], float((g - r).abs().max() / r.abs().max()))
@@ -1378,23 +1467,28 @@ def capture_k1(keep: list):
 
 
 def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
-                   swin_kernel: str = "v3", keep_k1: list | None = None) -> dict:
+                   swin_kernel: str = "v3", keep_k1: list | None = None,
+                   sample_step: int | None = None) -> dict:
     """A flagship config at full width, bf16: 24 global frames, then
     ``n_chunks`` chunks of INFER_BATCH frames at 608x1024; a Swin trunk in
-    mode ``swin_kernel``.  A first pass warms up; the launch counts and
-    times are of the second.  With ``keep_k1``, the K1 inputs of the
-    first pass's last chunk (the second's are the same) are appended to
-    it."""
+    mode ``swin_kernel``; ``sample_step`` set on the config over its
+    SAMPLE_STEP (4: the x4 DDIM ensemble).  A first pass warms up; the
+    launch counts and times are of the second.  With ``keep_k1``, the K1
+    inputs of the first pass's last chunk (the second's are the same) are
+    appended to it.  Returns the phase's line."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.streaming import StreamingDetector
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
     cfg = load_config(str(ROOT / "configs" / config))
+    if sample_step is not None:
+        cfg.MODEL.DiffusionDet.SAMPLE_STEP = sample_step
+    steps = cfg.MODEL.DiffusionDet.SAMPLE_STEP
     t0 = time.perf_counter()
     model = DiffusionDetArch.from_config(cfg, seed=seed, swin_kernel=swin_kernel)
     mega = cfg.MODEL.VID.MEGA
     det = StreamingDetector(
-        model, infer_batch=cfg.INPUT.INFER_BATCH,
+        model, infer_batch=cfg.INPUT.INFER_BATCH, sample_step=steps,
         mem_size=mega.MEMORY_MANAGEMENT_SIZE_TEST, mem_dis_size=150,
         num_proposals=cfg.MODEL.DiffusionDet.NUM_PROPOSALS,
         use_nms=cfg.MODEL.DiffusionDet.USE_NMS,
@@ -1431,9 +1525,11 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
     launches = read_launches()
 
     passes = n_chunks + -(-n_global // f)     # backbone passes
-    want = {"roi_align_fwd": n_chunks * (len(model.head.head_series)
-                                         + len(model.head.head_series_cond))
-            + -(-n_global // f) * len(model.head.head_series)}
+    # decoder stages a chunk: the extract pass's shared stages, then the
+    # conditioned ones (x1) or the whole stack at every DDIM step (xN)
+    shared, cond = len(model.head.head_series), len(model.head.head_series_cond)
+    per_chunk = shared + (cond if steps == 1 else steps * (shared + cond))
+    want = {"roi_align_fwd": n_chunks * per_chunk + -(-n_global // f) * shared}
     want["dynamic_conv"] = want["roi_align_fwd"]
     if model.backbone_type == "swin":
         blocks = sum(len(layer.blocks) for layer in model.backbone.bottom_up.layers)
@@ -1445,7 +1541,7 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
             f"{phase}: memory not filled ({state.mem.count}, {state.mem_dis.count})")
     require(bool(torch.isfinite(state.mem.feats).all()), f"{phase}: non-finite memory")
     for dets in outs:
-        require(tuple(dets.boxes.shape) == (f, det.detections_per_img, 4),
+        require(tuple(dets.boxes.shape) == (f, steps * det.detections_per_img, 4),
                 f"{phase}: boxes shape {tuple(dets.boxes.shape)}")
         for key in ("boxes", "scores"):
             require(bool(torch.isfinite(getattr(dets, key)).all()),
@@ -1454,7 +1550,7 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
                 and int(dets.labels.max()) <= cfg.MODEL.DiffusionDet.NUM_CLASSES,
                 f"{phase}: labels out of range")
         require(int(dets.valid.sum()) > 0, f"{phase}: NMS kept nothing")
-    res = {"config": f"configs/{config}", "dtype": "bfloat16",
+    res = {"config": f"configs/{config}", "dtype": "bfloat16", "sample_step": steps,
            "swin_kernel": swin_kernel if model.backbone_type == "swin" else None,
            "frames": [n_global, n_chunks * f], "hw": [h, w],
            "launches": launches, "expected_launches": want,
@@ -1469,28 +1565,75 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
     if swin_kernel == "v1":
         res["k7_chunk_kernel_ms"] = res.pop("kernels_ms")
     emit(phase, **res)
-    if swin_kernel == "v1":
-        launches["k7_chunk_kernel_ms"] = res["k7_chunk_kernel_ms"]
     del det, model, state, outs
     torch.cuda.empty_cache()
-    return launches
-
-
-def profile_chunk(det, state, frames, whwh, phase: str, kernels=()) -> dict:
-    """Device time of one chunk by kernel name (``torch.profiler``); the
-    full table goes to ``build/chip_smoke/<phase>_chunk_profile.txt``."""
-    res = profile_device(lambda: det.process_chunk(state, frames, whwh), f"{phase}_chunk",
-                         kernels)
-    res["profiled_chunk_wall_ms"] = res.pop("profiled_wall_ms")
     return res
 
 
-def profile_device(run, name: str, kernels=()) -> dict:
+# the device kernels of each wrapper on the streaming path, by name; K4's
+# and K7's bf16 kernels share a name, so the Swin entries go by trunk mode
+CHUNK_KERNELS = {"roi_align_fwd": ("roi_footprint_kernel", "roi_align_fwd_kernel"),
+                 "dynamic_conv": ("dynamic_conv_kernel", "dynconv_ring_kernel")}
+SWIN_CHUNK_KERNELS = {"v3": {"swin_block_attn": ("attn_bf16_kernel",),
+                             "swin_block_mlp": K5_KERNELS},
+                      "v2": {"window_attn_qkv": K6_KERNELS}, "v1": {"window_attn": K7_KERNELS}}
+
+
+@contextlib.contextmanager
+def timed_postprocess(out: dict):
+    """Host time of a chunk's post-processing, from a synchronised start
+    (the class-aware NMS syncs the host once a fixed-point pass), into
+    ``out["nms_host_ms"]``, and the passes of its NMS into
+    ``out["nms_iterations"]``."""
+    from diffusionvid_torch.engine import streaming
+    from diffusionvid_torch.ops.nms import nms_mask
+    inner = {k: getattr(streaming, k) for k in ("postprocess_frame", "postprocess_ensemble")}
+
+    def timed(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dets = fn(*args, **kw)
+            torch.cuda.synchronize()
+            out["nms_host_ms"] = (time.perf_counter() - t0) * 1e3
+            out["nms_iterations"] = nms_mask.iterations
+            return dets
+        return run
+
+    for k, fn in inner.items():
+        setattr(streaming, k, timed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in inner.items():
+            setattr(streaming, k, fn)
+
+
+def profile_chunk(det, state, frames, whwh, phase: str, kernels=()) -> dict:
+    """Device time of one chunk by kernel name (``torch.profiler``), with
+    ``path_kernels_ms``, the device time of each wrapper's kernels on the
+    path, and the host time and passes of its NMS; the full table goes to
+    ``build/chip_smoke/<phase>_chunk_profile.txt``."""
+    by_kernel = dict(CHUNK_KERNELS)
+    if det.model.backbone_type == "swin":
+        by_kernel.update(SWIN_CHUNK_KERNELS[det.model.backbone.bottom_up.kernel_mode])
+    nms = {}
+    with timed_postprocess(nms):
+        res = profile_device(lambda: det.process_chunk(state, frames, whwh),
+                             f"{phase}_chunk", kernels, by_kernel=by_kernel)
+    res["profiled_chunk_wall_ms"] = res.pop("profiled_wall_ms")
+    res.update(nms)
+    return res
+
+
+def profile_device(run, name: str, kernels=(), by_kernel: dict | None = None) -> dict:
     """Device time of ``run()`` by kernel name (``torch.profiler``), its
     share of the wall time, the device operations launched and the host
     operators that took the most host time; with ``kernels``, also
     ``kernels_ms``, the device time of the kernels whose names hold one of
-    them.  The full table goes to ``build/chip_smoke/<name>_profile.txt``."""
+    them, and with ``by_kernel`` (name: such a tuple) ``path_kernels_ms``,
+    that time by name where it is not 0.  The full table goes to
+    ``build/chip_smoke/<name>_profile.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1516,9 +1659,16 @@ def profile_device(run, name: str, kernels=()) -> dict:
            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
            "top_host_ms": {f"{e.key[:40]} x{e.count}": e.self_cpu_time_total / 1e3
                            for e in host}}
+
+    def kernels_ms(names):
+        return sum(e.self_device_time_total for e in events
+                   if any(k in e.key for k in names)) / 1e3
+
     if kernels:
-        res["kernels_ms"] = sum(e.self_device_time_total for e in events
-                                if any(k in e.key for k in kernels)) / 1e3
+        res["kernels_ms"] = kernels_ms(kernels)
+    if by_kernel:
+        res["path_kernels_ms"] = {k: ms for k, names in by_kernel.items()
+                                  if (ms := kernels_ms(names)) > 0}
     return res
 
 
@@ -1820,16 +1970,24 @@ def main(argv=None) -> int:
     phase_tiny(args.seed, "resnet")
     for mode in SWIN_MODE_KERNELS:
         phase_tiny(args.seed, "swin", mode)
+    phase_tiny(args.seed, "resnet", sample_step=4)
+    phase_tiny(args.seed, "swin", "v3", sample_step=4)
     k1_inputs = []
     launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship",
-                              keep_k1=k1_inputs)
+                              keep_k1=k1_inputs)["launches"]
     k1_stream = phase_k1_stream(k1_inputs)
     del k1_inputs
     swin = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 6, "flagship_swin")
     for name in ("swin_block_attn", "swin_block_mlp"):
-        launches[name] = swin[name]
+        launches[name] = swin["launches"][name]
     v1 = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_v1", "v1")
-    launches["window_attn"], v1_k7_ms = v1["window_attn"], v1["k7_chunk_kernel_ms"]
+    launches["window_attn"], v1_k7_ms = v1["launches"]["window_attn"], v1["k7_chunk_kernel_ms"]
+    x4 = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship_x4",
+                        sample_step=4)["launches"]
+    swin_x4 = phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 2, "flagship_swin_x4",
+                             sample_step=4)["launches"]
+    x4_launches = {k: x4[k] for k in ("roi_align_fwd", "dynamic_conv")}
+    x4_launches.update({k: swin_x4[k] for k in ("swin_block_attn", "swin_block_mlp")})
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []
@@ -1861,6 +2019,8 @@ def main(argv=None) -> int:
                             v1_chunk_kernel_ms=v1_k7_ms, ptxas=k7_ptxas)
         if name in ("dynamic_conv", "swin_block_mlp"):
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
+        if name in x4_launches:   # on the R-101 (K1, K2) and Swin-B (K4, K5) x4 streams
+            line[-1]["x4_launches"] = x4_launches[name]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

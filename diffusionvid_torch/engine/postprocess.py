@@ -2,7 +2,8 @@
 
 Port of ``diffusionvid_tpu/engine/postprocess.py`` (``DiffusionDet.inference``,
 diffusion_det.py:754-839): sigmoid scores over class x proposal, top-K,
-class-aware NMS, clip.  Frames are a leading batch dimension.
+class-aware NMS, clip; and the xN ensemble's merge of the per-step
+selections.  Frames are a leading batch dimension.
 """
 
 from __future__ import annotations
@@ -39,3 +40,16 @@ def postprocess_frame(logits, boxes, image_hw, num_detections: int = 300,
     if use_nms:
         valid = batched_nms_mask(det_boxes, det_scores, det_labels, nms_thresh)
     return BoxArray(clip_to_image(det_boxes, image_hw), det_scores, det_labels, valid)
+
+
+def postprocess_ensemble(boxes_steps, scores_steps, labels_steps, image_hw,
+                         nms_thresh: float = 0.5) -> BoxArray:
+    """xN ensemble: the per-step top-D selections (boxes ``[..., D, 4]``,
+    scores and labels ``[..., D]``) concatenated in step order along the
+    detection axis, one class-aware NMS over them, then the clip; no cap
+    after the NMS (diffusion_det.py:598-627)."""
+    boxes = torch.cat(list(boxes_steps), -2)
+    scores = torch.cat(list(scores_steps), -1)
+    labels = torch.cat(list(labels_steps), -1)
+    valid = batched_nms_mask(boxes, scores, labels, nms_thresh)
+    return BoxArray(clip_to_image(boxes, image_hw), scores, labels, valid)

@@ -3,10 +3,11 @@
 Port of ``diffusionvid_tpu/models/diffusion_det.py``: the cosine schedule
 (buffers derived in float64, cast at the end), DDIM time pairs, the
 signal-space ↔ box-space transforms, the training targets
-(``q_sample``, ``prepare_diffusion_targets``) and ``DiffusionDetArch``
-(ResNet or Swin + FPN + DynamicHead) with its training forward and the
-streaming sub-entrypoints ``extract_features``, ``extract_proposals`` and
-``refine``.
+(``q_sample``, ``prepare_diffusion_targets``), the DDIM noise estimate
+``predict_noise_from_start`` and ``DiffusionDetArch`` (ResNet or Swin + FPN +
+DynamicHead) with its training forward and the streaming sub-entrypoints
+``extract_features``, ``extract_proposals``, ``refine`` and
+``full_forward_test``.
 """
 
 from __future__ import annotations
@@ -91,6 +92,14 @@ def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     c1 = sched.sqrt_alphas_cumprod[t][..., None, None]
     c2 = sched.sqrt_one_minus_alphas_cumprod[t][..., None, None]
     return c1 * x_start + c2 * noise
+
+
+def predict_noise_from_start(sched: DiffusionSchedule, x_t, t, x0):
+    """eps = (sqrt(1/ac_t) x_t - x0) / sqrt(1/ac_t - 1), per frame ``t`` [B]
+    (diffusion_det.py:649-653)."""
+    c1 = sched.sqrt_recip_alphas_cumprod[t][..., None, None]
+    c2 = sched.sqrt_recipm1_alphas_cumprod[t][..., None, None]
+    return (c1 * x_t - x0) / c2
 
 
 def prepare_diffusion_targets(sched: DiffusionSchedule, gt_boxes_xyxy, gt_valid,
@@ -258,3 +267,18 @@ class DiffusionDetArch(nn.Module):
             feats, self.spatial_scales, bboxes, pro_features, t, memory,
             memory_mask, memory_dis=memory_dis, memory_dis_mask=memory_dis_mask)
         return logits[-1].float(), boxes[-1].float(), pro
+
+    def full_forward_test(self, feats, bboxes, t, memory, memory_mask,
+                          memory_dis=None, memory_dis_mask=None):
+        """The whole stack on the given boxes, one DDIM step of the xN
+        ensemble (box_head.py:286-299 with sampling_timesteps > 1): the
+        shared stages, then, with NUM_HEADS_LOCAL > 0, the conditioned
+        stage on the last shared boxes and features.  Plain DiffusionDet
+        (NUM_HEADS_LOCAL 0) returns the last shared stage.  Returns float32
+        logits and boxes, and the last proposal features."""
+        inter_logits, inter_boxes, pro, _ = self.head.shared_stages(
+            feats, self.spatial_scales, bboxes, t)
+        if self.num_heads_local == 0:
+            return inter_logits[-1].float(), inter_boxes[-1].float(), pro
+        return self.refine(feats, inter_boxes[-1], pro, t, memory, memory_mask,
+                           memory_dis, memory_dis_mask)

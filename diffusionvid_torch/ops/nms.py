@@ -36,13 +36,17 @@ def nms_mask(boxes, scores, iou_threshold: float, valid=None,
     suppress = (pairwise_iou(sboxes, sboxes, plus_one) > iou_threshold) & later
 
     keep = svalid
-    for _ in range(n + 1):
+    for it in range(1, n + 2):
         killed = (suppress & keep[..., :, None]).any(-2)
         nxt = svalid & ~killed
         if torch.equal(nxt, keep):
             break
         keep = nxt
+    nms_mask.iterations = it   # passes of the last call, one host sync each
     return torch.zeros_like(keep).scatter(-1, order, keep)
+
+
+nms_mask.iterations = 0
 
 
 def batched_nms_mask(boxes, scores, labels, iou_threshold: float, valid=None,

@@ -7,7 +7,8 @@ package's own draws, recomputed from its key splits (``split(state.rng)``
 per global chunk in ``_update_memory``, ``split(state.rng, 4)`` per chunk in
 ``_detect_chunk``).  The JAX side runs under ``jax.disable_jit()``.  Frame by
 frame, boxes and scores agree to < 1e-3 relative, labels and keep masks are
-equal, and both memories agree after ``start_video``.
+equal, and both memories agree after ``start_video``.  ``run_both`` also
+drives the xN ensemble (tests/test_torch_port_stream_x4.py).
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 from diffusionvid_tpu.engine.streaming import StreamingDetector as JaxDetector
 
 from diffusionvid_torch.engine.streaming import StreamingDetector
+from diffusionvid_torch.models.diffusion_det import ddim_times
 from test_torch_port_weights import H, PROPS, W, jax_model_and_params, port_model, rel_err
 
 KW = dict(infer_batch=2, mem_size=16, mem_dis_size=8, num_proposals=PROPS,
@@ -27,28 +29,61 @@ KW = dict(infer_batch=2, mem_size=16, mem_dis_size=8, num_proposals=PROPS,
 SEED = 7
 
 
-def _jax_draws(n_global_chunks: int, n_chunks: int, f: int):
-    """The box noise the JAX detector draws, in call order."""
+def _jax_draws(n_global_chunks: int, n_chunks: int, f: int, sample_step: int = 1):
+    """The noise the JAX detector draws, in call order: per global chunk
+    the extract pass's boxes; per chunk the extract pass's boxes, then at
+    xN the starting signal and (DDIM noise, renewal noise) for each step
+    but the last."""
+    def normal(k):
+        return np.asarray(jax.random.normal(k, (f, PROPS, 4)))
+
     key = jax.random.PRNGKey(SEED)
     draws = []
     for _ in range(n_global_chunks):
         key, r = jax.random.split(key)
-        draws.append(np.asarray(jax.random.normal(r, (f, PROPS, 4))))
+        draws.append(normal(r))
     for _ in range(n_chunks):
-        key, r_extract, _, _ = jax.random.split(key, 4)
-        draws.append(np.asarray(jax.random.normal(r_extract, (f, PROPS, 4))))
+        key, r_extract, r_x, r_loop = jax.random.split(key, 4)
+        draws.append(normal(r_extract))
+        if sample_step > 1:
+            draws.append(normal(r_x))
+            for _, t_next in ddim_times(1000, sample_step):
+                r_loop, r_noise, r_renew = jax.random.split(r_loop, 3)
+                if t_next >= 0:
+                    draws += [normal(r_noise), normal(r_renew)]
     return draws
 
 
-def run_both(jmodel, variables):
-    """Both detectors over 3 global frames and 2 chunks: (JAX memories,
-    JAX detections, port memories, port detections)."""
+class _JaxRecorder:
+    """The JAX model with every ``full_forward_test`` call's logits kept."""
+
+    def __init__(self, model, logits):
+        self._model, self._logits = model, logits
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def apply(self, *args, method=None, **kw):
+        out = self._model.apply(*args, method=method, **kw)
+        if getattr(method, "__name__", "") == "full_forward_test":
+            self._logits.append(np.asarray(out[0]))
+        return out
+
+
+def run_both(jmodel, variables, sample_step: int = 1, thresh: float = 0.5,
+             n_chunks: int = 2, logits=None):
+    """Both detectors over 3 global frames and ``n_chunks`` chunks of 2 at
+    ``sample_step``, renewal threshold ``thresh``: (JAX memories, JAX
+    detections, port memories, port detections).  ``logits``, a pair of
+    lists, gets the logits of each DDIM step, JAX's and the port's."""
     rng = np.random.RandomState(5)
     gframes = rng.uniform(0, 255, (3, H, W, 3)).astype(np.float32)   # 2 chunks, tail padded
-    chunks = [rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32) for _ in range(2)]
+    chunks = [rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32) for _ in range(n_chunks)]
     whwh = np.asarray([W, H, W, H], np.float32)
+    kw = dict(KW, sample_step=sample_step, score_renewal_thresh=thresh)
 
-    jdet = JaxDetector(jmodel, variables, **KW)
+    jlogits, plogits = logits if logits is not None else ([], [])
+    jdet = JaxDetector(_JaxRecorder(jmodel, jlogits), variables, **kw)
     with jax.disable_jit():
         jstate = jdet.start_video(jax.random.PRNGKey(SEED), jnp.asarray(gframes),
                                   jnp.asarray(whwh))
@@ -58,8 +93,17 @@ def run_both(jmodel, variables):
             jstate, d = jdet.process_chunk(jstate, jnp.asarray(c), jnp.asarray(whwh))
             jdets.append(d)
 
-    det = StreamingDetector(port_model(jmodel, variables), **KW)
-    draws = iter(_jax_draws(2, len(chunks), 2))
+    model = port_model(jmodel, variables)
+    inner = model.full_forward_test
+
+    def recorded(*args):
+        out = inner(*args)
+        plogits.append(out[0].numpy())
+        return out
+
+    model.full_forward_test = recorded
+    det = StreamingDetector(model, **kw)
+    draws = iter(_jax_draws(2, n_chunks, 2, sample_step))
     det.noise = lambda state, shape: torch.from_numpy(np.array(next(draws))).reshape(shape)
     state = det.start_video(SEED, gframes, whwh)
     mem = (state.mem, state.mem_dis)
@@ -67,6 +111,7 @@ def run_both(jmodel, variables):
     for c in chunks:
         state, d = det.process_chunk(state, c, whwh)
         dets.append(d)
+    assert next(draws, None) is None, "the port drew less noise than JAX"
     return jmem, jdets, mem, dets
 
 
