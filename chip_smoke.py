@@ -101,10 +101,22 @@ Phases, one JSON line each:
               (4 launches): checked in bf16 and fp32 as in phase 3, timed,
               with its bound, its ROIs and longest tile list per level and
               its plan.
+  10. flagship_eval dataset evaluation through the port's ``run_inference``
+              (after phase 6's x4 phases): ``configs/vid_R_101_DiffusionVID.yaml``
+              over 2 generated videos of 43 frames at 600x1000, frames
+              rendered from their annotations (no image decoder on the
+              card's machine): x1 with seq-NMS (33 launches of K1 and of K2
+              a video; fps, time in ``process_chunk`` and in the host
+              conversion, seq-NMS and ``evaluate_vid`` ms, peak memory, AP50
+              of random weights; ``predictions.pkl`` re-evaluated), 2 shards
+              merged against it, x4 on one video (123 launches, 1,200 rows
+              a frame), and the test CLI with a tiny model on the card
+              against the CPU (``phase_flagship_eval``).
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
-K5's with ``x4_launches`` on the x4 streams; K7's with its card time, host
+K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
+``eval_launches`` in phase 10's x1 run; K7's with its card time, host
 time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
@@ -122,6 +134,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1672,6 +1685,388 @@ def profile_device(run, name: str, kernels=(), by_kernel: dict | None = None) ->
     return res
 
 
+# ---------------------------------------------------------------- dataset evaluation
+
+# the flagship eval's dataset: 2 videos of 43 frames at 600x1000, so the
+# resize scale is 1.0 and the bucket 608x1024; 24 global frames (3 chunks)
+# and 6 chunks of 8 a video, the last with 3 valid frames
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_HW = 2, 43, (600, 1000)
+
+
+def write_eval_dataset(root: Path, videos: int, frames: int, hw, seed: int,
+                       classes: int = 30) -> Path:
+    """An ILSVRC-layout dataset under ``root``: the catalog's
+    ``VID_val_videos`` index (4 columns) and one annotation XML a frame,
+    with one or two boxes a video moving at a constant speed (from a seeded
+    RandomState) and every tenth frame empty.  No image files: the frames
+    are rendered from the annotations (``RenderedVID``)."""
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    from diffusionvid_torch.data.catalog import DATASETS
+    from diffusionvid_torch.data.vid_dataset import VID_WNIDS
+
+    shutil.rmtree(root, ignore_errors=True)
+    _, anno_dir, index = DATASETS["VID_val_videos"]
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    lines, n = [], 0
+    for v in range(videos):
+        vdir = f"val/vid_{v:04d}"
+        (root / anno_dir / vdir).mkdir(parents=True)
+        objs = []
+        for _ in range(rng.randint(1, 3)):
+            size = rng.uniform(0.2, 0.5, 2) * (w, h)
+            start = rng.uniform(0, 1, 2) * ((w, h) - size)
+            speed = rng.uniform(-1, 1, 2) * (w, h) / (2 * frames)
+            objs.append((VID_WNIDS[rng.randint(1, classes + 1)], size, start, speed))
+        for f in range(frames):
+            ann = ET.Element("annotation")
+            sz = ET.SubElement(ann, "size")
+            ET.SubElement(sz, "height").text = str(h)
+            ET.SubElement(sz, "width").text = str(w)
+            for wnid, size, start, speed in objs if f % 10 != 9 else ():
+                x1, y1 = np.clip(start + speed * f, 0, (w, h) - size)
+                o = ET.SubElement(ann, "object")
+                ET.SubElement(o, "name").text = wnid
+                bb = ET.SubElement(o, "bndbox")
+                for k, val in zip(("xmin", "ymin", "xmax", "ymax"),
+                                  (x1, y1, x1 + size[0], y1 + size[1])):
+                    ET.SubElement(bb, k).text = str(int(val))
+            ET.ElementTree(ann).write(root / anno_dir / vdir / f"{f:06d}.xml")
+            n += 1
+            lines.append(f"{vdir} {n} {f} {frames}")
+    (root / index).parent.mkdir(parents=True, exist_ok=True)
+    (root / index).write_text("\n".join(lines) + "\n")
+    return root
+
+
+def render_frame(anno) -> np.ndarray:
+    """A uint8 RGB frame: a grey ramp with each box filled in its class's
+    color."""
+    h, w = anno.height, anno.width
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = (np.arange(w, dtype=np.uint32) * 96 // w + 32).astype(np.uint8)[None, :, None]
+    for (x1, y1, x2, y2), label in zip(anno.boxes.astype(int), anno.labels):
+        img[y1:y2 + 1, x1:x2 + 1] = ((label * 53) % 256, (label * 97) % 256, (label * 151) % 256)
+    return img
+
+
+def rendered_vid():
+    """The port's ``VIDDataset`` with ``load_image`` alone replaced: the card's
+    machine has no image decoder (no ``cv2``, no ``PIL``), so each frame is
+    rendered from its annotation XML instead of decoded from a JPEG."""
+    from diffusionvid_torch.data.vid_dataset import VIDDataset, parse_vid_xml
+
+    class RenderedVID(VIDDataset):
+        def load_image(self, path: str, dtype=np.float32) -> np.ndarray:
+            name = str(Path(path).relative_to(self.img_dir).with_suffix(""))
+            img = render_frame(parse_vid_xml(self._anno_tmpl % name))
+            return img if dtype == np.uint8 else img.astype(dtype)
+
+    return RenderedVID
+
+
+def open_eval_dataset(root: Path):
+    """``VID_val_videos`` under ``root`` through the catalog's paths, its
+    frames rendered (``rendered_vid``)."""
+    from diffusionvid_torch.data.catalog import DATASETS
+    img_dir, anno_dir, index = DATASETS["VID_val_videos"]
+    return rendered_vid()(
+        "VID_val_videos", str(root), str(root / img_dir), str(root / anno_dir),
+        str(root / index), is_train=False)
+
+
+@contextlib.contextmanager
+def eval_probes(out: dict):
+    """Host-clock probes on ``run_inference``'s path, into ``out``: time
+    inside ``StreamingDetector.start_video`` and ``process_chunk`` (the
+    enqueue, and the NMS's host syncs), inside ``_chunk_to_numpy`` (the
+    copy to the host, which waits for the card, and the conversion), each
+    ``seq_nms_video`` call (with its input, the video's predictions before
+    seq-NMS) and ``evaluate_vid``; the time the last prediction was made,
+    and the detection rows of every chunk."""
+    from diffusionvid_torch.engine import inference
+    from diffusionvid_torch.engine.streaming import StreamingDetector
+
+    out.update(start_video_s=0.0, process_chunk_s=0.0, host_convert_s=0.0, seq_nms_ms=[],
+               raw_videos=[], evaluate_ms=[], rows=set(), t_last=None)
+    saved = [(StreamingDetector, "start_video"), (StreamingDetector, "process_chunk"),
+             (inference, "_chunk_to_numpy"), (inference, "seq_nms_video"),
+             (inference, "evaluate_vid")]
+    inner = {name: getattr(obj, name) for obj, name in saved}
+
+    def timed(name, key, after=None):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            res = inner[name](*args, **kw)
+            t1 = time.perf_counter()
+            if isinstance(out[key], list):
+                out[key].append((t1 - t0) * 1e3)
+            else:
+                out[key] += t1 - t0
+            if after:
+                after(args, res, t1)
+            return res
+        return run
+
+    def chunk_rows(args, res, t1):
+        out["rows"].add(int(res[1].boxes.shape[-2]))
+
+    def converted(args, res, t1):
+        out["t_last"] = t1
+
+    def seq_nms_input(args, res, t1):
+        out["raw_videos"].append(args[0])
+
+    StreamingDetector.start_video = timed("start_video", "start_video_s")
+    StreamingDetector.process_chunk = timed("process_chunk", "process_chunk_s", chunk_rows)
+    inference._chunk_to_numpy = timed("_chunk_to_numpy", "host_convert_s", converted)
+    inference.seq_nms_video = timed("seq_nms_video", "seq_nms_ms", seq_nms_input)
+    inference.evaluate_vid = timed("evaluate_vid", "evaluate_ms")
+    try:
+        yield
+    finally:
+        for obj, name in saved:
+            setattr(obj, name, inner[name])
+
+
+@contextlib.contextmanager
+def cpu_noise():
+    """``StreamingDetector.noise`` from a CPU generator seeded as the video
+    state's own generator, moved to the model's device: a card run and a
+    CPU run of the same video draw the same noise."""
+    from diffusionvid_torch.engine.streaming import StreamingDetector
+    inner, gens = StreamingDetector.noise, {}
+
+    def noise(self, state, shape):
+        key = id(state.rng)
+        if key not in gens:   # keeps the state's generator, so its id stays unique
+            gens[key] = (state.rng, torch.Generator().manual_seed(state.rng.initial_seed()))
+        return torch.randn(shape, generator=gens[key][1]).to(self.device)
+
+    StreamingDetector.noise = noise
+    try:
+        yield
+    finally:
+        StreamingDetector.noise = inner
+
+
+def eval_launches(model, ds, sample_cfg, sample_step: int, videos: int) -> dict:
+    """K1's and K2's launches over ``videos`` videos: per global chunk the
+    shared stages; per chunk the shared and the conditioned stages (x1) or
+    the shared stages and every DDIM step's whole stack (xN)."""
+    shared, cond = len(model.head.head_series), len(model.head.head_series_cond)
+    per_chunk = shared + (cond if sample_step == 1 else sample_step * (shared + cond))
+    f = sample_cfg.infer_batch
+    n = 0
+    for s in ds.video_starts()[:videos]:
+        seg = ds.frame_seg_len[s]
+        n += -(-min(sample_cfg.global_size, seg) // f) * shared + -(-seg // f) * per_chunk
+    return {"roi_align_fwd": n, "dynamic_conv": n}
+
+
+def predictions_agree(got, want, rtol: float, what: str) -> dict:
+    """Frame by frame: equal counts and labels, boxes and scores within
+    ``rtol`` relative (to the frame's largest value).  Returns the largest
+    relative errors."""
+    require(len(got) == len(want), f"{what}: {len(got)} frames against {len(want)}")
+    errs = {"boxes": 0.0, "scores": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(len(g["labels"]) == len(w["labels"])
+                and np.array_equal(np.asarray(g["labels"]), np.asarray(w["labels"])),
+                f"{what}: frame {i}: labels differ ({len(g['labels'])} against "
+                f"{len(w['labels'])} detections)")
+        for k in errs:
+            if len(w[k]):
+                a, b = np.asarray(g[k], np.float64), np.asarray(w[k], np.float64)
+                errs[k] = max(errs[k], float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)))
+    require(max(errs.values()) < rtol, f"{what}: max relative error {errs} over {rtol}")
+    return {f"max_rel_err_{k}": v for k, v in errs.items()}
+
+
+def phase_flagship_eval(seed: int) -> dict:
+    """Dataset evaluation through the port's own path: ``run_inference``,
+    seq-NMS, ``evaluate_vid``, ``predictions.pkl``, the shard merge and the
+    test CLI, on the card with random weights from ``seed``.
+
+    The frames are rendered in numpy from each frame's annotation by a
+    subclass of the port's ``VIDDataset`` that replaces ``load_image``
+    alone: the card's machine has no image decoder (no ``cv2``, no
+    ``PIL``), so no JPEG is decoded; everything else (the index, the XML
+    annotations, resize and bucket, the prefetch threads, chunking, the
+    card, the host conversion, seq-NMS, evaluation) is the port's code.
+    The fps therefore excludes JPEG decode.
+
+    (a) ``configs/vid_R_101_DiffusionVID.yaml`` at x1 with seq-NMS over 2
+        videos of 43 frames at 600x1000 (timed; 33 launches of K1 and of
+        K2 a video); ``predictions.pkl`` re-evaluated by
+        ``inference_no_model``;
+    (b) the same as 2 shards without seq-NMS, merged by
+        ``merge_shard_predictions``: equal to (a)'s predictions before
+        seq-NMS (1e-4 relative; run first, it also warms up);
+    (c) the same config with ``MODEL.DiffusionDet.SAMPLE_STEP 4`` through
+        ``merge_from_list`` on one video: 123 launches, 1,200 rows a frame;
+    (d) the test CLI (``tools/test_net.main``) with a tiny fp32 model (phase
+        4's depth-18 model, loaded by ``--checkpoint``) on 2 rendered videos
+        at 64x96, on the card and on the CPU, the same noise drawn on the
+        CPU: the predictions agree within phase 4's 1e-3, the AP50s are
+        equal."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine.inference import inference_no_model, run_inference
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    from diffusionvid_torch.tools.test_net import (
+        detector_args, merge_shard_predictions, sample_config)
+
+    work = ROOT / "build" / "chip_smoke" / "eval"
+    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    t0 = time.perf_counter()
+    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    build_s = time.perf_counter() - t0
+    ds = open_eval_dataset(write_eval_dataset(work / "data", EVAL_VIDEOS, EVAL_FRAMES,
+                                              EVAL_HW, seed))
+    frames = len(ds)
+    scfg, dargs = sample_config(cfg), detector_args(cfg)
+
+    # (b) two shards without seq-NMS, merged; also the warm-up
+    shard_dir = work / "shards"
+    for k in range(2):
+        run_inference(model, ds, scfg, **dargs, output_dir=str(shard_dir), seed=seed,
+                      shard=k, num_shards=2)
+    merged = merge_shard_predictions(str(shard_dir), 2)
+    require(merged is not None, "flagship_eval: a shard's predictions are missing")
+
+    # (a) x1 with seq-NMS, timed
+    probes = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with eval_probes(probes):
+        t_run = time.perf_counter()
+        preds, gts, results = run_inference(model, ds, scfg, **dargs,
+                                            output_dir=str(work / "x1"), seed=seed,
+                                            use_seq_nms=True)
+        t_end = time.perf_counter()
+    launches = read_launches()
+    want = eval_launches(model, ds, scfg, 1, EVAL_VIDEOS)
+    for name, n in launches.items():
+        require(n == want.get(name, 0), f"flagship_eval: {name} launched {n} times, "
+                                        f"expected {want.get(name, 0)}")
+    require(len(preds) == frames == len(gts), f"flagship_eval: {len(preds)} predictions "
+                                              f"for {frames} frames")
+    h, w = EVAL_HW
+    for p in preds:
+        require(all(np.isfinite(p[k]).all() for k in ("boxes", "scores")),
+                "flagship_eval: non-finite predictions")
+        if len(p["boxes"]):
+            require(p["boxes"].min() >= 0 and p["boxes"][:, 0::2].max() <= w
+                    and p["boxes"][:, 1::2].max() <= h,
+                    "flagship_eval: boxes outside the original image")
+    raw = [p for video in probes["raw_videos"] for p in video]
+    require(len(probes["seq_nms_ms"]) == EVAL_VIDEOS and len(raw) == frames,
+            "flagship_eval: seq-NMS did not run once a video")
+    again = inference_no_model(str(work / "x1" / "predictions.pkl"), ds)
+    require(again["ap50"] == results["ap50"] or (np.isnan(again["ap50"])
+                                                 and np.isnan(results["ap50"])),
+            f"flagship_eval: predictions.pkl re-evaluates to {again['ap50']}, "
+            f"not {results['ap50']}")
+    shards = predictions_agree(merged, raw, 1e-4, "flagship_eval: 2 shards merged against x1")
+    res = {"config": "configs/vid_R_101_DiffusionVID.yaml",
+           "dtype": str(model.compute_dtype).split(".")[1], "videos": EVAL_VIDEOS, "frames": frames, "hw": list(EVAL_HW),
+           "global_frames_per_video": scfg.global_size, "infer_batch": scfg.infer_batch,
+           "launches": launches, "expected_launches": want, "model_build_s": build_s,
+           "fps": frames / (probes["t_last"] - t_run), "run_inference_s": t_end - t_run,
+           "start_video_s": probes["start_video_s"],
+           "process_chunk_s": probes["process_chunk_s"],
+           "host_convert_s": probes["host_convert_s"],
+           "seq_nms_ms_per_video": probes["seq_nms_ms"],
+           "evaluate_vid_ms": probes["evaluate_ms"][0],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "detections_per_frame": sum(len(p["scores"]) for p in raw) / frames,
+           "after_seq_nms_per_frame": sum(len(p["scores"]) for p in preds) / frames,
+           "ap50_random_weights": results["ap50"], "reevaluated_ap50": again["ap50"],
+           "shards": {"num_shards": 2, "frames": len(merged), **shards, "rtol": 1e-4}}
+
+    # (c) x4 on one video
+    cfg4 = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    cfg4.merge_from_list(["MODEL.DiffusionDet.SAMPLE_STEP", "4"])
+    probes4 = {}
+    reset_launches()
+    with eval_probes(probes4):
+        t_run = time.perf_counter()
+        preds4, _, results4 = run_inference(model, ds, scfg, **detector_args(cfg4),
+                                            seed=seed, max_videos=1)
+    launches4 = read_launches()
+    want4 = eval_launches(model, ds, scfg, 4, 1)
+    for name, n in launches4.items():
+        require(n == want4.get(name, 0), f"flagship_eval x4: {name} launched {n} times, "
+                                         f"expected {want4.get(name, 0)}")
+    rows = 4 * cfg.TEST.DETECTIONS_PER_IMG
+    require(probes4["rows"] == {rows}, f"flagship_eval x4: {probes4['rows']} rows a frame, "
+                                       f"not {rows}")
+    require(len(preds4) == EVAL_FRAMES, f"flagship_eval x4: {len(preds4)} predictions")
+    res["x4"] = {"sample_step": 4, "videos": 1, "launches": launches4,
+                 "expected_launches": want4, "rows_per_frame": rows,
+                 "fps": EVAL_FRAMES / (probes4["t_last"] - t_run),
+                 "detections_per_frame": sum(len(p["scores"]) for p in preds4) / EVAL_FRAMES,
+                 "ap50_random_weights": results4["ap50"]}
+    del model, preds, raw, merged, preds4
+    torch.cuda.empty_cache()
+
+    res["cli_card_vs_cpu"] = tiny_cli_card_vs_cpu(seed, work / "tiny")
+    res["nvidia_smi"] = nvidia_smi_line()
+    emit("flagship_eval", **res)
+    return res
+
+
+def tiny_cli_card_vs_cpu(seed: int, work: Path) -> dict:
+    """(d) of ``phase_flagship_eval``: ``tools/test_net.main`` with phase
+    4's depth-18 model (``--checkpoint``), on the card and on the CPU."""
+    import pickle
+    import shutil
+
+    from diffusionvid_torch.data.vid_dataset import VIDDataset
+    from diffusionvid_torch.tools import test_net
+    from diffusionvid_torch.utils.checkpoint import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    props = 16
+    write_eval_dataset(work / "data", 2, 11, (64, 96), seed, classes=5)
+    model = _tiny_model("resnet", torch.Generator().manual_seed(seed), props)
+    ckpt = save_checkpoint(str(work / "ckpt"), 0, model.state_dict())
+    opts = ["MODEL.RESNETS.DEPTH", "18", "MODEL.DiffusionDet.NUM_CLASSES", "5",
+            "MODEL.DiffusionDet.NUM_PROPOSALS", str(props), "MODEL.DiffusionDet.NUM_HEADS", "1",
+            "MODEL.DiffusionDet.NUM_HEADS_LOCAL", "1", "TPU.COMPUTE_DTYPE", "float32",
+            "INPUT.MIN_SIZE_TEST", "64", "INPUT.MAX_SIZE_TEST", "96", "INPUT.INFER_BATCH", "2",
+            "MODEL.VID.MEGA.GLOBAL.SIZE", "4", "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST", "64"]
+    out = {}
+    load_image, VIDDataset.load_image = VIDDataset.load_image, rendered_vid().load_image
+    try:
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            with cpu_noise():
+                results = test_net.main([
+                    "--config-file", str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"),
+                    "--checkpoint", ckpt, "--data-dir", str(work / "data"),
+                    "--output-dir", str(work / dev), "--seq-nms", "--device", dev, *opts])
+            with open(work / dev / "predictions.pkl", "rb") as f:
+                out[dev] = (pickle.load(f), results["ap50"], read_launches())
+    finally:
+        VIDDataset.load_image = load_image
+        shutil.rmtree(work / "ckpt")   # 170 MB of fp32 weights
+    (card, card_ap, card_launches), (cpu, cpu_ap, cpu_launches) = out["cuda"], out["cpu"]
+    require(card_launches["roi_align_fwd"] > 0 and card_launches["dynamic_conv"] > 0
+            and not any(cpu_launches.values()),
+            f"flagship_eval cli: card launches {card_launches}, CPU {cpu_launches}")
+    agree = predictions_agree(card, cpu, 1e-3, "flagship_eval cli: card against CPU")
+    require(card_ap == cpu_ap or (np.isnan(card_ap) and np.isnan(cpu_ap)),
+            f"flagship_eval cli: AP50 {card_ap} on the card, {cpu_ap} on the CPU")
+    return {"frames": len(card), "hw": [64, 96], "launches": card_launches, **agree,
+            "rtol": 1e-3, "ap50_random_weights": card_ap, "ap50_cpu": cpu_ap,
+            "detections_per_frame": sum(len(p["scores"]) for p in card) / len(card)}
+
+
 # ---------------------------------------------------------------- train paths
 
 TRAIN_KERNELS = ("roi_align_fwd", "dynamic_conv", "roi_align_bwd")
@@ -1988,6 +2383,7 @@ def main(argv=None) -> int:
                              sample_step=4)["launches"]
     x4_launches = {k: x4[k] for k in ("roi_align_fwd", "dynamic_conv")}
     x4_launches.update({k: swin_x4[k] for k in ("swin_block_attn", "swin_block_mlp")})
+    eval_counts = phase_flagship_eval(args.seed)["launches"]
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []
@@ -2021,6 +2417,8 @@ def main(argv=None) -> int:
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
         if name in x4_launches:   # on the R-101 (K1, K2) and Swin-B (K4, K5) x4 streams
             line[-1]["x4_launches"] = x4_launches[name]
+        if name in ("roi_align_fwd", "dynamic_conv"):   # run_inference, R-101 x1
+            line[-1]["eval_launches"] = eval_counts[name]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

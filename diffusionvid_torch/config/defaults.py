@@ -17,6 +17,7 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL = CfgNode()
     _C.MODEL.META_ARCHITECTURE = "DiffusionDet"
     _C.MODEL.DEVICE = "cuda"
+    _C.MODEL.RPN_ONLY = False
     _C.MODEL.WEIGHT = ""
     _C.MODEL.PIXEL_MEAN = (123.675, 116.280, 103.530)
     _C.MODEL.PIXEL_STD = (58.395, 57.120, 57.375)
@@ -137,7 +138,10 @@ def get_default_cfg() -> CfgNode:
     _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
 
     _C.TEST = CfgNode()
+    _C.TEST.EXPECTED_RESULTS = ()
+    _C.TEST.EXPECTED_RESULTS_SIGMA_TOL = 4
     _C.TEST.DETECTIONS_PER_IMG = 300
+    _C.TEST.SEQ_NMS = False
 
     _C.TPU = CfgNode()
     _C.TPU.COMPUTE_DTYPE = "bfloat16"

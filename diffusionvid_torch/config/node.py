@@ -74,3 +74,23 @@ class CfgNode(dict):
         if base:
             self.merge_from_file(os.path.join(os.path.dirname(path), base), _seen)
         self.merge_from_other(loaded)
+
+    def merge_from_list(self, opts: list) -> None:
+        """yacs-style ``KEY.SUBKEY value`` pair list (the CLIs' remainder
+        args): each value goes through ``yaml.safe_load``, then
+        ``_decode_value``; missing intermediate nodes are created."""
+        if len(opts) % 2:
+            raise ValueError(f"override list must be KEY VALUE pairs, got {opts}")
+        for key, value in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = key.split(".")
+            for p in parts[:-1]:
+                if p not in node:
+                    node[p] = CfgNode()
+                node = node[p]
+            if isinstance(value, str):
+                try:
+                    value = yaml.safe_load(value)
+                except yaml.YAMLError:
+                    pass
+            node[parts[-1]] = _decode_value(value)

@@ -81,7 +81,9 @@ class StreamingDetector:
         return torch.randn(shape, generator=state.rng, device=self.device)
 
     def _as_tensors(self, frames, whwh):
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+        """Frames move to the device in their own dtype (the data layer's
+        uint8: a quarter of float32's bytes) and are cast there."""
+        frames = torch.as_tensor(frames, device=self.device).to(torch.float32)
         whwh = torch.as_tensor(whwh, dtype=torch.float32, device=self.device)
         return frames, whwh
 
@@ -195,8 +197,8 @@ class StreamingDetector:
     def process_chunk(self, state: StreamState, frames, whwh, n_valid: int = None):
         """Detect on one chunk of ``infer_batch`` consecutive frames.
 
-        frames [F, H, W, 3] float 0..255 (pad a short tail chunk and ignore
-        its extra outputs); whwh [4] the image size.  Returns (new state,
+        frames [F, H, W, 3] in 0..255, uint8 or float (pad a short tail
+        chunk and ignore its extra outputs); whwh [4] the image size.  Returns (new state,
         ``BoxArray`` with leading dim F)."""
         frames, whwh = self._as_tensors(frames, whwh)
         dets, (k1, k2) = self._detect_chunk(state, frames, whwh)

@@ -42,6 +42,11 @@ def test_imports_with_jax_blocked():
                                                    .with_suffix("").parts)
                   for p in (ROOT / "diffusionvid_torch").rglob("*.py")
                   if p.name != "__init__.py")
+    for new in ("config.node", "data.vid_dataset", "data.sampling", "data.prefetch",
+                "data.catalog", "data.transforms", "evaluation.vid_eval", "engine.seq_nms",
+                "engine.inference", "tools.test_net", "tools.test_prediction",
+                "utils.logging", "utils.metrics_io", "utils.profiling"):
+        assert "diffusionvid_torch." + new in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
             f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
@@ -65,8 +70,21 @@ def test_config_matches_jax_package(cfg_file):
     ref = dict(_leaves(jax_load_config(str(ROOT / cfg_file))))
     shared = {k: v for k, v in _leaves(cfg) if k in ref and k != "MODEL.DEVICE"}
     assert len(shared) > 50
+    assert {"MODEL.RPN_ONLY", "TEST.EXPECTED_RESULTS", "TEST.EXPECTED_RESULTS_SIGMA_TOL",
+            "TEST.SEQ_NMS", "DATASETS.TEST", "MODEL.VID.MEGA.GLOBAL.SHUFFLE"} <= set(shared)
     for k, v in shared.items():
         assert v == ref[k], k
+
+
+@pytest.mark.parametrize("cfg_file", CONFIGS)
+def test_config_with_cli_opts_matches_jax_package(cfg_file):
+    """The test CLI's ``KEY VALUE`` overrides merge as in the JAX package."""
+    opts = ["MODEL.DiffusionDet.SAMPLE_STEP", "4", "INPUT.MIN_SIZE_TEST", "480",
+            "TEST.SEQ_NMS", "True", "MODEL.WEIGHT", "''", "DATASETS.TEST", "('VID_val_frames',)"]
+    cfg = dict(_leaves(load_config(str(ROOT / cfg_file), opts)))
+    ref = dict(_leaves(jax_load_config(str(ROOT / cfg_file), opts)))
+    for k in opts[0::2]:
+        assert cfg[k] == ref[k], k
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
