@@ -112,11 +112,28 @@ Phases, one JSON line each:
               merged against it, x4 on one video (123 launches, 1,200 rows
               a frame), and the test CLI with a tiny model on the card
               against the CPU (``phase_flagship_eval``).
+  11. flagship_train_cli training from files on disk through the port's
+              train CLI (``tools/train_net.main``, after phase 8's Swin-B
+              step): the R-101 config at full width with the SSD
+              augmentation, 8 iterations (BATCH_REUSE_STEPS 2,
+              ACCUMULATION_STEPS 2), ``MODEL.WEIGHT`` a detectron2-style
+              trunk ``.pkl``, a checkpoint at 4 and 8, validation at 8;
+              then resumed from 4 in a second directory.  Frames rendered
+              from the annotations of 2 videos at 720x1280, 8 DET stills
+              (two portrait) and a val video at 600x1000.  Prints the
+              tensors loaded, ``sample_ms`` (a 5-frame sample's build),
+              ``wait_ms`` (blocked on the prefetcher), ``micro_step_ms``,
+              ms per optimizer step, trained frames/s, peak memory, K1/K2/K3
+              launches (4 a micro-step, plus validation's K1/K2, required),
+              the buckets, the checkpoints, ``metrics.jsonl`` purged at the
+              resume, and the resumed run against the uninterrupted one
+              (``phase_flagship_train_cli``).
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
 K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
-``eval_launches`` in phase 10's x1 run; K7's with its card time, host
+``eval_launches`` in phase 10's x1 run; K1's, K2's and K3's with
+``train_cli_launches`` in phase 11's first run; K7's with its card time, host
 time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
@@ -1701,7 +1718,6 @@ def write_eval_dataset(root: Path, videos: int, frames: int, hw, seed: int,
     RandomState) and every tenth frame empty.  No image files: the frames
     are rendered from the annotations (``RenderedVID``)."""
     import shutil
-    import xml.etree.ElementTree as ET
 
     from diffusionvid_torch.data.catalog import DATASETS
     from diffusionvid_torch.data.vid_dataset import VID_WNIDS
@@ -1721,24 +1737,33 @@ def write_eval_dataset(root: Path, videos: int, frames: int, hw, seed: int,
             speed = rng.uniform(-1, 1, 2) * (w, h) / (2 * frames)
             objs.append((VID_WNIDS[rng.randint(1, classes + 1)], size, start, speed))
         for f in range(frames):
-            ann = ET.Element("annotation")
-            sz = ET.SubElement(ann, "size")
-            ET.SubElement(sz, "height").text = str(h)
-            ET.SubElement(sz, "width").text = str(w)
+            boxes = []
             for wnid, size, start, speed in objs if f % 10 != 9 else ():
                 x1, y1 = np.clip(start + speed * f, 0, (w, h) - size)
-                o = ET.SubElement(ann, "object")
-                ET.SubElement(o, "name").text = wnid
-                bb = ET.SubElement(o, "bndbox")
-                for k, val in zip(("xmin", "ymin", "xmax", "ymax"),
-                                  (x1, y1, x1 + size[0], y1 + size[1])):
-                    ET.SubElement(bb, k).text = str(int(val))
-            ET.ElementTree(ann).write(root / anno_dir / vdir / f"{f:06d}.xml")
+                boxes.append((wnid, (x1, y1, x1 + size[0], y1 + size[1])))
+            write_anno(root / anno_dir / vdir / f"{f:06d}.xml", hw, boxes)
             n += 1
             lines.append(f"{vdir} {n} {f} {frames}")
     (root / index).parent.mkdir(parents=True, exist_ok=True)
     (root / index).write_text("\n".join(lines) + "\n")
     return root
+
+
+def write_anno(path: Path, hw, boxes):
+    """One ILSVRC annotation XML: the image size and (wnid, xyxy) objects."""
+    import xml.etree.ElementTree as ET
+
+    ann = ET.Element("annotation")
+    sz = ET.SubElement(ann, "size")
+    ET.SubElement(sz, "height").text = str(hw[0])
+    ET.SubElement(sz, "width").text = str(hw[1])
+    for wnid, box in boxes:
+        o = ET.SubElement(ann, "object")
+        ET.SubElement(o, "name").text = wnid
+        bb = ET.SubElement(o, "bndbox")
+        for k, val in zip(("xmin", "ymin", "xmax", "ymax"), box):
+            ET.SubElement(bb, k).text = str(int(val))
+    ET.ElementTree(ann).write(path)
 
 
 def render_frame(anno) -> np.ndarray:
@@ -2330,6 +2355,335 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
     return launches
 
 
+# ---------------------------------------------------------------- the train CLI
+
+# the train CLI's data: VID_train_15frames lists every second frame of 2
+# videos of 24 frames at 720x1280 (ImageNet-VID lists 15 a video); DET
+# stills at 375x500, the third and the sixth portrait (500x375), so that
+# the sampler's first four batches (seed 0, 32 indices, DET first) hold
+# both buckets; a val video of 32 frames at 600x1000
+TRAIN_VIDEOS, TRAIN_VIDEO_FRAMES, TRAIN_HW = 2, 24, (720, 1280)
+DET_HWS = [(500, 375) if i in (2, 5) else (375, 500) for i in range(8)]
+VAL_FRAMES, VAL_HW = 32, (600, 1000)
+CLI_ITERS, CLI_RESUME_AT = 8, 4
+
+
+def write_train_dataset(root: Path, seed: int) -> Path:
+    """``VID_val_videos`` as ``write_eval_dataset`` writes it, then the
+    ``VID_train_15frames`` and ``DET_train_30classes`` indexes and their
+    annotations: one or two boxes a frame (a video's moving at a constant
+    speed), every frame annotated.  No image files (``rendered_vid``)."""
+    from diffusionvid_torch.data.catalog import DATASETS
+    from diffusionvid_torch.data.vid_dataset import VID_WNIDS
+
+    write_eval_dataset(root, 1, VAL_FRAMES, VAL_HW, seed)
+    rng = np.random.RandomState(seed + 1)
+
+    def objects(hw, n):
+        h, w = hw
+        size = rng.uniform(0.2, 0.5, (n, 2)) * (w, h)
+        start = rng.uniform(0, 1, (n, 2)) * ((w, h) - size)
+        return size, start, rng.uniform(-1, 1, (n, 2)) * (w, h) / 48, rng.randint(1, 31, n)
+
+    _, anno_dir, index = DATASETS["VID_train_15frames"]
+    h, w = TRAIN_HW
+    lines = []
+    for v in range(TRAIN_VIDEOS):
+        vdir = f"train/vid_{v:04d}"
+        (root / anno_dir / vdir).mkdir(parents=True)
+        size, start, speed, labels = objects(TRAIN_HW, rng.randint(1, 3))
+        for f in range(TRAIN_VIDEO_FRAMES):
+            xy = np.clip(start + speed * f, 0, (w, h) - size)
+            write_anno(root / anno_dir / vdir / f"{f:06d}.xml", TRAIN_HW,
+                       [(VID_WNIDS[k], (*p, *(p + s))) for k, p, s in zip(labels, xy, size)])
+            if f % 2 == 0:
+                lines.append(f"{vdir} {len(lines) + 1} {f} {TRAIN_VIDEO_FRAMES}")
+    (root / index).parent.mkdir(parents=True, exist_ok=True)
+    (root / index).write_text("\n".join(lines) + "\n")
+
+    _, anno_dir, index = DATASETS["DET_train_30classes"]
+    (root / anno_dir / "train").mkdir(parents=True)
+    lines = []
+    for i, hw in enumerate(DET_HWS):
+        size, start, _, labels = objects(hw, rng.randint(1, 3))
+        write_anno(root / anno_dir / "train" / f"det_{i:04d}.xml", hw,
+                   [(VID_WNIDS[k], (*p, *(p + s))) for k, p, s in zip(labels, start, size)])
+        lines.append(f"train/det_{i:04d} {i + 1}")
+    (root / index).write_text("\n".join(lines) + "\n")
+    return root
+
+
+def write_trunk_pkl(cfg, seed: int, path: Path) -> int:
+    """A detectron2-style trunk ``.pkl`` (``stem.*``, ``res2.*`` names,
+    numpy arrays, as ``torchvision-R-101.pkl`` ships) from the config's
+    ResNet with random weights from ``seed``; returns its tensor count."""
+    import pickle
+
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    state = DiffusionDetArch.from_config(cfg, device="cpu", seed=seed).state_dict()
+    trunk = {k[len("backbone.bottom_up."):]: v.numpy() for k, v in state.items()
+             if k.startswith("backbone.bottom_up.")}
+    with open(path, "wb") as f:
+        pickle.dump({"model": trunk, "__author__": "chip_smoke", "matching_heuristics": True}, f)
+    return len(trunk)
+
+
+@contextlib.contextmanager
+def train_cli_probes(out: dict):
+    """Host-clock probes on the train CLI's path, into ``out``: each
+    sample's build (ms, bucket, frames; in the prefetch thread), each wait
+    on the prefetcher for a batch, each ``collate`` (stack, host to card)
+    with a fingerprint of the samples it took (the current frame's sums), each micro-step between two
+    synchronizes, each validation (with its model, dataset and sample
+    config, and its results)."""
+    from diffusionvid_torch.data import prefetch, sampling
+    from diffusionvid_torch.engine import train
+    from diffusionvid_torch.tools import train_net
+
+    for key in ("samples", "wait_ms", "collate_ms", "step_ms", "fingerprints", "validations"):
+        out[key] = []
+    saved = [(sampling, "build_train_sample_method"), (prefetch.PrefetchIterator, "__next__"),
+             (train_net, "collate"), (train, "make_train_step"), (train_net, "run_inference")]
+    inner = {name: getattr(obj, name) for obj, name in saved}
+
+    def build(*args, **kw):
+        t0 = time.perf_counter()
+        smp = inner["build_train_sample_method"](*args, **kw)
+        out["samples"].append(((time.perf_counter() - t0) * 1e3, smp["bucket"],
+                               smp["images"].shape[0]))
+        return smp
+
+    def wait(self):
+        t0 = time.perf_counter()
+        item = inner["__next__"](self)
+        if isinstance(item, list):   # a train batch, not validation's videos or chunks
+            out["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+        return item
+
+    def collate(samples, device):
+        t0 = time.perf_counter()
+        batch = inner["collate"](samples, device)
+        out["collate_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["fingerprints"].append([(s["bucket"], float(s["images"][0].sum(dtype=np.float64)),
+                                     float(s["gt_boxes"][0].sum(dtype=np.float64)))
+                                    for s in samples])
+        return batch
+
+    def make_train_step(model, opt, num_global, **kw):
+        step = inner["make_train_step"](model, opt, num_global, **kw)
+        out["model"] = model
+
+        def timed(batch, draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch, draws)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return metrics
+        return timed
+
+    def validate(model, ds, sample_cfg, **kw):
+        t0 = time.perf_counter()
+        res = inner["run_inference"](model, ds, sample_cfg, **kw)
+        out["validations"].append({"ms": (time.perf_counter() - t0) * 1e3, "ds": ds,
+                                   "sample_cfg": sample_cfg, "results": res[2]})
+        return res
+
+    sampling.build_train_sample_method = build
+    prefetch.PrefetchIterator.__next__ = wait
+    train_net.collate = collate
+    train.make_train_step = make_train_step
+    train_net.run_inference = validate
+    try:
+        yield
+    finally:
+        for obj, name in saved:
+            setattr(obj, name, inner[name])
+
+
+def _records(out_dir: Path) -> list:
+    with open(out_dir / "metrics.jsonl") as f:
+        return [json.loads(ln) for ln in f]
+
+
+def phase_flagship_train_cli(seed: int) -> dict:
+    """Training from files on disk through the port's train CLI
+    (``tools/train_net.main``, on the card as a user runs it):
+    ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
+    ``INPUT.TRANSFORM`` (the SSD augmentation), ``SOLVER.MAX_ITER`` 8,
+    ``BATCH_REUSE_STEPS`` 2, the config's ``ACCUMULATION_STEPS`` 2,
+    checkpoints every 4 iterations, validation at 8 through
+    ``run_inference``, and ``MODEL.WEIGHT`` a detectron2-style trunk
+    ``.pkl`` of a seeded R-101 (the loader and the class-head skip); then
+    the same run resumed from its iteration-4 checkpoint in a second
+    directory.  The data are ``write_train_dataset``'s, frames rendered
+    from their annotations (``rendered_vid``: the card's machine has no
+    image decoder), so ``sample_ms`` excludes JPEG decode.  The CLI logs
+    every iteration here (``LOG_PERIOD`` 1) so that ``metrics.jsonl``
+    shows the purge at the resume.
+
+    Checks: the trunk's tensors loaded, finite losses, 4 launches of K1, K2
+    and K3 a micro-step plus validation's K1/K2, the batches' buckets as
+    the sampler orders them (both seen), the checkpoint files, the resumed
+    run's batches equal to the uninterrupted run's last four, its
+    ``metrics.jsonl`` purged at step 4, its last losses and parameters
+    against the uninterrupted run's (not bit-exact on the card: cuDNN's
+    weight gradients reorder sums)."""
+    import shutil
+
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.data import (ConcatDataset, aspect_ratio_group_ids, frame_bucket,
+                                         get_dataset, grouped_batches)
+    from diffusionvid_torch.data.vid_dataset import VIDDataset
+    from diffusionvid_torch.engine.train import param_group
+    from diffusionvid_torch.tools import train_net
+    from diffusionvid_torch.utils.checkpoint import load_checkpoint
+
+    work = ROOT / "build" / "chip_smoke" / "train_cli"
+    config = ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"
+    cfg = load_config(str(config))
+    data = write_train_dataset(work / "data", seed)
+    pkl = work / "R-101-trunk.pkl"
+    trunk_tensors = write_trunk_pkl(cfg, seed + 1, pkl)
+    runs = [work / "run", work / "resumed"]
+    for d in runs:
+        shutil.rmtree(d, ignore_errors=True)
+    opts = ["INPUT.TRANSFORM", "True", "SOLVER.MAX_ITER", str(CLI_ITERS),
+            "SOLVER.BATCH_REUSE_STEPS", "2", "SOLVER.CHECKPOINT_PERIOD", str(CLI_RESUME_AT),
+            "SOLVER.TEST_PERIOD", str(CLI_ITERS), "MODEL.WEIGHT", str(pkl)]
+
+    load_image, VIDDataset.load_image = VIDDataset.load_image, rendered_vid().load_image
+    log_period, train_net.LOG_PERIOD = train_net.LOG_PERIOD, 1
+    probes, results, launches = [{}, {}], [], []
+    try:
+        for i, out_dir in enumerate(runs):
+            if i:   # resume from the first run's iteration-4 checkpoint
+                out_dir.mkdir(parents=True)
+                ckpt = out_dir / f"model_{CLI_RESUME_AT:07d}.pth"
+                shutil.copy(runs[0] / ckpt.name, ckpt)
+                shutil.copy(runs[0] / "metrics.jsonl", out_dir / "metrics.jsonl")
+                (out_dir / "last_checkpoint").write_text(str(ckpt))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with train_cli_probes(probes[i]):
+                t0 = time.perf_counter()
+                results.append(train_net.main(
+                    ["--config-file", str(config), "--data-dir", str(data), "--seed", str(seed),
+                     *(["--resume"] if i else []), *opts, "OUTPUT_DIR", str(out_dir)]))
+                probes[i]["run_s"] = time.perf_counter() - t0
+            launches.append(read_launches())
+            probes[i]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        VIDDataset.load_image = load_image
+        train_net.LOG_PERIOD = log_period
+
+    run, resumed = results
+    p = probes[0]
+    model = p.pop("model")
+    probes[1].pop("model")
+    require(run["pretrained_tensors"] == trunk_tensors,
+            f"flagship_train_cli: {run['pretrained_tensors']} tensors loaded of the trunk's "
+            f"{trunk_tensors}")
+    require(resumed["start_iter"] == CLI_RESUME_AT and run["start_iter"] == 0,
+            f"flagship_train_cli: runs started at {run['start_iter']} and {resumed['start_iter']}")
+    for i, (res, probe) in enumerate(zip(results, probes)):
+        iters = CLI_ITERS - res["start_iter"]
+        val = probe["validations"]
+        require(len(val) == 1 and len(probe["step_ms"]) == iters,
+                f"flagship_train_cli run {i}: {len(probe['step_ms'])} micro-steps, "
+                f"{len(val)} validations")
+        want = train_launches(model, iters)
+        for name, n in eval_launches(model, val[0]["ds"], val[0]["sample_cfg"], 1, 1).items():
+            want[name] += n
+        for name, n in launches[i].items():
+            require(n == want.get(name, 0), f"flagship_train_cli run {i}: {name} launched {n} "
+                                            f"times, expected {want.get(name, 0)}")
+        recs = _records(runs[i])
+        steps = [r["step"] for r in recs if "Train/total_loss" in r]
+        require(steps == list(range(1, CLI_ITERS + 1))
+                and all(np.isfinite(v) for r in recs for v in r.values()),
+                f"flagship_train_cli run {i}: metrics.jsonl steps {steps} (purged at "
+                f"{CLI_RESUME_AT} on resume), or a non-finite value")
+        require(all(np.isfinite(v) for v in res["metrics"].values()),
+                f"flagship_train_cli run {i}: non-finite loss {res['metrics']}")
+    for name in (f"model_{CLI_RESUME_AT:07d}.pth", f"model_{CLI_ITERS:07d}.pth", "config.yml",
+                 "log.txt", "last_checkpoint"):
+        require((runs[0] / name).exists(), f"flagship_train_cli: no {name}")
+    require(run["checkpoint"] == str(runs[0] / f"model_{CLI_ITERS:07d}.pth")
+            and resumed["checkpoint"] == str(runs[1] / f"model_{CLI_ITERS:07d}.pth"),
+            f"flagship_train_cli: last checkpoints {run['checkpoint']}, {resumed['checkpoint']}")
+
+    # the batches: buckets in the sampler's order; the resumed run's are the
+    # uninterrupted run's last four
+    ds = ConcatDataset([get_dataset(n, is_train=True, data_dir=str(data))
+                        for n in cfg.DATASETS.TRAIN])
+    order = grouped_batches(aspect_ratio_group_ids(ds), 1, seed=0)
+    sizes = (max(cfg.INPUT.MIN_SIZE_TRAIN), cfg.INPUT.MAX_SIZE_TRAIN)
+    want_buckets = [list(frame_bucket(ds.annos[i].height, ds.annos[i].width, *sizes))
+                    for _ in range(0, CLI_ITERS, 2) for i in next(order)]
+    seen = [list(f[0][0]) for f in p["fingerprints"][::2]]
+    require(seen == want_buckets and len({tuple(b) for b in seen}) == 2,
+            f"flagship_train_cli: batch buckets {seen}, the sampler's {want_buckets}")
+    require(probes[1]["fingerprints"] == p["fingerprints"][CLI_RESUME_AT:],
+            "flagship_train_cli: the resumed run's batches differ from the run's")
+
+    end = [load_checkpoint(str(d / f"model_{CLI_ITERS:07d}.pth"))["model"] for d in runs]
+    start = load_checkpoint(str(runs[0] / f"model_{CLI_RESUME_AT:07d}.pth"))["model"]
+    param_diff = max(float((end[0][k].float() - end[1][k].float()).abs().max()) for k in end[0])
+    moved = {g: 0 for g in ("main", "bias", "backbone", "backbone_bias")}
+    for k, v in end[0].items():
+        g = param_group(k)
+        if g in moved:
+            moved[g] += int(not torch.equal(v, start[k]))
+    loss_diff = max(abs(run["metrics"][k] - resumed["metrics"][k])
+                    / max(abs(run["metrics"][k]), 1e-12) for k in run["metrics"])
+    require(all(moved.values()), f"flagship_train_cli: parameters moved per group {moved}")
+    require(param_diff < 1e-3 and loss_diff < 5e-2,
+            f"flagship_train_cli: resumed against uninterrupted: parameters {param_diff}, "
+            f"losses {loss_diff} relative")
+
+    frames = 1 + cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
+    step_ms, accum = p["step_ms"], cfg.SOLVER.ACCUMULATION_STEPS
+    loop_s = (sum(p["wait_ms"]) + sum(p["collate_ms"]) + sum(step_ms)) / 1e3
+    train_samples = [s for s in p["samples"] if s[2] == frames]
+    val = p["validations"][0]
+    res = {"config": "configs/vid_R_101_DiffusionVID.yaml",
+           "dtype": str(model.compute_dtype).split(".")[1], "iterations": CLI_ITERS, "resumed_at": CLI_RESUME_AT, "batch_reuse_steps": 2,
+           "accumulation_steps": accum, "frames_per_sample": frames,
+           "dataset": {"vid_videos": TRAIN_VIDEOS, "vid_hw": list(TRAIN_HW),
+                       "vid_listed": len(ds.datasets[1]), "det_stills": len(DET_HWS),
+                       "val_frames": VAL_FRAMES, "val_hw": list(VAL_HW)},
+           "pretrained_tensors": run["pretrained_tensors"], "launches": launches[0],
+           "resumed_launches": launches[1],
+           "sample_ms": [s[0] for s in train_samples],
+           "sample_ms_median": statistics.median(s[0] for s in train_samples),
+           "wait_ms": p["wait_ms"], "collate_ms_median": statistics.median(p["collate_ms"]),
+           "micro_step_ms": step_ms, "micro_step_ms_median": statistics.median(step_ms),
+           "ms_per_optimizer_step": sum(step_ms) / (len(step_ms) / accum),
+           # the first optimizer step holds cuDNN's and the allocator's warm-up
+           "steady_ms_per_optimizer_step": sum(step_ms[accum:]) / (len(step_ms) / accum - 1),
+           "trained_frames_per_s": len(step_ms) * frames / loop_s,
+           # frames a second one producer thread can feed: a sample every
+           # BATCH_REUSE_STEPS iterations
+           "host_feed_frames_per_s": 2 * frames / statistics.median(s[0] for s in train_samples)
+           * 1e3,
+           "loop_s": loop_s, "run_s": p["run_s"], "validation_ms": val["ms"],
+           "peak_mem_gib": p["peak_mem_gib"], "losses": run["metrics"],
+           "resumed_losses": resumed["metrics"], "resumed_max_rel_loss_diff": loss_diff,
+           "resumed_max_abs_param_diff": param_diff, "params_moved": moved,
+           "buckets": seen, "metrics_steps_after_resume": [r["step"] for r in _records(runs[1])],
+           "checkpoints": sorted(f.name for f in runs[0].glob("model_*.pth")),
+           "val_ap50_random_weights": val["results"]["ap50"] if val["results"] else None,
+           "card": torch.cuda.get_device_name(0)}
+    for d in runs:    # about 0.7 GB of weights and optimizer state a checkpoint
+        shutil.rmtree(d)
+    del model, end, start
+    torch.cuda.empty_cache()
+    emit("flagship_train_cli", **res)
+    return launches[0]
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -2394,6 +2748,7 @@ def main(argv=None) -> int:
     del k3_inputs
     launches["window_attn_qkv"] = phase_flagship_train(
         args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin", 3)["window_attn_qkv"]
+    train_cli = phase_flagship_train_cli(args.seed)
 
     line = []
     for name, spec in KERNELS.items():
@@ -2419,6 +2774,8 @@ def main(argv=None) -> int:
             line[-1]["x4_launches"] = x4_launches[name]
         if name in ("roi_align_fwd", "dynamic_conv"):   # run_inference, R-101 x1
             line[-1]["eval_launches"] = eval_counts[name]
+        if name in TRAIN_KERNELS:   # the train CLI's uninterrupted run
+            line[-1]["train_cli_launches"] = train_cli[name]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

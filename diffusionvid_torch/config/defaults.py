@@ -110,14 +110,19 @@ def get_default_cfg() -> CfgNode:
     _C.INPUT.PIXEL_STD = (58.395, 57.120, 57.375)
     _C.INPUT.TO_BGR255 = False
     _C.INPUT.INFER_BATCH = 1
+    _C.INPUT.TRANSFORM = True          # the SSD augmentation of train samples
 
     _C.DATASETS = CfgNode()
     _C.DATASETS.TRAIN = ()
     _C.DATASETS.TEST = ()
     _C.DATALOADER = CfgNode()
     _C.DATALOADER.SIZE_DIVISIBILITY = 32
+    # train batches always hold one bucket (one sample a batch in the train
+    # CLI, so grouping leaves the order as it is)
+    _C.DATALOADER.ASPECT_RATIO_GROUPING = True
 
-    # what engine/train.py reads: the optimizer, its schedule and the loop
+    # what engine/train.py and tools/train_net.py read: the optimizer, its
+    # schedule and the loop
     _C.SOLVER = CfgNode()
     _C.SOLVER.OPTIMIZER_TYPE = "adamw"
     _C.SOLVER.LR_SCHEDULER_TYPE = "step"
@@ -133,7 +138,10 @@ def get_default_cfg() -> CfgNode:
     _C.SOLVER.WARMUP_FACTOR = 1.0 / 3
     _C.SOLVER.WARMUP_ITERS = 500
     _C.SOLVER.CHECKPOINT_PERIOD = 2500
+    _C.SOLVER.TEST_PERIOD = 2500       # iterations between validations (0: none)
+    _C.SOLVER.IMS_PER_BATCH = 1        # the reference's images per optimizer step
     _C.SOLVER.ACCUMULATION_STEPS = 1
+    _C.SOLVER.BATCH_REUSE_STEPS = 1    # iterations trained on one loaded batch
     _C.SOLVER.CLIP_GRADIENTS = CfgNode()
     _C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
 

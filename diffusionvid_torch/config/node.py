@@ -94,3 +94,10 @@ class CfgNode(dict):
                 except yaml.YAMLError:
                     pass
             node[parts[-1]] = _decode_value(value)
+
+    def dump(self) -> str:
+        """The tree as YAML, keys sorted (the train CLI's ``config.yml``)."""
+        def to_plain(n):
+            return {k: to_plain(v) if isinstance(v, dict) else v for k, v in n.items()}
+
+        return yaml.safe_dump(to_plain(self), default_flow_style=None, sort_keys=True)

@@ -64,7 +64,8 @@ class PrefetchIterator:
             self._put(self._END)
 
     def close(self):
-        """Stop the producer and release its buffers (idempotent)."""
+        """Stop the producer, release its buffers and wait for its thread,
+        which ends after the item it is making (idempotent)."""
         self._closed = True
         if not self._passthrough:
             # drain so a producer blocked in put() can observe _closed
@@ -73,6 +74,7 @@ class PrefetchIterator:
                     self._q.get_nowait()
             except queue.Empty:
                 pass
+            self._thread.join()
 
     def __iter__(self):
         return self

@@ -4,7 +4,8 @@ Port of ``diffusionvid_tpu/data/vid_dataset.py`` (the reference's
 ``VIDDataset``, ``mega_core/data/datasets/vid.py:21-242``): txt index files
 (``video_dir frame_id [seg_id seg_len]``), XML annotations with the
 30-class wnid map, a pickle cache of the parsed annotations, and the
-empty-frame filter of training, emitting numpy arrays.
+empty-frame filter of training, emitting numpy arrays; ``pad_groundtruth``
+pads a frame's GT to the static slots of a train batch.
 
 The cache file has a name of its own (``<image_set>_anno_torch.pkl``) and
 holds this module's ``FrameAnno``: the JAX package's cache holds objects of
@@ -154,6 +155,9 @@ class VIDDataset:
     def __len__(self):
         return len(self.image_set_index)
 
+    def image_path(self, idx: int) -> str:
+        return self._img_tmpl % self.image_set_index[idx]
+
     def frame_path(self, idx: int, frame: int) -> str:
         assert self.is_video
         return self._img_tmpl % (self.pattern[idx] % frame)
@@ -181,3 +185,23 @@ class VIDDataset:
         video-boundary eval sharding (samplers/distributed.py:69-115)."""
         assert self.is_video
         return [i for i, s in enumerate(self.frame_seg_id) if s == 0]
+
+
+def pad_groundtruth(anno: FrameAnno, max_gt: int, scale: float = 1.0,
+                    flip: bool = False):
+    """FrameAnno → static (boxes [G,4], labels [G], valid [G]) with the
+    resize scale and horizontal flip applied."""
+    n = min(len(anno.labels), max_gt)
+    boxes = np.zeros((max_gt, 4), np.float32)
+    labels = np.zeros((max_gt,), np.int32)
+    valid = np.zeros((max_gt,), bool)
+    if n:
+        b = anno.boxes[:n] * scale
+        if flip:
+            w = anno.width * scale
+            # TO_REMOVE=1 flip convention (bounding_box.py transpose)
+            b = np.stack([w - b[:, 2] - 1, b[:, 1], w - b[:, 0] - 1, b[:, 3]], 1)
+        boxes[:n] = b
+        labels[:n] = anno.labels[:n]
+        valid[:n] = True
+    return boxes, labels, valid

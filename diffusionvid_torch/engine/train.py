@@ -1,9 +1,9 @@
 """Training step, solver and iteration loop.
 
 Port of ``diffusionvid_tpu/engine/train.py`` and of the iteration loop of
-``tools/train_net.py:225-296`` without the file-reading data (the reference
-trainer and solver: ``mega_core/engine/trainer.py:43-248``,
-``mega_core/solver/build.py``):
+``tools/train_net.py:225-296`` (the reference trainer and solver:
+``mega_core/engine/trainer.py:43-248``, ``mega_core/solver/build.py``);
+this package's ``tools/train_net.py`` feeds it samples read from disk:
 
   * the loss of ``make_loss_fn``: diffusion targets, the training forward
     over the 1 + num_global frames of a sample, the deep-supervised set
@@ -308,12 +308,15 @@ def resume(model, opt: Optimizer, output_dir: str) -> int:
 def train_loop(model, opt: Optimizer, batches: Iterable[TrainBatch], *,
                num_global: int, max_iter: int, seed: int = 0, start_iter: int = 0,
                checkpoint_period: int = 0, output_dir: Optional[str] = None,
-               log_every: int = 20, log: Callable[[str], None] = print) -> dict:
+               log_every: int = 20, log: Callable[[str], None] = print,
+               on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
     """Micro-steps ``start_iter .. max_iter - 1`` over ``batches`` (one
     batch per iteration, the iterable starting at ``start_iter``'s).  The
     draws of iteration ``it`` come from ``iteration_generator(seed, it)``.
-    With ``output_dir`` it checkpoints every ``checkpoint_period`` iterations
-    and at ``max_iter``.  Returns the last iteration's metrics."""
+    After each iteration ``on_step(iterations done, metrics)`` runs (the
+    train CLI's logging and validation), then, with ``output_dir``, the
+    checkpoint every ``checkpoint_period`` iterations and at ``max_iter``.
+    Returns the last iteration's metrics."""
     step = make_train_step(model, opt, num_global)
     metrics = {}
     batch_iter = iter(batches)
@@ -328,6 +331,8 @@ def train_loop(model, opt: Optimizer, batches: Iterable[TrainBatch], *,
         if log_every and done % log_every == 0:
             log(f"iter {done}/{max_iter} "
                 + " ".join(f"{k} {float(v):.4f}" for k, v in sorted(metrics.items())))
+        if on_step is not None:
+            on_step(done, metrics)
         if output_dir and ((checkpoint_period and done % checkpoint_period == 0)
                            or done == max_iter):
             save_checkpoint(output_dir, done, model.state_dict(), opt.state_dict())

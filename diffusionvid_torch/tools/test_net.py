@@ -19,14 +19,13 @@ import argparse
 import os
 import pickle
 
-import torch
-
 from ..config import load_config
 from ..data import SampleConfig, get_dataset
 from ..engine.inference import run_inference
 from ..evaluation.vid_eval import eval_proposals, evaluate_vid, load_motion_iou_mat
 from ..models.diffusion_det import DiffusionDetArch
-from ..utils.checkpoint import load_checkpoint, merge_pretrained
+from ..utils.checkpoint import load_checkpoint
+from ..utils.convert import load_weights_into
 from ..utils.logging import setup_logger
 from ..utils.metrics_io import check_expected_results
 from ..utils.profiling import trace
@@ -89,18 +88,16 @@ def load_motion_ious(path, logger):
 
 def load_weights(model, args, logger):
     """``--checkpoint``: the port's own ``model_<step>.pth``, loaded
-    strictly.  ``--torch-weights``: a full-model reference ``.pth`` (the
-    port's parameter names are the reference's), merged over the model's
-    tensors where names and shapes match, nothing skipped."""
+    strictly.  ``--torch-weights``: a reference weight file in any format
+    of ``utils/convert.py: load_pretrained`` (a full-model ``.pth``, with or
+    without a ``module.`` prefix, among them), merged over the model's
+    tensors where names and shapes match, nothing skipped; a file that
+    matches no tensor raises."""
     if args.checkpoint:
         model.load_state_dict(load_checkpoint(args.checkpoint)["model"], strict=True)
         logger.info(f"loaded checkpoint {args.checkpoint}")
     elif args.torch_weights:
-        raw = torch.load(args.torch_weights, map_location="cpu", weights_only=False)
-        state = raw.get("model", raw) if isinstance(raw, dict) else raw
-        state = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
-        merged, n = merge_pretrained(model.state_dict(), state, skip_keys=())
-        model.load_state_dict(merged, strict=True)
+        n = load_weights_into(model, args.torch_weights)
         logger.info(f"loaded torch weights {args.torch_weights}: {n} tensors copied")
 
 
@@ -110,7 +107,7 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint", default=None,
                         help="the port's model_<step>.pth (utils/checkpoint.py)")
     parser.add_argument("--torch-weights", default=None,
-                        help="a full-model reference .pth state dict")
+                        help="a reference weight file (.pth or .pkl; utils/convert.py)")
     parser.add_argument("--data-dir", default=None)
     parser.add_argument("--output-dir", default=None)
     parser.add_argument("--motion-specific", action="store_true")

@@ -1,0 +1,270 @@
+"""Train DiffusionVID with the PyTorch port.
+
+Port of ``tools/train_net.py`` for the diffusion method (the reference's
+``tools/train_net.py:154-243``): the config and its ``KEY VALUE``
+overrides; ``config.yml`` and a log with the environment in ``OUTPUT_DIR``;
+the model from the config with random weights from ``--seed``, then
+``--pretrained`` or ``MODEL.WEIGHT`` over them with the class head kept
+fresh; the optimizer of ``engine/train.py: optimizer_from_config``; train
+samples read from ``DATASETS.TRAIN`` on disk (with the SSD augmentation
+when ``INPUT.TRANSFORM`` is set), one a batch, in aspect-ratio groups; the
+iterations of ``engine/train.py: train_loop``, with the batch-reuse swap,
+a log line and a ``metrics.jsonl`` record every 20 iterations, periodic
+validation through ``run_inference`` and checkpoints; ``--resume`` from the
+last checkpoint.
+
+    python -m diffusionvid_torch.tools.train_net \\
+        --config-file configs/vid_R_101_DiffusionVID.yaml --data-dir DATA \\
+        [--pretrained FILE] [--resume] [SOLVER.MAX_ITER 1000]
+
+Every random draw of an iteration derives from the iteration's index: the
+samples of the batch loaded at iteration ``it`` from
+``RandomState((1000003 * it + 12345) % (2**31 - 1))``, the reuse swap from
+``RandomState((7654321 + it) % (2**31 - 1))``, the step's noise and
+timesteps from ``iteration_generator(seed, it)``.  So a run resumed from a
+checkpoint at a multiple of ``BATCH_REUSE_STEPS`` continues the
+uninterrupted run bit for bit on the CPU.
+
+Without ``--device`` it runs on the card and raises when there is none;
+``--device cpu`` runs the kernels' plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import load_config
+from ..data import (ConcatDataset, PrefetchIterator, SampleConfig, aspect_ratio_group_ids,
+                    get_dataset, grouped_batches)
+from ..engine.inference import run_inference
+from ..engine.train import TrainBatch, optimizer_from_config, resume, train_loop
+from ..models.diffusion_det import DiffusionDetArch
+from ..utils.checkpoint import last_checkpoint
+from ..utils.collect_env import collect_env_info
+from ..utils.convert import load_weights_into, weight_path
+from ..utils.device import resolve_device
+from ..utils.logging import MetricLogger, log_to_file, setup_logger
+from ..utils.metrics_io import MetricsWriter
+from ..utils.profiling import StepProfiler
+from .test_net import detector_args, sample_config
+
+LOG_PERIOD = 20        # iterations between log lines and metrics.jsonl records
+VAL_MAX_VIDEOS = 20    # videos a periodic validation runs over
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="DiffusionVID training (PyTorch port)")
+    parser.add_argument("--config-file", required=True)
+    parser.add_argument("--data-dir", default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from OUTPUT_DIR's last checkpoint")
+    parser.add_argument("--pretrained", default=None,
+                        help="weights to start from (.pth or .pkl, utils/convert.py); "
+                             "the class head is re-initialized")
+    parser.add_argument("--no-prefetch", action="store_true",
+                        help="build samples in the training thread")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler Chrome trace of iterations "
+                             "start+10 to start+14 here")
+    parser.add_argument("--device", default=None,
+                        help="default: the card, raising without one; 'cpu' for tests")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the random weights' and the step draws' seed")
+    parser.add_argument("opts", nargs=argparse.REMAINDER)
+    return parser.parse_args(argv)
+
+
+def train_sample_config(cfg) -> SampleConfig:
+    """The train samples' layout and transforms of the config.  Local refs
+    (ATTENTION.ENABLE) are not ported: ``DiffusionDetArch.from_config``
+    refuses such a config."""
+    mega = cfg.MODEL.VID.MEGA
+    min_train = cfg.INPUT.MIN_SIZE_TRAIN
+    return SampleConfig(
+        num_global=mega.REF_NUM_GLOBAL, num_local=0,
+        local_min_offset=mega.MIN_OFFSET, local_max_offset=mega.MAX_OFFSET,
+        min_size=tuple(min_train) if isinstance(min_train, (tuple, list)) else min_train,
+        max_size=cfg.INPUT.MAX_SIZE_TRAIN, transform=bool(cfg.INPUT.TRANSFORM),
+        pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN))
+
+
+def build_model(cfg, args, logger):
+    """The model with random weights from ``args.seed``, then
+    ``--pretrained`` (or ``MODEL.WEIGHT``) over them, ``class_logits`` and
+    ``cls_score`` kept fresh.  Returns (model, tensors loaded)."""
+    model = DiffusionDetArch.from_config(cfg, device=args.device, seed=args.seed)
+    pretrained = args.pretrained or weight_path(cfg.MODEL.WEIGHT)
+    if not pretrained:
+        return model, 0
+    loaded = load_weights_into(model, pretrained, skip_keys=("class_logits", "cls_score"))
+    logger.info(f"pretrained load from {pretrained}: {loaded} tensors copied (class head fresh)")
+    return model, loaded
+
+
+def sample_batches(ds: ConcatDataset, batch_iter, cfg: SampleConfig, start_iter: int,
+                   reuse_steps: int):
+    """The batches loaded from ``start_iter`` on, one every ``reuse_steps``
+    iterations: the samples of ``batch_iter``'s next indices, drawn from a
+    RandomState seeded from the iteration that loads them."""
+    it = start_iter
+    while True:
+        rng = np.random.RandomState((1000003 * it + 12345) % (2 ** 31 - 1))
+        yield [ds.sample(i, rng, cfg) for i in next(batch_iter)]
+        it = (it // reuse_steps + 1) * reuse_steps
+
+
+def reuse_swap(samples, it: int, first_global: int) -> None:
+    """Batch reuse (the reference's engine/trainer.py:107-124): swap each
+    sample's current frame, in place, with a global ref drawn from a
+    RandomState seeded from the iteration, so the same loaded batch trains
+    another step."""
+    rng = np.random.RandomState((7654321 + it) % (2 ** 31 - 1))
+    for smp in samples:
+        j = rng.randint(first_global, smp["images"].shape[0])
+        for key in ("images", "gt_boxes", "gt_labels", "gt_valid"):
+            smp[key][[0, j]] = smp[key][[j, 0]]
+
+
+def iteration_samples(batches, start_iter: int, max_iter: int, reuse_steps: int,
+                      first_global: int):
+    """The samples of each iteration ``start_iter .. max_iter - 1``: a new
+    batch at iterations that are multiples of ``reuse_steps`` (and at the
+    first), otherwise the last one with its frames swapped."""
+    samples = None
+    for it in range(start_iter, max_iter):
+        if samples is None or it % reuse_steps == 0:
+            samples = next(batches)
+        else:
+            reuse_swap(samples, it, first_global)
+        yield samples
+
+
+def collate(samples, device) -> TrainBatch:
+    """Samples → a ``TrainBatch`` on ``device`` (labels as int64)."""
+    def stack(key, dtype=None):
+        t = torch.from_numpy(np.stack([s[key] for s in samples]))
+        return (t if dtype is None else t.to(dtype)).to(device)
+
+    return TrainBatch(images=stack("images"), gt_boxes=stack("gt_boxes"),
+                      gt_labels=stack("gt_labels", torch.int64), gt_valid=stack("gt_valid"),
+                      whwh=stack("whwh"))
+
+
+def main(argv=None) -> dict:
+    """Train; returns the first and last iterations, the tensors loaded
+    from pretrained weights, the last iteration's metrics and the last
+    checkpoint's path."""
+    args = parse_args(argv)
+    cfg = load_config(args.config_file, args.opts)
+    method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
+    if not (method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"):
+        raise NotImplementedError(
+            f"VID.METHOD {method} (META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}): only "
+            "DiffusionVID is ported; the MEGA family is ROADMAP.md A7")
+    device = resolve_device(args.device)
+    with log_to_file(setup_logger(), cfg.OUTPUT_DIR) as logger:
+        return _train(cfg, args, device, logger)
+
+
+def _train(cfg, args, device, logger) -> dict:
+    output_dir, sol = cfg.OUTPUT_DIR, cfg.SOLVER
+    logger.info(f"config:\n{cfg.dump()}")
+    with open(os.path.join(output_dir, "config.yml"), "w") as f:
+        f.write(cfg.dump())
+    logger.info(f"environment:\n{collect_env_info()}")
+
+    sample_cfg = train_sample_config(cfg)
+    datasets = [get_dataset(n, is_train=True, data_dir=args.data_dir) for n in cfg.DATASETS.TRAIN]
+    model, loaded = build_model(cfg, args, logger)
+    opt = optimizer_from_config(model, cfg)
+    start_iter = resume(model, opt, output_dir) if args.resume else 0
+    if start_iter:
+        logger.info(f"resumed from {last_checkpoint(output_dir)} @ iter {start_iter}")
+
+    # one sample per step; the reference's schedule is IMS_PER_BATCH
+    # (1 a GPU) x GPUs x ACCUMULATION_STEPS (data parallelism: ROADMAP.md A4)
+    eff = max(1, sol.ACCUMULATION_STEPS)
+    logger.info(f"effective batch per optimizer step: {eff} samples "
+                f"(SOLVER.IMS_PER_BATCH={sol.IMS_PER_BATCH})")
+    if sol.IMS_PER_BATCH > eff:
+        logger.warning(f"IMS_PER_BATCH={sol.IMS_PER_BATCH} exceeds the accumulation={eff}; "
+                       f"raise SOLVER.ACCUMULATION_STEPS to match the reference schedule")
+
+    # aspect-ratio-grouped batches: every batch has one padding bucket.
+    # Batches load at iterations that are multiples of BATCH_REUSE_STEPS;
+    # a resumed run skips the ones the earlier run used.
+    train_ds = ConcatDataset(datasets)
+    batch_iter = grouped_batches(aspect_ratio_group_ids(train_ds), 1, seed=0)
+    reuse_steps = max(1, int(sol.BATCH_REUSE_STEPS))
+    for _ in range((start_iter + reuse_steps - 1) // reuse_steps):
+        next(batch_iter)
+    batches = sample_batches(train_ds, batch_iter, sample_cfg, start_iter, reuse_steps)
+    if not args.no_prefetch:
+        batches = PrefetchIterator(batches, depth=2)
+
+    meters = MetricLogger()
+    writer = MetricsWriter(output_dir, resume_step=start_iter if args.resume else None)
+    prof = StepProfiler(args.profile_dir, start=start_iter + 10, stop=start_iter + 15)
+    state = {"t_last": time.perf_counter(), "val_failures": 0}
+
+    def device_batches():
+        samples = iteration_samples(batches, start_iter, sol.MAX_ITER, reuse_steps,
+                                    1 + sample_cfg.num_local)
+        for it, smp in enumerate(samples, start_iter):
+            prof.step(it)
+            yield collate(smp, device)
+
+    def validate(done: int):
+        """Periodic validation (engine/trainer.py:187-207).  A missing val
+        set is tolerated; any other failure aborts at the second in a row,
+        so a broken val path cannot hide behind warnings."""
+        try:
+            val_ds = get_dataset(cfg.DATASETS.TEST[0], is_train=False, data_dir=args.data_dir)
+            _, _, results = run_inference(model, val_ds, sample_config(cfg), **detector_args(cfg),
+                                          max_videos=VAL_MAX_VIDEOS, logger=logger)
+            if results:
+                writer.write(done, **{"Val/mAP": results["ap50"]})
+            state["val_failures"] = 0
+        except FileNotFoundError as e:
+            logger.warning(f"periodic validation skipped (no data): {e}")
+        except Exception as e:
+            state["val_failures"] += 1
+            if state["val_failures"] >= 2:
+                raise
+            logger.warning(f"periodic validation failed ({state['val_failures']}/2): {e}",
+                           exc_info=True)
+
+    def on_step(done: int, metrics: dict):
+        if done % LOG_PERIOD == 0:
+            vals = {k: float(v) for k, v in metrics.items()}
+            meters.update(**vals)
+            now = time.perf_counter()
+            dt, state["t_last"] = (now - state["t_last"]) / LOG_PERIOD, now
+            logger.info(f"iter {done}/{sol.MAX_ITER} {meters} ({dt:.3f}s/it)")
+            writer.write(done, sec_per_iter=dt, **{f"Train/{k}": v for k, v in vals.items()})
+        if sol.TEST_PERIOD and done % sol.TEST_PERIOD == 0 and cfg.DATASETS.TEST:
+            validate(done)
+
+    try:
+        metrics = train_loop(model, opt, device_batches(), num_global=sample_cfg.num_global,
+                             max_iter=sol.MAX_ITER, seed=args.seed, start_iter=start_iter,
+                             checkpoint_period=sol.CHECKPOINT_PERIOD, output_dir=output_dir,
+                             log_every=0, on_step=on_step)
+    finally:
+        prof.close()
+        writer.close()
+        if isinstance(batches, PrefetchIterator):
+            batches.close()
+    checkpoint = last_checkpoint(output_dir)
+    logger.info(f"trained iterations {start_iter}..{sol.MAX_ITER}; last checkpoint {checkpoint}")
+    return {"start_iter": start_iter, "max_iter": sol.MAX_ITER, "pretrained_tensors": loaded,
+            "metrics": {k: float(v) for k, v in metrics.items()}, "checkpoint": checkpoint}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,24 @@
-"""Weights carried from the JAX package's parameter tree to the port.
+"""Weights from other formats onto the port's parameter names.
 
-The JAX package stores every parameter in torch layout (conv weights
-[out, in, kh, kw], linear weights [out, in], fused MHA ``in_proj``), so the
-carry-over is renaming only: the inverse of the JAX package's
-``utils/torch_convert.py: convert_torch_state_dict``, onto the reference's
-detectron2/DiffusionDet names that the port's modules carry.
+The port's modules carry the reference's detectron2/DiffusionDet names
+(``backbone.bottom_up.stem.conv1.weight``, ``head.head_series.0...``).
+
+``state_dict_from_jax``: the JAX package stores every parameter in torch
+layout (conv weights [out, in, kh, kw], linear weights [out, in], fused MHA
+``in_proj``), so the carry-over is renaming only: the inverse of the JAX
+package's ``utils/torch_convert.py: convert_torch_state_dict``.
+
+``load_pretrained``: the reference's ``MODEL.WEIGHT`` formats
+(``diffusionvid_tpu/utils/torch_convert.py:224-354``, the reference's
+``c2_model_loading.py`` and ``model_serialization.py``): a full-model
+``.pth`` (the port's own checkpoints too), a detectron2 trunk ``.pkl``
+(``stem.*``, ``res2.*``), a Caffe2 ``.pkl`` (``res2_0_branch2a_w``) and a
+bare trunk in torchvision-style names (``conv1``, ``bn1``,
+``layerS.B.convK`` / ``bnK`` / ``downsample_conv`` / ``downsample_bn``).
+Unlike the JAX package it strips ``module.`` and ``model.`` before telling
+the formats apart, so a checkpoint saved from a wrapped model loads; a
+bare torchvision ``downsample.0`` / ``downsample.1`` name matches nothing
+on either side.
 
 The reference's Swin checkpoints also hold each block's
 ``attn.relative_position_index``, a buffer the JAX package recomputes
@@ -16,6 +30,7 @@ checkpoint and both load with ``strict=True``.
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Dict
 
@@ -134,3 +149,170 @@ def state_dict_from_jax(params, fpn_levels=(3, 4, 5)) -> Dict[str, torch.Tensor]
             state[name.replace("_bias_table", "_index")] = torch.from_numpy(
                 relative_position_index(window))
     return state
+
+
+# ------------------------------------------------------------------ MODEL.WEIGHT formats
+
+_C2_SUFFIX = {
+    "_w": ("conv", "weight"), "_b": ("conv", "bias"),
+    "_bn_s": ("bn", "weight"), "_bn_b": ("bn", "bias"),
+    "_bn_rm": ("bn", "running_mean"), "_bn_riv": ("bn", "running_var"),
+    "_bn_running_mean": ("bn", "running_mean"),
+    "_bn_running_var": ("bn", "running_var"),
+}
+
+
+def c2_to_torch_names(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Caffe2 blob names → torchvision-style names (``res2_0_branch2a_w`` →
+    ``layer1.0.conv1.weight``, the reference's ``c2_model_loading.py``).
+    Caffe2's FrozenBN stores scale and bias only, so identity running
+    statistics are added: the FrozenBN computes the same affine."""
+    branch_map = {"branch2a": "conv1", "branch2b": "conv2", "branch2c": "conv3",
+                  "branch1": "downsample"}
+    out: Dict[str, np.ndarray] = {}
+
+    def put_bn_stats(prefix: str, like: np.ndarray):
+        out.setdefault(prefix + ".running_mean", np.zeros_like(like))
+        out.setdefault(prefix + ".running_var", np.ones_like(like))
+
+    for name, v in state.items():
+        v = np.asarray(v)
+        suffix = next((x for x in sorted(_C2_SUFFIX, key=len, reverse=True)
+                       if name.endswith(x)), None)
+        if suffix is None:
+            out[name] = v
+            continue
+        stem_name = name[: -len(suffix)]
+        kind, leaf = _C2_SUFFIX[suffix]
+        m = re.match(r"res(\d)_(\d+)_(branch\d\w?)$", stem_name)
+        if m:
+            stage, block, mod = int(m.group(1)), m.group(2), branch_map[m.group(3)]
+            if mod == "downsample":
+                tgt = f"layer{stage - 1}.{block}." + (
+                    "downsample_conv" if kind == "conv" else "downsample_bn")
+            else:
+                tgt = f"layer{stage - 1}.{block}." + (
+                    mod if kind == "conv" else mod.replace("conv", "bn"))
+            out[f"{tgt}.{leaf}"] = v
+            if kind == "bn":
+                put_bn_stats(tgt, v)
+            continue
+        if stem_name == "conv1":
+            tgt = "conv1" if kind == "conv" else "bn1"
+            out[f"{tgt}.{leaf}"] = v
+            if kind == "bn":
+                put_bn_stats(tgt, v)
+            continue
+        out[name] = v
+    return out
+
+
+def looks_like_c2(names) -> bool:
+    return any(re.match(r"res\d_\d+_branch", n) or n in ("conv1_w", "conv1_bn_s")
+               for n in names)
+
+
+def d2_body_to_torchvision(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """detectron2 trunk names (``stem.conv1.*``, ``res2.0.conv1.norm.*``) →
+    torchvision-style names (the layout of ``torchvision-R-101.pkl``)."""
+    out = {}
+    for name, v in state.items():
+        n = re.sub(r"^stem\.conv1\.norm\.", "bn1.", name)
+        n = re.sub(r"^stem\.conv1\.", "conv1.", n)
+        m = re.match(r"^res(\d)\.(\d+)\.(.+)$", n)
+        if m:
+            rest = m.group(3)
+            rest = re.sub(r"^shortcut\.norm\.", "downsample_bn@.", rest)
+            rest = re.sub(r"^shortcut\.", "downsample_conv@.", rest)
+            rest = re.sub(r"^conv(\d)\.norm\.", r"bn\1.", rest)
+            n = f"layer{int(m.group(1)) - 1}.{m.group(2)}.{rest.replace('@.', '.')}"
+        out[n] = v
+    return out
+
+
+def _trunk_to_port(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A bare trunk in torchvision-style names → the port's names (the JAX
+    package's ``convert_backbone_only``, then its tree paths' names)."""
+    out = {}
+    for name, v in state.items():
+        m = re.match(r"(conv1|bn1)\.(weight|bias|running_mean|running_var)$", name)
+        if m:
+            out[_torch_name(("backbone", m.group(1), m.group(2)), ())] = v
+            continue
+        m = re.match(r"(layer\d\.\d+)\.(\w+)\.(weight|bias|running_mean|running_var)$", name)
+        if m:
+            out[_torch_name(("backbone",) + m.groups(), ())] = v
+    return out
+
+
+def _strip_wrapper_prefixes(state: dict) -> dict:
+    """Names without a leading ``module.`` (DistributedDataParallel) and
+    then ``model.``."""
+    out = {}
+    for name, v in state.items():
+        for pre in ("module.", "model."):
+            if name.startswith(pre):
+                name = name[len(pre):]
+        out[name] = v
+    return out
+
+
+def load_pretrained(path: str) -> Dict[str, torch.Tensor]:
+    """A weight file in any of the formats above → tensors under the port's
+    names.  ``.pkl`` files are read with ``pickle`` (latin1, as Caffe2's
+    Python 2 pickles need), others with ``torch.load``.  A full model keeps
+    its names, less each Swin block's ``attn.relative_position_index``,
+    which the model computes.  Caffe2 files keep their arrays under
+    ``blobs`` (the reference's ``_load_c2_pickled_weights``); the JAX
+    package reads only files without that level."""
+    if path.endswith(".pkl"):
+        import pickle
+        with open(path, "rb") as f:
+            raw = pickle.load(f, encoding="latin1")
+    else:
+        raw = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(raw, dict):   # a checkpoint's "model", Caffe2's "blobs", or the names
+        raw = raw.get("model", raw.get("blobs", raw))
+    state = _strip_wrapper_prefixes({k: t for k, t in raw.items()
+                                    if isinstance(t, (torch.Tensor, np.ndarray))})
+    if looks_like_c2(state):
+        state = c2_to_torch_names(state)
+    if any(n.startswith(("stem.", "res2.", "res3.")) for n in state):
+        state = d2_body_to_torchvision(state)
+    if any(n.startswith(("backbone.", "head.")) for n in state):
+        state = {k: v for k, v in state.items()
+                 if not k.endswith(".attn.relative_position_index")}
+    else:
+        state = _trunk_to_port(state)
+    return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+            for k, v in state.items()}
+
+
+def load_weights_into(model: torch.nn.Module, path: str, skip_keys=()) -> int:
+    """Merge ``load_pretrained(path)`` into ``model`` where names and shapes
+    match, keeping the model's tensors whose name has a part containing one
+    of ``skip_keys``; returns the tensors copied, and raises when none is."""
+    from .checkpoint import merge_pretrained
+
+    merged, copied = merge_pretrained(model.state_dict(), load_pretrained(path),
+                                      skip_keys=skip_keys)
+    if copied == 0:
+        raise ValueError(f"{path}: no tensor matches a parameter of the model "
+                         f"({type(model).__name__})")
+    model.load_state_dict(merged, strict=True)
+    return copied
+
+
+def weight_path(weight: str):
+    """``MODEL.WEIGHT`` as a local file: None when empty, the path when it
+    exists.  Catalog names and URLs are not fetched: they raise, as does a
+    path that does not exist."""
+    if not weight:
+        return None
+    if weight.startswith(("catalog://", "http://", "https://")):
+        raise FileNotFoundError(
+            f"MODEL.WEIGHT {weight!r} names a download, which the port does not "
+            f"fetch: download it and pass its path with --pretrained")
+    if not os.path.exists(weight):
+        raise FileNotFoundError(f"MODEL.WEIGHT {weight!r} does not exist")
+    return weight

@@ -45,7 +45,8 @@ def test_imports_with_jax_blocked():
     for new in ("config.node", "data.vid_dataset", "data.sampling", "data.prefetch",
                 "data.catalog", "data.transforms", "evaluation.vid_eval", "engine.seq_nms",
                 "engine.inference", "tools.test_net", "tools.test_prediction",
-                "utils.logging", "utils.metrics_io", "utils.profiling"):
+                "utils.logging", "utils.metrics_io", "utils.profiling", "data.samplers",
+                "tools.train_net", "utils.collect_env", "utils.convert"):
         assert "diffusionvid_torch." + new in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
@@ -71,7 +72,10 @@ def test_config_matches_jax_package(cfg_file):
     shared = {k: v for k, v in _leaves(cfg) if k in ref and k != "MODEL.DEVICE"}
     assert len(shared) > 50
     assert {"MODEL.RPN_ONLY", "TEST.EXPECTED_RESULTS", "TEST.EXPECTED_RESULTS_SIGMA_TOL",
-            "TEST.SEQ_NMS", "DATASETS.TEST", "MODEL.VID.MEGA.GLOBAL.SHUFFLE"} <= set(shared)
+            "TEST.SEQ_NMS", "DATASETS.TEST", "MODEL.VID.MEGA.GLOBAL.SHUFFLE", "INPUT.TRANSFORM",
+            "SOLVER.TEST_PERIOD", "SOLVER.IMS_PER_BATCH", "SOLVER.BATCH_REUSE_STEPS",
+            "DATALOADER.ASPECT_RATIO_GROUPING", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TRAIN",
+            "DATASETS.TRAIN", "SOLVER.CHECKPOINT_PERIOD", "SOLVER.MAX_ITER"} <= set(shared)
     for k, v in shared.items():
         assert v == ref[k], k
 
