@@ -111,7 +111,12 @@ Phases, one JSON line each:
               of random weights; ``predictions.pkl`` re-evaluated), 2 shards
               merged against it, x4 on one video (123 launches, 1,200 rows
               a frame), and the test CLI with a tiny model on the card
-              against the CPU (``phase_flagship_eval``).
+              against the CPU (``phase_flagship_eval``).  seq-NMS and the
+              matching run in the host library ``csrc/vidkit.cpp``; on the
+              run's own seq-NMS inputs and predictions both are run again
+              through the library and through the Python paths, which must
+              give equal keep masks, rescored scores, match flags and
+              ignored shares, each path timed (``vidkit_check``).
   11. flagship_train_cli training from files on disk through the port's
               train CLI (``tools/train_net.main``, after phase 8's Swin-B
               step): the R-101 config at full width with the SSD
@@ -128,12 +133,33 @@ Phases, one JSON line each:
               the buckets, the checkpoints, ``metrics.jsonl`` purged at the
               resume, and the resumed run against the uninterrupted one
               (``phase_flagship_train_cli``).
+  12. flagship_local_attn the local temporal attention (ATTENTION.ENABLE,
+              STAGE 2) on the R-101 config at full width: streaming, 24
+              global frames then 2 chunks of 8 (17 launches of K1 and of
+              K2); the train step on samples of 1 + 2 local + 4 global
+              frames, one warm-up and 2 timed optimizer steps (16 launches
+              each of K1, K2 and K3); then the tiny model with
+              GLOBAL.ENABLE off, card against CPU as in phase 4
+              (``phase_flagship_local_attn``).
+  13. flagship_train_ddp the R-101 train step data parallel: 2 ``gloo``
+              ranks on the one card, spawned and joined here, 2 optimizer
+              steps of a 2-sample batch, one sample a rank, each step's
+              losses (1e-4) and averaged gradient (1e-3 of its norm)
+              against one process on both samples from the same
+              parameters; then ``run_inference`` with the ranks as shards,
+              gathered, against phase 10's predictions; then a 1-rank
+              ``nccl`` group against one process.  Prints ms per optimizer
+              step of each and a rank's time to its start and its first
+              step (``phase_flagship_train_ddp``).
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
 K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
 ``eval_launches`` in phase 10's x1 run; K1's, K2's and K3's with
-``train_cli_launches`` in phase 11's first run; K7's with its card time, host
+``train_cli_launches`` in phase 11's first run; K1's and K2's with
+``local_attn_launches`` and K1's, K2's and K3's with
+``local_attn_train_launches`` (phase 12) and ``ddp_rank_launches`` (a
+rank's first optimizer step, phase 13); K7's with its card time, host
 time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
@@ -145,6 +171,8 @@ import argparse
 import contextlib
 import functools
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -179,8 +207,13 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """A phase's line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T_START, **kw}),
+          flush=True)
 
 
 def require(cond: bool, what: str):
@@ -1321,11 +1354,12 @@ def _run_stream(det, noise, gframes, chunks, whwh):
     return state, outs
 
 
-def _tiny_model(kind: str, gen, props: int):
-    """A small fp32 model: depth-18 ResNet or Swin-T, 5 classes."""
+def _tiny_model(kind: str, gen, props: int, **arch):
+    """A small fp32 model: depth-18 ResNet or Swin-T, 5 classes; ``arch``
+    over the other settings (the local attention's stages, GLOBAL.ENABLE)."""
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
     kw = dict(num_classes=5, num_proposals=props, num_heads=1, num_heads_local=1,
-              compute_dtype=torch.float32)
+              compute_dtype=torch.float32, **arch)
     if kind == "swin":
         kw.update(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
     model = DiffusionDetArch(depth=18, **kw)
@@ -1404,13 +1438,15 @@ def _renewal_check(c_best, p_best, steps: int, thresh: float, what: str) -> dict
             "renewing_steps": len(p_best) // steps * (steps - 1)}
 
 
-def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int = 1):
+def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int = 1,
+               **arch):
     """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, its trunk in
     mode ``swin_kernel``, 16 proposals, 64x96 frames, float32, TF32 off: the
     card (kernels) against the CPU (plain versions), same weights and
     noise.  With ``sample_step`` > 1 the xN ensemble at a renewal
     threshold picked on the CPU run (``pick_renewal_thresh``): the
-    renewal masks too."""
+    renewal masks too.  ``arch`` goes to the model (``local_stages``,
+    ``global_enable``)."""
     import copy
 
     from diffusionvid_torch.engine.streaming import StreamingDetector
@@ -1419,7 +1455,7 @@ def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int =
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(seed)
     h, w, props = 64, 96, 16
-    cpu = _tiny_model(kind, gen, props)
+    cpu = _tiny_model(kind, gen, props, **arch)
     if kind == "swin":
         cpu.backbone.bottom_up.kernel_mode = swin_kernel
     card = copy.deepcopy(cpu).cuda()
@@ -1451,7 +1487,8 @@ def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int =
     p_state, p_out, p_best = stream(cpu, thresh)
     require(c_state.mem.count == p_state.mem.count
             and c_state.mem_dis.count == p_state.mem_dis.count, "memory counts differ")
-    res = {"backbone": kind, "sample_step": sample_step, "rtol": 1e-3, "launches": used}
+    res = {"backbone": kind, "sample_step": sample_step, "rtol": 1e-3, "launches": used,
+           **arch}
     if kind == "swin":
         res["swin_kernel"] = swin_kernel
     if sample_step > 1:
@@ -1477,13 +1514,14 @@ def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int =
 @contextlib.contextmanager
 def capture_k1(keep: list):
     """Append the inputs of every K1 launch (``roi_align._launch_fwd``) to
-    ``keep``: copies of the maps, one for the launches that share them, and
-    of the ROIs."""
+    ``keep``: copies of the maps, one for the launches that share them (a
+    slice of the first frames starts where its maps do: the key holds the
+    shape), and of the ROIs."""
     from diffusionvid_torch.ops import roi_align as ra
     inner, maps = ra._launch_fwd, {}
 
     def launch(features, rois, spatial_scales):
-        key = tuple(f.data_ptr() for f in features)
+        key = tuple((f.data_ptr(), tuple(f.shape)) for f in features)
         if key not in maps:
             maps[key] = [f.clone() for f in features]
         keep.append(dict(features=maps[key], rois=rois.clone(), scales=tuple(spatial_scales)))
@@ -1496,21 +1534,62 @@ def capture_k1(keep: list):
         ra._launch_fwd = inner
 
 
+@contextlib.contextmanager
+def capture_k2(keep: list):
+    """Append copies of the inputs of every K2 launch
+    (``dynamic_conv._launch``) to ``keep``."""
+    from diffusionvid_torch.ops import dynamic_conv as dc
+    inner = dc._launch
+
+    def launch(*args):
+        keep.append(dict(args=[t.detach().clone() for t in args[:7]], eps=args[7]))
+        return inner(*args)
+
+    dc._launch = launch
+    try:
+        yield
+    finally:
+        dc._launch = inner
+
+
+@contextlib.contextmanager
+def capture_k3(keep: list):
+    """Append copies of the inputs of every K3 launch
+    (``roi_align._launch_bwd``) to ``keep``."""
+    from diffusionvid_torch.ops import roi_align as ra
+    inner = ra._launch_bwd
+
+    def launch(g, rois, level, shapes, scales, scratch=None):
+        keep.append(dict(g=g.clone(), rois=rois.clone(), shapes=[tuple(s) for s in shapes],
+                         scales=tuple(scales)))
+        return inner(g, rois, level, shapes, scales, scratch)
+
+    ra._launch_bwd = launch
+    try:
+        yield
+    finally:
+        ra._launch_bwd = inner
+
+
+CAPTURES = {"k1": capture_k1, "k2": capture_k2, "k3": capture_k3}
+
+
 def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
                    swin_kernel: str = "v3", keep_k1: list | None = None,
-                   sample_step: int | None = None) -> dict:
+                   sample_step: int | None = None, opts=()) -> dict:
     """A flagship config at full width, bf16: 24 global frames, then
     ``n_chunks`` chunks of INFER_BATCH frames at 608x1024; a Swin trunk in
     mode ``swin_kernel``; ``sample_step`` set on the config over its
     SAMPLE_STEP (4: the x4 DDIM ensemble).  A first pass warms up; the
     launch counts and times are of the second.  With ``keep_k1``, the K1
     inputs of the first pass's last chunk (the second's are the same) are
-    appended to it.  Returns the phase's line."""
+    appended to it.  ``opts``: config overrides, ``KEY VALUE`` pairs.
+    Returns the phase's line."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.streaming import StreamingDetector
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
-    cfg = load_config(str(ROOT / "configs" / config))
+    cfg = load_config(str(ROOT / "configs" / config), list(opts))
     if sample_step is not None:
         cfg.MODEL.DiffusionDet.SAMPLE_STEP = sample_step
     steps = cfg.MODEL.DiffusionDet.SAMPLE_STEP
@@ -1580,7 +1659,8 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
                 and int(dets.labels.max()) <= cfg.MODEL.DiffusionDet.NUM_CLASSES,
                 f"{phase}: labels out of range")
         require(int(dets.valid.sum()) > 0, f"{phase}: NMS kept nothing")
-    res = {"config": f"configs/{config}", "dtype": "bfloat16", "sample_step": steps,
+    res = {"config": f"configs/{config}", "opts": list(opts), "dtype": "bfloat16",
+           "sample_step": steps, "local_stages": model.local_stages,
            "swin_kernel": swin_kernel if model.backbone_type == "swin" else None,
            "frames": [n_global, n_chunks * f], "hw": [h, w],
            "launches": launches, "expected_launches": want,
@@ -1910,6 +1990,52 @@ def predictions_agree(got, want, rtol: float, what: str) -> dict:
     return {f"max_rel_err_{k}": v for k, v in errs.items()}
 
 
+def vidkit_check(raw_videos, preds, gts) -> dict:
+    """The host library ``csrc/vidkit.cpp`` against the Python paths on
+    ``flagship_eval``'s own data: seq-NMS of every captured video (its
+    input, the predictions before seq-NMS) through both chain searches,
+    with equal outputs (the boxes, scores and labels kept: equal keep masks
+    and rescored scores) equal to the run's own, and the evaluator's
+    matching over the run's predictions through both, with equal match
+    flags and ignored shares.  Times both paths."""
+    from diffusionvid_torch.engine.seq_nms import seq_nms_video
+    from diffusionvid_torch.evaluation.vid_eval import match_predictions
+    from diffusionvid_torch.native import library_path
+
+    ms = {"native": [], "python": []}
+    native_out = []
+    for v, video in enumerate(raw_videos):
+        runs = {}
+        for path in ms:
+            t0 = time.perf_counter()
+            runs[path] = seq_nms_video(video, native=path == "native")
+            ms[path].append((time.perf_counter() - t0) * 1e3)
+        for f, (a, b) in enumerate(zip(runs["native"], runs["python"])):
+            require(all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                        for k in ("boxes", "scores", "labels")),
+                    f"flagship_eval: seq-NMS through vidkit and Python differ, video {v} "
+                    f"frame {f}")
+        native_out += runs["native"]
+    require(len(native_out) == len(preds) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(native_out, preds)
+        for k in ("boxes", "scores", "labels")),
+        "flagship_eval: seq-NMS again differs from the run's")
+    match_ms, matched = {}, {}
+    for path in ms:
+        t0 = time.perf_counter()
+        matched[path] = match_predictions(gts, preds, native=path == "native")
+        match_ms[path] = (time.perf_counter() - t0) * 1e3
+    for a, b, what in zip(matched["native"], matched["python"],
+                          ("positives", "scores", "match", "pred_ignore")):
+        require(dict(a) == dict(b), f"flagship_eval: the matching's {what} differ between "
+                                    "vidkit and Python")
+    _, _, match, _ = matched["native"]
+    return {"library": str(library_path().relative_to(ROOT)),
+            "seq_nms_ms_per_video": ms, "match_ms": match_ms,
+            "predictions_matched": sum(map(sum, match.values())),
+            "predictions": sum(map(len, match.values())), "equal": True}
+
+
 def phase_flagship_eval(seed: int) -> dict:
     """Dataset evaluation through the port's own path: ``run_inference``,
     seq-NMS, ``evaluate_vid``, ``predictions.pkl``, the shard merge and the
@@ -1996,6 +2122,9 @@ def phase_flagship_eval(seed: int) -> dict:
             f"flagship_eval: predictions.pkl re-evaluates to {again['ap50']}, "
             f"not {results['ap50']}")
     shards = predictions_agree(merged, raw, 1e-4, "flagship_eval: 2 shards merged against x1")
+    vidkit = vidkit_check(probes["raw_videos"], preds, gts)
+    with open(work / "raw_predictions.pkl", "wb") as f:   # phase 12 holds its gather to it
+        pickle.dump(raw, f)
     res = {"config": "configs/vid_R_101_DiffusionVID.yaml",
            "dtype": str(model.compute_dtype).split(".")[1], "videos": EVAL_VIDEOS, "frames": frames, "hw": list(EVAL_HW),
            "global_frames_per_video": scfg.global_size, "infer_batch": scfg.infer_batch,
@@ -2010,7 +2139,8 @@ def phase_flagship_eval(seed: int) -> dict:
            "detections_per_frame": sum(len(p["scores"]) for p in raw) / frames,
            "after_seq_nms_per_frame": sum(len(p["scores"]) for p in preds) / frames,
            "ap50_random_weights": results["ap50"], "reevaluated_ap50": again["ap50"],
-           "shards": {"num_shards": 2, "frames": len(merged), **shards, "rtol": 1e-4}}
+           "shards": {"num_shards": 2, "frames": len(merged), **shards, "rtol": 1e-4},
+           "vidkit": vidkit}
 
     # (c) x4 on one video
     cfg4 = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
@@ -2047,7 +2177,6 @@ def phase_flagship_eval(seed: int) -> dict:
 def tiny_cli_card_vs_cpu(seed: int, work: Path) -> dict:
     """(d) of ``phase_flagship_eval``: ``tools/test_net.main`` with phase
     4's depth-18 model (``--checkpoint``), on the card and on the CPU."""
-    import pickle
     import shutil
 
     from diffusionvid_torch.data.vid_dataset import VIDDataset
@@ -2262,26 +2391,29 @@ def criterion_ms(micro) -> float:
 
 
 def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
-                         keep_k3: list | None = None) -> dict:
-    """A flagship's train step at full width, bf16: ``config`` with random
-    weights, 1 + REF_NUM_GLOBAL frames at 608x1024 with 1 to 8 random GT
-    boxes each, ACCUMULATION_STEPS micro-steps per optimizer step.  Two
-    warm-up optimizer steps, then ``timed_steps`` timed ones, whose launch
-    counts are read.  With ``keep_k3``, the K3 inputs of the last
-    micro-step (the criterion's timing run) are appended to it."""
+                         keep: dict | None = None, opts=(), warmup_steps: int = 2) -> dict:
+    """A flagship's train step at full width, bf16: ``config`` (with the
+    ``KEY VALUE`` overrides ``opts``) with random weights, 1 + REF_NUM_LOCAL
+    (with the local attention) + REF_NUM_GLOBAL frames at 608x1024 with 1
+    to 8 random GT boxes each, ACCUMULATION_STEPS micro-steps per optimizer
+    step.  ``warmup_steps`` warm-up optimizer steps, then ``timed_steps``
+    timed ones, whose launch counts are read.  ``keep`` maps some of "k1",
+    "k2" and "k3" to lists: the inputs of those kernels' launches in the
+    last micro-step (the criterion's timing run) are appended to them."""
     from diffusionvid_torch.config import load_config
     from diffusionvid_torch.engine.train import (
         draw_train_randoms, iteration_generator, make_train_step, optimizer_from_config,
         param_group)
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 
-    cfg = load_config(str(ROOT / "configs" / config))
+    cfg = load_config(str(ROOT / "configs" / config), list(opts))
     t0 = time.perf_counter()
     model = DiffusionDetArch.from_config(cfg, seed=seed)
     opt = optimizer_from_config(model, cfg)
     build_s = time.perf_counter() - t0
     num_global = cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
-    frames, accum = 1 + num_global, cfg.SOLVER.ACCUMULATION_STEPS
+    num_local = cfg.MODEL.VID.MEGA.REF_NUM_LOCAL if model.local_stages else 0
+    frames, accum = 1 + num_local + num_global, cfg.SOLVER.ACCUMULATION_STEPS
     h, w, props = TRAIN["h"], TRAIN["w"], cfg.MODEL.DiffusionDet.NUM_PROPOSALS
     gen = torch.Generator().manual_seed(seed)
     batches = [train_batch(gen, 1, frames, cfg.TPU.MAX_GT_BOXES, h, w,
@@ -2297,7 +2429,7 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
         state["metrics"].append(step(batches[it % accum], draws))
         state["it"] = it + 1
 
-    for _ in range(2 * accum):                # warm-up: allocator, cuDNN plans
+    for _ in range(warmup_steps * accum):     # warm-up: allocator, cuDNN plans
         micro()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2322,11 +2454,13 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
         moved[param_group(n)] += int(not torch.equal(p.detach(), start[n]))
     require(moved["frozen"] == 0 and all(moved[g] > 0 for g in moved if g != "frozen"),
             f"{phase}: parameters moved per group {moved}")
-    require(opt.count == 2 + timed_steps, f"{phase}: {opt.count} optimizer steps")
-    res = {"config": f"configs/{config}", "dtype": "bfloat16",
+    require(opt.count == warmup_steps + timed_steps, f"{phase}: {opt.count} optimizer steps")
+    res = {"config": f"configs/{config}", "opts": list(opts), "dtype": "bfloat16",
+           "local_stages": model.local_stages, "warmup_optimizer_steps": warmup_steps,
            "frames": frames, "hw": [h, w], "accumulation_steps": accum,
            "timed_optimizer_steps": timed_steps, "launches": launches,
-           "expected_launches": want, "model_build_s": build_s,
+           "expected_launches": want, "decoder_stages": want["roi_align_fwd"] // micro_steps,
+           "model_build_s": build_s,
            "ms_per_optimizer_step": dt / timed_steps * 1e3,
            "ms_per_micro_step": dt / micro_steps * 1e3,
            "trained_frames_per_s": micro_steps * frames / dt,
@@ -2335,24 +2469,14 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
            "card": torch.cuda.get_device_name(0)}
     res.update({f"micro_step_{k}": v
                 for k, v in profile_device(micro, f"{phase}_micro_step").items()})
-    from diffusionvid_torch.ops import roi_align as ra
-    inner = ra._launch_bwd
-
-    def keep(g, rois, level, shapes, scales, scratch=None):
-        keep_k3.append(dict(g=g.clone(), rois=rois.clone(), shapes=[tuple(s) for s in shapes],
-                            scales=tuple(scales)))
-        return inner(g, rois, level, shapes, scales, scratch)
-
-    if keep_k3 is not None:
-        ra._launch_bwd = keep
-    try:
+    with contextlib.ExitStack() as stack:
+        for k, into in (keep or {}).items():
+            stack.enter_context(CAPTURES[k](into))
         res["criterion_ms_per_micro_step"] = criterion_ms(micro)
-    finally:
-        ra._launch_bwd = inner
     emit(phase, **res)
     del model, opt, step, state, start, batches
     torch.cuda.empty_cache()
-    return launches
+    return res
 
 
 # ---------------------------------------------------------------- the train CLI
@@ -2417,8 +2541,6 @@ def write_trunk_pkl(cfg, seed: int, path: Path) -> int:
     """A detectron2-style trunk ``.pkl`` (``stem.*``, ``res2.*`` names,
     numpy arrays, as ``torchvision-R-101.pkl`` ships) from the config's
     ResNet with random weights from ``seed``; returns its tensor count."""
-    import pickle
-
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
     state = DiffusionDetArch.from_config(cfg, device="cpu", seed=seed).state_dict()
     trunk = {k[len("backbone.bottom_up."):]: v.numpy() for k, v in state.items()
@@ -2686,6 +2808,347 @@ def phase_flagship_train_cli(seed: int) -> dict:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- the local attention
+
+LOCAL_ATTN_OPTS = ("MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE", "True",
+                   "MODEL.VID.ROI_BOX_HEAD.ATTENTION.STAGE", "2")
+
+
+def phase_flagship_local_attn(seed: int) -> dict:
+    """The local temporal attention (ATTENTION.ENABLE, STAGE 2) on the
+    R-101 flagship at full width and depth: streaming (``phase_flagship``:
+    24 global frames, then 2 chunks of 8, K1 and K2), then the train step
+    (``phase_flagship_train``: samples of 1 + 2 local + 4 global frames,
+    the conditioned stage and the losses on the first 3; one warm-up and 2
+    timed optimizer steps of ACCUMULATION_STEPS 2, K1, K2 and K3), with K1,
+    K2 and K3 held against their plain versions on one micro-step's inputs
+    (``train_kernels``: the shared stages' 7 frames, the conditioned
+    stage's 3), then the tiny model with GLOBAL.ENABLE off (the local chain conditions the
+    stage) on the card against the CPU (``phase_tiny``)."""
+    config = "vid_R_101_DiffusionVID.yaml"
+    stream = phase_flagship(seed, config, 2, "flagship_local_attn", opts=LOCAL_ATTN_OPTS)
+    keep = {"k1": [], "k2": [], "k3": []}
+    train = phase_flagship_train(seed, config, "flagship_local_attn_train", 2, keep=keep,
+                                 opts=LOCAL_ATTN_OPTS, warmup_steps=1)
+    train_kernels("flagship_local_attn_kernels", keep, train["decoder_stages"])
+    del keep
+    phase_tiny(seed, "resnet", local_stages=2, global_enable=False)
+    return {"stream": stream["launches"], "train": train["launches"]}
+
+
+def train_kernels(phase: str, keep: dict, stages: int) -> dict:
+    """K1, K2 and K3 on the inputs of one train micro-step's launches
+    (``keep``, one set a decoder stage, kept by ``phase_flagship_train``),
+    each against its plain version at the tolerances of ``k1_case``,
+    ``kernel_k2`` (bf16: 3e-2) and ``k3_case``, with two bit-equal
+    launches."""
+    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
+    for k, caps in keep.items():
+        require(len(caps) == stages, f"{phase}: {len(caps)} {k} launches kept, expected {stages}")
+    rows = []
+    for i, (c1, c2, c3) in enumerate(zip(keep["k1"], keep["k2"], keep["k3"])):
+        k1 = k1_case(c1["features"], c1["rois"], c1["scales"], what=f"{phase} K1 stage {i}")
+        args = c2["args"]
+        got = dynamic_conv_fused(*args, eps=c2["eps"])
+        k2 = compare(got, dynamic_conv_ref(*args, eps=c2["eps"]), 3e-2, 3e-2,
+                     f"{phase} K2 stage {i}")
+        require(torch.equal(dynamic_conv_fused(*args, eps=c2["eps"]), got),
+                f"{phase} K2 stage {i}: two launches differ")
+        k3, _ = k3_case(c3["g"].dtype, c3["g"], c3["rois"], c3["shapes"], c3["scales"],
+                        what=f"{phase} K3 stage {i}")
+        rows.append({"stage": i, "rois": list(c1["rois"].shape[:2]),
+                     "dtype": str(args[0].dtype).split(".")[1],
+                     "k1_max_abs_err": k1["max_abs_err"], "k1_max_rel_err": k1["max_rel_err"],
+                     "k1_rois_per_level": k1["rois_per_level"],
+                     "k2_proposals": args[0].shape[0], "k2_max_abs_err": k2["max_abs_err"],
+                     "k2_max_rel_err": k2["max_rel_err"], "k3_max_abs_err": k3["max_abs_err"],
+                     "k3_rois_per_level": k3["rois_per_level"]})
+    frames = sorted({r["rois"][0] for r in rows})
+    res = {"stages": rows, "frames": frames, "card": torch.cuda.get_device_name(0)}
+    emit(phase, **res)
+    # the shared stages see every frame, the conditioned stage the local ones
+    require(len(frames) == 2, f"{phase}: the stages' frames {frames}, expected two counts")
+    return res
+
+
+# ---------------------------------------------------------------- data parallelism
+
+DDP_WORLD, DDP_STEPS = 2, 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _captured_update(opt, into: list):
+    """Keep every gradient that reaches ``opt``'s update (before the clip)."""
+    inner = opt._update
+
+    def update(grads):
+        into.append([g.detach().clone() for g in grads])
+        inner(grads)
+
+    opt._update = update
+
+
+def _grad_err(got: list, want: list, names: list) -> tuple[float, str]:
+    """The largest |got - want| / |want| over the tensors, and its name."""
+    worst, name = 0.0, ""
+    for g, w, n in zip(got, want, names):
+        e = float(torch.linalg.vector_norm((g - w).float())
+                  / torch.linalg.vector_norm(w.float()).clamp(min=1e-12))
+        if e > worst:
+            worst, name = e, n
+    return worst, name
+
+
+def _loss_err(got: list, want: list) -> float:
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in zip(got, want) for k in w)
+
+
+def _ddp_setup(seed: int):
+    """The R-101 flagship config, its 2-sample micro-batches of 1 + 4
+    frames (ACCUMULATION_STEPS of them) on the card, and the draws of each
+    optimizer step's micro-steps for both samples, as ``train_loop`` draws
+    them."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine.train import draw_train_randoms, iteration_generator
+
+    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    frames = 1 + cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
+    accum = cfg.SOLVER.ACCUMULATION_STEPS
+    gen = torch.Generator().manual_seed(seed)
+    batches = [train_batch(gen, DDP_WORLD, frames, cfg.TPU.MAX_GT_BOXES, TRAIN["h"], TRAIN["w"],
+                           cfg.MODEL.DiffusionDet.NUM_CLASSES, "cuda") for _ in range(accum)]
+    draws = [[draw_train_randoms(iteration_generator(seed, k * accum + m), DDP_WORLD, frames,
+                                 cfg.MODEL.DiffusionDet.NUM_PROPOSALS, device="cuda")
+              for m in range(accum)] for k in range(DDP_STEPS)]
+    return cfg, batches, draws
+
+
+def _rows(x, r: int):
+    return type(x)(*(t[r:r + 1] for t in x))
+
+
+def _ddp_rank(rank: int, world: int, port: int, seed: int, out_path: str,
+              t_spawn: float) -> None:
+    """A rank of ``phase_flagship_train_ddp``, joined as ``torchrun`` joins
+    (the environment, then ``parallel.dist.initialize``), both ranks on
+    card 0 over ``gloo``.  (1) DDP_STEPS optimizer steps of the R-101 train
+    step, sample ``rank`` of each 2-sample micro-batch; after each, rank 0
+    runs the same optimizer step in one process on both samples from the
+    parameters the step started from (no collective), and holds the losses
+    and the gradient that reaches the update against the ranks'.  (2) ``run_inference`` over
+    ``flagship_eval``'s videos, the ranks as the shards, gathered.  Rank 0
+    writes the results to ``out_path``."""
+    t_enter = time.time()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from diffusionvid_torch.parallel import dist
+    require(dist.initialize(backend="gloo"), "flagship_train_ddp: no process group")
+    try:
+        out = _ddp_train(seed, rank, t_enter)
+        out["rank_start_s"] = t_enter - t_spawn
+        out["first_step_s"] = out.pop("first_step_at") - t_spawn
+        out.update(_ddp_inference(seed, rank))
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy()
+
+
+def _ddp_train(seed: int, rank: int, t_enter: float) -> dict:
+    from diffusionvid_torch.engine.train import (
+        make_train_step, optimizer_from_config, wrap_data_parallel)
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    from diffusionvid_torch.parallel import dist
+
+    cfg, batches, draws = _ddp_setup(seed)
+    num_global = cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
+    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    names = [n for n, _ in model.named_parameters()]
+    opt = optimizer_from_config(model, cfg)
+    grads = []
+    _captured_update(opt, grads)
+    ddp = wrap_data_parallel(model)
+    step = make_train_step(ddp, opt, num_global)
+    if rank == 0:
+        ref = DiffusionDetArch.from_config(cfg, seed=seed)
+        ref_opt = optimizer_from_config(ref, cfg)
+        ref_grads = []
+        _captured_update(ref_opt, ref_grads)
+        ref_step = make_train_step(ref, ref_opt, num_global)
+    out = {"steps": [], "first_step_at": None}
+    for k in range(DDP_STEPS):
+        row = {}
+        before = {n: t.clone() for n, t in model.state_dict().items()}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [{n: float(v) for n, v in
+                   dist.all_reduce_mean(step(_rows(b, rank), _rows(d, rank))).items()}
+                  for b, d in zip(batches, draws[k])]
+        torch.cuda.synchronize()
+        row["ddp_ms"] = (time.perf_counter() - t0) * 1e3
+        row["launches"] = read_launches()
+        if out["first_step_at"] is None:
+            out["first_step_at"] = time.time()
+        if rank == 0:    # one process, both samples, from the same parameters
+            ref.load_state_dict(before)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_losses = [{n: float(v) for n, v in ref_step(b, d).items()}
+                          for b, d in zip(batches, draws[k])]
+            torch.cuda.synchronize()
+            row["single_ms"] = (time.perf_counter() - t0) * 1e3
+            row["max_rel_err_loss"] = _loss_err(losses, ref_losses)
+            row["max_rel_err_grad"], row["worst_grad"] = _grad_err(grads[k], ref_grads[k], names)
+            row["total_loss"] = losses[-1]["total_loss"]
+        out["steps"].append(row)
+        del before
+    require(opt.count == DDP_STEPS, f"flagship_train_ddp: {opt.count} optimizer steps")
+    out["expected_launches"] = train_launches(model, cfg.SOLVER.ACCUMULATION_STEPS)
+    out["find_unused_parameters"] = ddp.find_unused_parameters
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ddp, model, opt, step, grads
+    if rank == 0:
+        del ref, ref_opt, ref_step, ref_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_inference(seed: int, rank: int) -> dict:
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine.inference import run_inference
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    from diffusionvid_torch.tools.test_net import detector_args, sample_config
+
+    cfg = load_config(str(ROOT / "configs" / "vid_R_101_DiffusionVID.yaml"))
+    model = DiffusionDetArch.from_config(cfg, seed=seed)
+    ds = open_eval_dataset(ROOT / "build" / "chip_smoke" / "eval" / "data")
+    t0 = time.perf_counter()
+    preds, _, results = run_inference(model, ds, sample_config(cfg), **detector_args(cfg),
+                                      seed=seed)
+    return {"inference": {"predictions": preds if rank == 0 else None,
+                          "run_inference_s": time.perf_counter() - t0,
+                          "ap50": None if results is None else results["ap50"]}}
+
+
+def _nccl_one_rank(seed: int) -> dict:
+    """The same DDP_STEPS optimizer steps in a 1-rank ``nccl`` group (the
+    backend users run) on both samples and in one process without a group,
+    from the same parameters: the first step's losses and gradient
+    compared, every step timed."""
+    from diffusionvid_torch.engine.train import (
+        make_train_step, optimizer_from_config, wrap_data_parallel)
+    from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
+    from diffusionvid_torch.parallel import dist
+
+    cfg, batches, draws = _ddp_setup(seed)
+    num_global = cfg.MODEL.VID.MEGA.REF_NUM_GLOBAL
+    res, losses, grads = {}, {}, {}
+    for kind in ("single", "nccl"):
+        model = DiffusionDetArch.from_config(cfg, seed=seed)
+        opt = optimizer_from_config(model, cfg)
+        grads[kind] = []
+        _captured_update(opt, grads[kind])
+        if kind == "nccl":
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                              MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+            t0 = time.perf_counter()
+            require(dist.initialize(), "flagship_train_ddp: no nccl group")
+            res["nccl_init_s"] = time.perf_counter() - t0
+            res["backend"] = torch.distributed.get_backend()
+        try:
+            step = make_train_step(wrap_data_parallel(model), opt, num_global)
+            res[f"{kind}_ms"] = []
+            for k in range(DDP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done = [{n: float(v) for n, v in step(b, d).items()}
+                        for b, d in zip(batches, draws[k])]
+                torch.cuda.synchronize()
+                res[f"{kind}_ms"].append((time.perf_counter() - t0) * 1e3)
+                losses.setdefault(kind, done)
+        finally:
+            if kind == "nccl":
+                dist.destroy()
+                for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+                    os.environ.pop(var, None)
+        names = [n for n, _ in model.named_parameters()]
+        del model, opt, step
+        torch.cuda.empty_cache()
+    res["max_rel_err_loss"] = _loss_err(losses["nccl"], losses["single"])
+    res["max_rel_err_grad"], res["worst_grad"] = _grad_err(grads["nccl"][0], grads["single"][0],
+                                                           names)
+    return res
+
+
+def phase_flagship_train_ddp(seed: int) -> dict:
+    """Data parallelism over ``torch.distributed`` on the card: the R-101
+    flagship train step at full width, bf16, 1 + 4 frames a sample,
+    ACCUMULATION_STEPS 2.  (a) 2 ``gloo`` ranks on the one card (``nccl``
+    takes one rank a device), spawned here: DDP_STEPS optimizer steps, one
+    sample of each 2-sample micro-batch a rank, the losses to 1e-4 and
+    every gradient that reaches the update to 1e-3 relative in norm
+    against one process on both samples (``phase_tiny_train``'s
+    tolerances), cuDNN deterministic; then ``run_inference`` over
+    ``flagship_eval``'s 2 videos with the ranks as the shards, gathered,
+    against that phase's predictions before seq-NMS (1e-4 relative, as its
+    shards).  (b) one optimizer step in a 1-rank ``nccl`` group against one
+    process.  Prints each side's ms per optimizer step and a rank's time
+    from the spawn to its start and to its first step."""
+    import torch.multiprocessing as mp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out_path = ROOT / "build" / "chip_smoke" / "ddp_rank0.pkl"
+        out_path.unlink(missing_ok=True)
+        t_spawn = time.time()
+        mp.start_processes(_ddp_rank, args=(DDP_WORLD, _free_port(), seed, str(out_path),
+                                            t_spawn),
+                           nprocs=DDP_WORLD, join=True, start_method="spawn")
+        ranks_s = time.time() - t_spawn
+        with open(out_path, "rb") as f:
+            out = pickle.load(f)
+        nccl = _nccl_one_rank(seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with open(ROOT / "build" / "chip_smoke" / "eval" / "raw_predictions.pkl", "rb") as f:
+        raw = pickle.load(f)
+    gathered = predictions_agree(out["inference"].pop("predictions"), raw, 1e-4,
+                                 "flagship_train_ddp: gathered run_inference against one process")
+    want = out["expected_launches"]
+    res = {"config": "configs/vid_R_101_DiffusionVID.yaml", "dtype": "bfloat16",
+           "ranks": DDP_WORLD, "backend": "gloo", "card": torch.cuda.get_device_name(0),
+           "expected_launches_per_step": want,
+           "loss_rtol": 1e-4, "grad_rtol": 1e-3, "steps": out["steps"],
+           "find_unused_parameters": out["find_unused_parameters"],
+           "rank_start_s": out["rank_start_s"], "first_step_s": out["first_step_s"],
+           "ranks_wall_s": ranks_s, "rank0_peak_mem_gib": out["peak_mem_gib"],
+           "inference": {**out["inference"], **gathered, "rtol": 1e-4},
+           "nccl_one_rank": nccl, "nvidia_smi": nvidia_smi_line()}
+    emit("flagship_train_ddp", **res)
+    for k, row in enumerate(out["steps"]):
+        require(row["max_rel_err_loss"] < 1e-4 and row["max_rel_err_grad"] < 1e-3,
+                f"flagship_train_ddp: step {k}: 2 ranks against one process: loss "
+                f"{row['max_rel_err_loss']}, grad {row['max_rel_err_grad']} ({row['worst_grad']})")
+        require(row["launches"] == {n: want.get(n, 0) for n in row["launches"]},
+                f"flagship_train_ddp: step {k} launched {row['launches']}, expected {want}")
+    require(nccl["backend"] == "nccl" and nccl["max_rel_err_loss"] < 1e-4
+            and nccl["max_rel_err_grad"] < 1e-3,
+            f"flagship_train_ddp: 1-rank nccl against one process: {nccl}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2743,12 +3206,15 @@ def main(argv=None) -> int:
     k3_inputs = []
     launches["roi_align_bwd"] = phase_flagship_train(
         args.seed, "vid_R_101_DiffusionVID.yaml", "flagship_train", 5,
-        keep_k3=k3_inputs)["roi_align_bwd"]
+        keep={"k3": k3_inputs})["launches"]["roi_align_bwd"]
     k3_train = phase_k3_train(k3_inputs)
     del k3_inputs
     launches["window_attn_qkv"] = phase_flagship_train(
-        args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin", 3)["window_attn_qkv"]
+        args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin",
+        3)["launches"]["window_attn_qkv"]
     train_cli = phase_flagship_train_cli(args.seed)
+    local_attn = phase_flagship_local_attn(args.seed)
+    ddp = phase_flagship_train_ddp(args.seed)
 
     line = []
     for name, spec in KERNELS.items():
@@ -2776,6 +3242,11 @@ def main(argv=None) -> int:
             line[-1]["eval_launches"] = eval_counts[name]
         if name in TRAIN_KERNELS:   # the train CLI's uninterrupted run
             line[-1]["train_cli_launches"] = train_cli[name]
+        if name in ("roi_align_fwd", "dynamic_conv"):   # R-101 with the local attention
+            line[-1]["local_attn_launches"] = local_attn["stream"][name]
+        if name in TRAIN_KERNELS:   # its train step; a DDP rank's first optimizer step
+            line[-1]["local_attn_train_launches"] = local_attn["train"][name]
+            line[-1]["ddp_rank_launches"] = ddp["steps"][0]["launches"][name]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

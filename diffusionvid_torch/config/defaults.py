@@ -96,6 +96,7 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.MEGA.GLOBAL.SHUFFLE = True
     _C.MODEL.VID.MEGA.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST = True
     _C.MODEL.VID.MEGA.REF_NUM_GLOBAL = 4
+    _C.MODEL.VID.MEGA.REF_NUM_LOCAL = 2
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_METRIC = "distance"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_TYPE = "greedy"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST = 750
@@ -154,6 +155,7 @@ def get_default_cfg() -> CfgNode:
     _C.TPU = CfgNode()
     _C.TPU.COMPUTE_DTYPE = "bfloat16"
     _C.TPU.MAX_GT_BOXES = 64     # GT slots per frame of a train batch
+    _C.TPU.MESH_DP = 1           # data-parallel size: the torchrun ranks, if set
 
     _C.OUTPUT_DIR = "."
     return _C

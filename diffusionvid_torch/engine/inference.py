@@ -11,10 +11,15 @@ without a model (``inference_no_model``, inference.py:184-209).
 Each video's noise comes from a generator on the model's device seeded
 from ``seed`` and the video's index, so a video's detections do not depend
 on the sharding; the draws go through ``StreamingDetector.noise``.
+
+Under an initialized process group (``torchrun``) rank r runs the shard r of
+W and the ranks' predictions are gathered (``parallel/dist.py``); rank 0
+saves ``predictions.pkl`` and evaluates.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -26,6 +31,7 @@ from ..data.prefetch import PrefetchIterator
 from ..data.sampling import SampleConfig, iter_test_videos
 from ..data.vid_dataset import VIDDataset
 from ..evaluation.vid_eval import evaluate_vid
+from ..parallel import dist
 from ..structures.boxes import BoxArray
 from .seq_nms import seq_nms_video
 from .streaming import StreamingDetector
@@ -81,56 +87,73 @@ def run_inference(model, dataset: VIDDataset, sample_cfg: SampleConfig,
                   stop_update_after_init: bool = True):
     """Run the streaming detector over a test dataset.
 
-    Returns (predictions, gt_list, results_dict_or_None).
+    Returns (predictions, gt_list, results_dict_or_None).  Under a process
+    group (and ``num_shards`` 1) the ranks are the shards; every rank
+    returns the merged predictions and GT, rank 0 alone the results.
     """
+    gathered = dist.is_initialized() and num_shards == 1
+    if gathered:
+        shard, num_shards = dist.rank(), dist.world_size()
     det = StreamingDetector(model, infer_batch=sample_cfg.infer_batch,
                             sample_step=sample_step, mem_size=mem_size,
                             num_proposals=num_proposals,
                             stop_update_after_init=stop_update_after_init)
-    if motion_ious is not None and (num_shards > 1 or max_videos is not None):
+    if motion_ious is not None and ((num_shards > 1 and not gathered)
+                                    or max_videos is not None):
         motion_ious = None   # .mat rows align to the FULL dataset only;
         # sharded runs get motion buckets from the merged eval in test_net
     predictions = []
     tagged = []          # [(video_index, [frame dicts…]), …] for the shard merge
+    tagged_gt = []
     gt_list = []
     n_frames = 0
     t0 = time.perf_counter()
 
-    # prefetch: the next video's init frames decode while this one streams,
-    # and each video's chunks decode ahead of the card
-    videos = PrefetchIterator(iter_test_videos(dataset, sample_cfg, seed=seed, shard=shard,
-                                               num_shards=num_shards), depth=1)
-    for n_vid, video in enumerate(videos):
-        if max_videos is not None and n_vid >= max_videos:
-            videos.close()   # release the producer thread and its buffers
-            break
-        whwh = video.whwh
-        scale = float(whwh[0]) / float(video.frame_annos[0].width)
+    # a rank that fails here fails every rank before the gather below
+    with dist.all_or_none() if gathered else contextlib.nullcontext():
+        # prefetch: the next video's init frames decode while this one streams,
+        # and each video's chunks decode ahead of the card
+        videos = PrefetchIterator(iter_test_videos(dataset, sample_cfg, seed=seed, shard=shard,
+                                                   num_shards=num_shards), depth=1)
+        for n_vid, video in enumerate(videos):
+            if max_videos is not None and n_vid >= max_videos:
+                videos.close()   # release the producer thread and its buffers
+                break
+            whwh = video.whwh
+            scale = float(whwh[0]) / float(video.frame_annos[0].width)
 
-        state = det.start_video(video_seed(seed, video.video_index), video.global_frames, whwh)
-        video_preds = []
-        # one-chunk-deep pipeline: chunk N+1 is enqueued on the card before
-        # chunk N's detections are copied to the host and converted
-        pending = None
-        for frames, _, n_valid in PrefetchIterator(video.chunk_iter, depth=2):
-            state, dets = det.process_chunk(state, frames, whwh, n_valid)
+            state = det.start_video(video_seed(seed, video.video_index), video.global_frames, whwh)
+            video_preds = []
+            # one-chunk-deep pipeline: chunk N+1 is enqueued on the card before
+            # chunk N's detections are copied to the host and converted
+            pending = None
+            for frames, _, n_valid in PrefetchIterator(video.chunk_iter, depth=2):
+                state, dets = det.process_chunk(state, frames, whwh, n_valid)
+                if pending is not None:
+                    video_preds.extend(_chunk_to_numpy(*pending, scale))
+                pending = (dets, n_valid)
+                n_frames += n_valid
             if pending is not None:
                 video_preds.extend(_chunk_to_numpy(*pending, scale))
-            pending = (dets, n_valid)
-            n_frames += n_valid
-        if pending is not None:
-            video_preds.extend(_chunk_to_numpy(*pending, scale))
 
-        if use_seq_nms:
-            video_preds = seq_nms_video(video_preds)
+            if use_seq_nms:
+                video_preds = seq_nms_video(video_preds)
 
-        predictions.extend(video_preds)
-        tagged.append((video.video_index, video_preds))
-        for anno in video.frame_annos:
-            gt_list.append({"boxes": anno.boxes, "labels": anno.labels})
-        if logger:
-            fps = n_frames / max(time.perf_counter() - t0, 1e-9)
-            logger.info(f"video {n_vid}: {video.seg_len} frames ({fps:.1f} fps cumulative)")
+            predictions.extend(video_preds)
+            tagged.append((video.video_index, video_preds))
+            video_gt = [{"boxes": a.boxes, "labels": a.labels} for a in video.frame_annos]
+            tagged_gt.append((video.video_index, video_gt))
+            gt_list.extend(video_gt)
+            if logger:
+                fps = n_frames / max(time.perf_counter() - t0, 1e-9)
+                logger.info(f"video {n_vid}: {video.seg_len} frames ({fps:.1f} fps cumulative)")
+
+    if gathered:
+        predictions = dist.gather_predictions(tagged)
+        gt_list = dist.gather_predictions(tagged_gt)
+        if dist.rank() != 0:
+            return predictions, gt_list, None
+        shard, num_shards = 0, 1
 
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)

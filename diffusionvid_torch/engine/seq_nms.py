@@ -8,9 +8,11 @@ IoU >= 0.5 across consecutive frames, rescore the chain to its mean score,
 and suppress boxes overlapping the chain (IoU >= 0.3) in the chain's
 frames, until the best chain score falls under a threshold.
 
-The chain search is the Python dynamic program; the JAX package's optional
-C++ chain search (``native/libvidkit.so``) gives the same chains and is
-not ported (ROADMAP.md A12).  It runs once per video on the host.
+The chain search runs in the host library ``csrc/vidkit.cpp``
+(``native.max_chain_native``) over the flat boxes of the class, with the
+dead boxes rebuilt each round.  ``native=False`` runs the Python dynamic
+program over explicit links instead, the library's oracle in the tests.
+It runs once per video on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+
+from ..native import max_chain_native
 
 LINK_IOU = 0.5      # chain linking threshold (seq_nms.py:34)
 SUPPRESS_IOU = 0.3  # in-frame suppression around the chain (seq_nms.py:33)
@@ -97,11 +101,12 @@ def _max_path(links, scores, dead):
 
 
 def seq_nms_class(boxes_frames: List[np.ndarray],
-                  scores_frames: List[np.ndarray]):
+                  scores_frames: List[np.ndarray], native: bool = True):
     """Run seq-NMS for one class of one video.
 
     Returns (keep_masks, new_scores): per-frame bool mask of surviving boxes
-    and the (possibly rescored) scores.
+    and the (possibly rescored) scores.  ``native`` picks the chain search:
+    the host library, or the Python dynamic program with its links.
     """
     num_frames = len(boxes_frames)
     boxes = [np.asarray(b, np.float64).reshape(-1, 4) for b in boxes_frames]
@@ -109,10 +114,25 @@ def seq_nms_class(boxes_frames: List[np.ndarray],
     keep = [np.ones(len(s), bool) for s in scores]
     dead = [np.zeros(len(s), bool) for s in scores]  # chained or suppressed
 
-    links = _build_links(boxes)
+    if native:
+        # the library recomputes the links from the dead mask each round
+        offsets = np.zeros(num_frames + 1, np.int32)
+        np.cumsum([len(s) for s in scores], out=offsets[1:])
+        flat_boxes = np.concatenate(boxes) if offsets[-1] else np.zeros((0, 4))
+        links = None
+    else:
+        links = _build_links(boxes)
 
     while True:
-        root, path, total = _max_path(links, scores, dead)
+        if native:
+            flat_dead = (np.concatenate(dead).astype(np.uint8) if offsets[-1]
+                         else np.zeros(0, np.uint8))
+            flat_scores = np.concatenate(scores) if offsets[-1] else np.zeros(0)
+            root, gpath, total = max_chain_native(flat_boxes, flat_scores, flat_dead,
+                                                  offsets, LINK_IOU)
+            path = [g - int(offsets[root + i]) for i, g in enumerate(gpath)]
+        else:
+            root, path, total = _max_path(links, scores, dead)
         if len(path) < 1 or total < MIN_CHAIN_SCORE:
             break
         mean_score = total / len(path)
@@ -127,24 +147,26 @@ def seq_nms_class(boxes_frames: List[np.ndarray],
                 keep[f] &= ~sup
                 dead[f] |= sup
                 scores[f][sup] = 0.0
-                # the suppressed boxes leave the links
-                if f < len(links):
-                    for s_idx in np.nonzero(sup)[0]:
-                        links[f][s_idx] = []
-                if f > 0:
-                    for prior in links[f - 1]:
+                if links is not None:
+                    # the suppressed boxes leave the links
+                    if f < len(links):
                         for s_idx in np.nonzero(sup)[0]:
-                            if s_idx in prior:
-                                prior.remove(s_idx)
+                            links[f][s_idx] = []
+                    if f > 0:
+                        for prior in links[f - 1]:
+                            for s_idx in np.nonzero(sup)[0]:
+                                if s_idx in prior:
+                                    prior.remove(s_idx)
     return keep, [s.astype(np.float32) for s in scores]
 
 
-def seq_nms_video(pred_frames: Sequence[dict], num_classes: int = 30):
+def seq_nms_video(pred_frames: Sequence[dict], num_classes: int = 30,
+                  native: bool = True):
     """Apply seq-NMS to a whole video's predictions.
 
     pred_frames: per-frame {"boxes" [n,4], "scores" [n], "labels" [n]}.
     Returns the same structure with suppressed boxes removed and chain
-    scores rescored.
+    scores rescored.  ``native`` as for ``seq_nms_class``.
     """
     out = [{"boxes": [], "scores": [], "labels": []} for _ in pred_frames]
     for cls in range(1, num_classes + 1):
@@ -155,7 +177,7 @@ def seq_nms_video(pred_frames: Sequence[dict], num_classes: int = 30):
             cls_scores.append(np.asarray(fr["scores"]).reshape(-1)[m])
         if sum(len(s) for s in cls_scores) == 0:
             continue
-        keep, new_scores = seq_nms_class(cls_boxes, cls_scores)
+        keep, new_scores = seq_nms_class(cls_boxes, cls_scores, native)
         for f in range(len(pred_frames)):
             kb = cls_boxes[f][keep[f]]
             ks = new_scores[f][keep[f]]

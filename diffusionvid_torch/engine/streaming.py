@@ -111,7 +111,14 @@ class StreamingDetector:
             mem_dis = state.mem_dis.feats
             mem_dis_mask = (torch.arange(self.mem_dis_size, device=self.device)
                             < state.mem_dis.count)
-        memory = (state.mem.feats, mem_mask, mem_dis, mem_dis_mask)
+        # ATTENTION.ENABLE: the chunk is the local queue (KEY_FRAME_LOCATION 0,
+        # ALL_FRAME_INTERVAL == INFER_BATCH), so the local chain's first stage
+        # keys on its top-75 features, the later ones on its top-25
+        # (diffusion_det.py:507-512)
+        local_kv = None
+        if self.model.local_stages > 0:
+            local_kv = (k1.reshape(-1, k1.shape[-1]), k2.reshape(-1, k2.shape[-1]))
+        memory = (state.mem.feats, mem_mask, mem_dis, mem_dis_mask, local_kv)
         pairs = ddim_times(self.schedule.num_timesteps, self.sample_step)
         if self.sample_step > 1:
             return self._ensemble(state, feats, whwh, memory, pairs), (k1, k2)

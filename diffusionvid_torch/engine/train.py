@@ -19,19 +19,28 @@ this package's ``tools/train_net.py`` feeds it samples read from disk:
     seeded from (seed, iteration), the counterpart of the JAX loop's
     ``fold_in(base_rng, it)``, so a run resumed from a checkpoint continues
     bit for bit; it checkpoints every ``checkpoint_period`` iterations and
-    at the last one.
+    at the last one;
+  * data parallelism (``wrap_data_parallel``): under a process group the
+    model is wrapped in ``DistributedDataParallel``, each rank takes its row
+    of the iteration's draws, the micro-steps before an optimizer step's
+    last run under ``no_sync`` and the last one's backward all-reduces
+    once, the logged losses are means over the ranks, and rank 0 alone
+    writes checkpoints.
 
 Parameters are float32; activations run in the model's compute dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models.criterion import set_criterion
+from ..parallel import dist
 from ..models.diffusion_det import (
     diffusion_draws, make_schedule, prepare_diffusion_targets)
 from ..utils.checkpoint import last_checkpoint, load_checkpoint, save_checkpoint
@@ -127,6 +136,19 @@ def param_group(name: str) -> str:
     return "bias" if leaf in ("bias", "in_proj_bias") else "main"
 
 
+def unused_in_training(model) -> list:
+    """The parameters a train step gives no gradient.  The local chain's
+    stages all take the same query and the last one's output is the
+    condition, unless the global attention overwrites it
+    (box_head.py:359-394): so with GLOBAL.ENABLE every local stage, without
+    it every local stage but the last, takes no gradient."""
+    head = model.head
+    n = len(head.local_attention)
+    idle = range(n) if head.global_enable else range(n - 1)
+    prefixes = tuple(f"head.local_{kind}.{i}." for i in idle for kind in ("attention", "norm"))
+    return [name for name, _ in model.named_parameters() if prefixes and name.startswith(prefixes)]
+
+
 class Optimizer:
     """Global-norm clip, then AdamW or SGD per parameter group, with
     gradient accumulation.  Call ``accumulate`` after each backward: it
@@ -173,6 +195,21 @@ class Optimizer:
         self.mini_step = 0      # micro-steps accumulated since the last one
         self.acc = None         # running mean of the micro-gradients
 
+    @property
+    def update_due(self) -> bool:
+        """Whether the next ``accumulate`` updates the parameters."""
+        return self.mini_step + 1 >= self.accumulation_steps
+
+    def preset_grads(self) -> None:
+        """Before the backward that ends an optimizer step under DDP: every
+        parameter's gradient starts at (micro-steps so far) x their running
+        mean, so that the backward leaves the sum of this rank's
+        micro-gradients, which DDP's all-reduce averages over the ranks;
+        ``accumulate(presummed=True)`` then divides by the micro-steps."""
+        if self.mini_step:
+            for p, a in zip(self.params, self.acc):
+                p.grad = a * float(self.mini_step)
+
     def lr(self, label: str = "main") -> float:
         """The learning rate the next update uses in group ``label``."""
         for group, sched in zip(self.inner.param_groups, self.schedules):
@@ -180,14 +217,18 @@ class Optimizer:
                 return sched(self.count)
         raise KeyError(label)
 
-    def accumulate(self) -> bool:
+    def accumulate(self, presummed: bool = False) -> bool:
         """Take the parameters' gradients (a missing one is zero) into the
-        running mean; update on every ``accumulation_steps``-th call.
-        Returns whether the parameters were updated."""
+        running mean; update on every ``accumulation_steps``-th call.  With
+        ``presummed`` the gradients hold the sum of every micro-step's
+        (``preset_grads``).  Returns whether the parameters were updated."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         for p in self.params:
             p.grad = None
-        if self.mini_step == 0:
+        if presummed:
+            torch._foreach_div_(grads, float(self.mini_step + 1))
+            self.acc = grads
+        elif self.mini_step == 0:
             self.acc = grads
         else:
             # acc + (g - acc) / (n + 1), as optax.MultiSteps
@@ -218,8 +259,18 @@ class Optimizer:
         self.count += 1
 
     def state_dict(self) -> dict:
+        """Under a process group every rank must call it: a running mean of
+        micro-gradients is each rank's own (the micro-steps ran under
+        ``no_sync``) and is saved as its mean over the ranks, which leaves
+        the next update's gradient as it was."""
+        acc = self.acc
+        if acc is not None and dist.is_initialized():
+            acc = [a.clone() for a in acc]
+            for a in acc:
+                torch.distributed.all_reduce(a)
+            torch._foreach_div_(acc, float(dist.world_size()))
         return {"inner": self.inner.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state["inner"])
@@ -247,11 +298,30 @@ def optimizer_from_config(model: torch.nn.Module, cfg) -> Optimizer:
 
 # ------------------------------------------------------------------ loss, step
 
+def unwrap(model):
+    """The model under a ``DistributedDataParallel`` wrapper, or the model."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def wrap_data_parallel(model):
+    """``DistributedDataParallel`` over the initialized process group (the
+    model unchanged without one).  ``find_unused_parameters`` is set when a
+    train step leaves some parameter without a gradient
+    (``unused_in_training``: the local attention's overwritten stages)."""
+    if not dist.is_initialized():
+        return model
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        find_unused_parameters=bool(unused_in_training(model)))
+
+
 def make_loss_fn(model, num_global: int, class_weight: float = 2.0,
                  l1_weight: float = 5.0, giou_weight: float = 2.0):
     """``loss_fn(batch, draws) -> (total, losses)``: the per-sample loss
-    averaged over the S samples."""
+    averaged over the S samples.  ``model`` may be DDP-wrapped."""
     schedules = {}
+    num_classes = unwrap(model).num_classes
 
     def sample_loss(images, gt_boxes, gt_labels, gt_valid, whwh, t, noise, place, null):
         dev = images.device
@@ -263,7 +333,7 @@ def make_loss_fn(model, num_global: int, class_weight: float = 2.0,
         logits, boxes = model(images, noisy, t, num_global, null)
         nl = logits.shape[1]
         return set_criterion(logits, boxes, gt_labels[:nl], gt_boxes[:nl], gt_valid[:nl],
-                             whwh_b[:nl], model.num_classes, class_weight=class_weight,
+                             whwh_b[:nl], num_classes, class_weight=class_weight,
                              l1_weight=l1_weight, giou_weight=giou_weight)
 
     def loss_fn(batch: TrainBatch, draws: TrainDraws):
@@ -278,14 +348,24 @@ def make_loss_fn(model, num_global: int, class_weight: float = 2.0,
 
 def make_train_step(model, opt: Optimizer, num_global: int, **loss_kw):
     """``train_step(batch, draws) -> metrics``: one micro-step (forward,
-    backward, ``opt.accumulate``).  The metrics are detached tensors on the
-    model's device, read without a host sync."""
+    backward, ``opt.accumulate``).  The metrics are this rank's, detached
+    tensors on the model's device, read without a host sync
+    (``parallel.dist.all_reduce_mean`` makes them means over the ranks
+    where they are read).  With a DDP-wrapped ``model`` the micro-steps
+    before an optimizer step's last run under ``no_sync`` and the last
+    one's backward all-reduces the summed micro-gradients
+    (``Optimizer.preset_grads``)."""
     loss_fn = make_loss_fn(model, num_global, **loss_kw)
+    ddp = isinstance(model, DistributedDataParallel)
 
     def train_step(batch: TrainBatch, draws: TrainDraws) -> dict:
-        total, losses = loss_fn(batch, draws)
-        total.backward()
-        opt.accumulate()
+        sync = opt.update_due
+        if ddp and sync:
+            opt.preset_grads()
+        with model.no_sync() if ddp and not sync else contextlib.nullcontext():
+            total, losses = loss_fn(batch, draws)
+            total.backward()
+        opt.accumulate(presummed=ddp and sync)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         return metrics
@@ -312,28 +392,38 @@ def train_loop(model, opt: Optimizer, batches: Iterable[TrainBatch], *,
                on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
     """Micro-steps ``start_iter .. max_iter - 1`` over ``batches`` (one
     batch per iteration, the iterable starting at ``start_iter``'s).  The
-    draws of iteration ``it`` come from ``iteration_generator(seed, it)``.
-    After each iteration ``on_step(iterations done, metrics)`` runs (the
-    train CLI's logging and validation), then, with ``output_dir``, the
-    checkpoint every ``checkpoint_period`` iterations and at ``max_iter``.
-    Returns the last iteration's metrics."""
+    draws of iteration ``it`` come from ``iteration_generator(seed, it)``;
+    under a process group of W ranks they are drawn for the W x S samples
+    of the iteration and rank r takes rows r*S .. r*S + S - 1 (``model``
+    DDP-wrapped by ``wrap_data_parallel``).  After each iteration
+    ``on_step(iterations done, metrics)`` runs (the train CLI's logging and
+    validation; the rank's own metrics), then, with ``output_dir``, the
+    checkpoint every ``checkpoint_period`` iterations and at ``max_iter``,
+    written by rank 0.  Logs, and returns, the metrics as means over the
+    ranks."""
     step = make_train_step(model, opt, num_global)
+    net = unwrap(model)
+    world, rank = dist.world_size(), dist.rank()
     metrics = {}
     batch_iter = iter(batches)
     for it in range(start_iter, max_iter):
         batch = next(batch_iter)
         s, b = batch.images.shape[:2]
-        draws = draw_train_randoms(iteration_generator(seed, it), s, b,
-                                   model.num_proposals, p_uncond=model.head.p_uncond,
-                                   device=batch.images.device)
+        draws = draw_train_randoms(iteration_generator(seed, it), world * s, b,
+                                   net.num_proposals, p_uncond=net.head.p_uncond)
+        draws = TrainDraws(*(x[rank * s:(rank + 1) * s].to(batch.images.device)
+                             for x in draws))
         metrics = step(batch, draws)
         done = it + 1
         if log_every and done % log_every == 0:
+            shown = dist.all_reduce_mean(metrics)
             log(f"iter {done}/{max_iter} "
-                + " ".join(f"{k} {float(v):.4f}" for k, v in sorted(metrics.items())))
+                + " ".join(f"{k} {float(v):.4f}" for k, v in sorted(shown.items())))
         if on_step is not None:
             on_step(done, metrics)
         if output_dir and ((checkpoint_period and done % checkpoint_period == 0)
                            or done == max_iter):
-            save_checkpoint(output_dir, done, model.state_dict(), opt.state_dict())
-    return metrics
+            opt_state = opt.state_dict()     # a collective under a process group
+            if rank == 0:
+                save_checkpoint(output_dir, done, net.state_dict(), opt_state)
+    return dist.all_reduce_mean(metrics)

@@ -16,9 +16,10 @@ over numpy prediction dicts.  Semantics preserved:
     weight (vid_eval.py:170-194);
   * area-under-PR AP (VOC >= 2010 style, vid_eval.py:298-354) and CorLoc.
 
-The matching runs in Python: the JAX package's optional C++ path
-(``native/libvidkit.so``) gives the same results and is not ported
-(ROADMAP.md A12).  Host-side bookkeeping, as in the reference.
+The matching of each (frame, class) runs in the host library
+``csrc/vidkit.cpp`` (``native.match_frame_native``); ``native=False`` runs
+the Python loop, the library's oracle in the tests.  Host-side
+bookkeeping, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 from collections import defaultdict
 
 import numpy as np
+
+from ..native import match_frame_native
 
 
 def _iou_matrix_plus2(pred, gt):
@@ -48,9 +51,12 @@ def _iou_matrix_plus2(pred, gt):
     return inter / (area_p[:, None] + area_g[None, :] - inter)
 
 
-def calc_prec_rec(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
-                  motion_range=(0.0, 1.0), num_classes: int = 30):
-    """Per-class (precision, recall) curves.
+def match_predictions(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
+                      motion_range=(0.0, 1.0), native: bool = True):
+    """The greedy matching of every (frame, class): per class, the GT count
+    that is not ignored, and per prediction in matching order its score,
+    match flag and ignored share.  Returns (n_pos, score, match, pred_ig),
+    dicts by class.  ``native`` picks the host library or the Python loop.
 
     gt_list: per-frame dicts {"boxes" [n,4], "labels" [n]}.
     pred_list: per-frame dicts {"boxes" [m,4], "labels" [m], "scores" [m]}.
@@ -108,6 +114,11 @@ def calc_prec_rec(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
                 match[l].extend([0] * len(pb))
                 pred_ig[l].extend([empty_weight] * len(pb))
                 continue
+            if native:
+                m_arr, ig_arr = match_frame_native(pb, gb, gi, iou_thresh, empty_weight)
+                match[l].extend(m_arr.tolist())
+                pred_ig[l].extend(ig_arr.tolist())
+                continue
 
             iou = _iou_matrix_plus2(pb, gb)
             taken = np.zeros(len(gb), bool)
@@ -143,6 +154,14 @@ def calc_prec_rec(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
                     else:
                         pred_ig[l].append(gi.sum() / float(len(gb)))
 
+    return n_pos, score, match, pred_ig
+
+
+def calc_prec_rec(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
+                  motion_range=(0.0, 1.0), num_classes: int = 30, native: bool = True):
+    """Per-class (precision, recall) curves over ``match_predictions``."""
+    n_pos, score, match, pred_ig = match_predictions(gt_list, pred_list, motion_ious,
+                                                     iou_thresh, motion_range, native)
     n_cls = num_classes + 1
     prec = [None] * n_cls
     rec = [None] * n_cls
@@ -276,16 +295,16 @@ MOTION_NAMES = ("all", "fast", "medium", "slow")
 
 
 def evaluate_vid(gt_list, pred_list, motion_ious=None, iou_thresh: float = 0.5,
-                 num_classes: int = 30, motion_specific: bool = False):
+                 num_classes: int = 30, motion_specific: bool = False, native: bool = True):
     """Full evaluation → {"ap50": float, "per_motion": {...}, "ap": [...],
-    "corloc": float}."""
+    "corloc": float}.  ``native`` as for ``match_predictions``."""
     ranges = MOTION_RANGES if (motion_specific and motion_ious is not None) \
         else (MOTION_RANGES[0],)
     per_motion = {}
     ap_all = None
     for name, rng in zip(MOTION_NAMES, ranges):
         prec, rec = calc_prec_rec(gt_list, pred_list, motion_ious, iou_thresh,
-                                  rng, num_classes)
+                                  rng, num_classes, native)
         ap = calc_ap(prec, rec)
         per_motion[name] = float(np.nanmean(ap[1:]))
         if name == "all":

@@ -144,6 +144,12 @@ def diffusion_draws(gen: torch.Generator, frames: int, num_proposals: int,
     return t.to(device), noise.to(device), place.to(device)
 
 
+def local_stages(cfg) -> int:
+    """The local attention's stages: ATTENTION.STAGE when ATTENTION.ENABLE."""
+    att = cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION
+    return int(att.STAGE) if att.ENABLE else 0
+
+
 class DiffusionDetArch(nn.Module):
     """ResNet or Swin + FPN + DynamicHead.  ``backbone`` is detectron2's FPN
     module (``backbone.bottom_up`` the trunk) and ``head`` the decoder, so
@@ -156,7 +162,7 @@ class DiffusionDetArch(nn.Module):
     def __init__(self, depth: int = 101, num_classes: int = 30,
                  num_proposals: int = 300, hidden_dim: int = 256,
                  num_heads: int = 3, num_heads_local: int = 1,
-                 res_stage: int = 1, global_enable: bool = True,
+                 res_stage: int = 1, global_enable: bool = True, local_stages: int = 0,
                  backbone_type: str = "resnet", swin_size: str = "B-22k",
                  fpn_in=("res3", "res4", "res5"), head_levels=("p3", "p4", "p5"),
                  pixel_mean=(123.675, 116.280, 103.530),
@@ -166,6 +172,7 @@ class DiffusionDetArch(nn.Module):
         self.num_classes, self.num_proposals = num_classes, num_proposals
         self.hidden_dim, self.num_heads_local = hidden_dim, num_heads_local
         self.res_stage = res_stage
+        self.local_stages = local_stages if num_heads_local > 0 else 0
         self.head_levels = tuple(head_levels)
         self.compute_dtype = compute_dtype
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
@@ -183,7 +190,7 @@ class DiffusionDetArch(nn.Module):
         self.head = DynamicHead(
             num_classes=num_classes, d_model=hidden_dim, num_heads=num_heads,
             num_heads_local=num_heads_local, global_stages=res_stage,
-            global_enable=global_enable,
+            global_enable=global_enable, local_stages=local_stages,
             top_k=(min(75, num_proposals), min(25, num_proposals)),
             dtype=compute_dtype)
 
@@ -197,8 +204,6 @@ class DiffusionDetArch(nn.Module):
         device = resolve_device(device)
         dd = cfg.MODEL.DiffusionDet
         is_swin = "swin" in cfg.MODEL.BACKBONE.NAME.lower()
-        if cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE:
-            raise NotImplementedError("the local temporal attention is not ported yet")
         if dtype is None:
             dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                      else torch.float32)
@@ -208,6 +213,7 @@ class DiffusionDetArch(nn.Module):
             num_heads=dd.NUM_HEADS, num_heads_local=dd.NUM_HEADS_LOCAL,
             res_stage=cfg.MODEL.VID.MEGA.GLOBAL.RES_STAGE,
             global_enable=bool(cfg.MODEL.VID.MEGA.GLOBAL.ENABLE),
+            local_stages=local_stages(cfg),
             backbone_type="swin" if is_swin else "resnet",
             swin_size=cfg.MODEL.SWIN.SIZE if is_swin else "B-22k",
             fpn_in=tuple(cfg.MODEL.FPN.IN_FEATURES),
@@ -260,16 +266,18 @@ class DiffusionDetArch(nn.Module):
         return inter_logits[-1].float(), inter_boxes[-1].float(), pro, k1, k2
 
     def refine(self, feats, bboxes, pro_features, t, memory, memory_mask,
-               memory_dis=None, memory_dis_mask=None):
-        """Global cross-attention + the conditioned stage (one DDIM model
-        call on the chunk, diffusion_det.py:551-557)."""
+               memory_dis=None, memory_dis_mask=None, local_kv=None):
+        """Local and global cross-attention + the conditioned stage (one
+        DDIM model call on the chunk, diffusion_det.py:551-557);
+        ``local_kv`` the local keys (``DynamicHead.condition``)."""
         logits, boxes, pro = self.head.condition(
             feats, self.spatial_scales, bboxes, pro_features, t, memory,
-            memory_mask, memory_dis=memory_dis, memory_dis_mask=memory_dis_mask)
+            memory_mask, memory_dis=memory_dis, memory_dis_mask=memory_dis_mask,
+            local_kv=local_kv)
         return logits[-1].float(), boxes[-1].float(), pro
 
     def full_forward_test(self, feats, bboxes, t, memory, memory_mask,
-                          memory_dis=None, memory_dis_mask=None):
+                          memory_dis=None, memory_dis_mask=None, local_kv=None):
         """The whole stack on the given boxes, one DDIM step of the xN
         ensemble (box_head.py:286-299 with sampling_timesteps > 1): the
         shared stages, then, with NUM_HEADS_LOCAL > 0, the conditioned
@@ -281,4 +289,4 @@ class DiffusionDetArch(nn.Module):
         if self.num_heads_local == 0:
             return inter_logits[-1].float(), inter_boxes[-1].float(), pro
         return self.refine(feats, inter_boxes[-1], pro, t, memory, memory_mask,
-                           memory_dis, memory_dis_mask)
+                           memory_dis, memory_dis_mask, local_kv)

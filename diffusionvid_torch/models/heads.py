@@ -4,9 +4,10 @@ Port of ``diffusionvid_tpu/models/heads.py``: ``RCNNHead`` stages
 (self-attention over proposals → DynamicConv → FFN → time FiLM → cls/reg
 towers → box deltas), the conditioned stage with its adaptive-norm shift
 from the global cross-attention, the time MLP, the top-k condition
-features and the training forward over all stages.  Module names are the
-reference's (``head_series.N.*``, ``time_mlp.{1,3}``,
-``global_attention.N.0``, ...).
+features, the local temporal attention (``ATTENTION.ENABLE``) and the
+training forward over all stages.  Module names are the reference's
+(``head_series.N.*``, ``time_mlp.{1,3}``, ``global_attention.N.0``, ...);
+the local attention's are ``local_attention.N`` and ``local_norm.N``.
 
 Dtype discipline follows the JAX package: parameters stay float32 and a
 layer casts its weight to its compute dtype at use; mixing a float32 and a
@@ -249,15 +250,15 @@ class RCNNHead(nn.Module):
 class DynamicHead(nn.Module):
     """The decoder stack (box_head.py:156-435): ``num_heads`` shared stages,
     ``num_heads_local`` conditioned stages, ``global_stages`` global
-    cross-attention layers and the time MLP.  The local temporal attention
-    (ATTENTION.ENABLE) is not ported yet."""
+    cross-attention layers, ``local_stages`` local attention layers
+    (ATTENTION.ENABLE/STAGE, box_head.py:184-194) and the time MLP."""
 
     def __init__(self, num_classes: int = 30, d_model: int = 256,
                  dim_feedforward: int = 2048, nheads: int = 8,
                  num_heads: int = 3, num_heads_local: int = 1, num_cls: int = 1,
                  num_reg: int = 3, pooler_resolution: int = 7,
                  sampling_ratio: int = 2, global_stages: int = 1,
-                 global_enable: bool = True, top_k=(75, 25),
+                 global_enable: bool = True, local_stages: int = 0, top_k=(75, 25),
                  prior_prob: float = 0.01, p_uncond: float = 0.1,
                  dtype=torch.float32):
         super().__init__()
@@ -277,6 +278,11 @@ class DynamicHead(nn.Module):
         self.global_attention = nn.ModuleList(
             [nn.ModuleList([MultiheadAttention(d_model, nheads, dtype)])
              for _ in range(global_stages if global_enable and num_heads_local > 0 else 0)])
+        # the local chain: one MultiheadAttention and one LayerNorm a stage
+        n_local = local_stages if num_heads_local > 0 else 0
+        self.local_attention = nn.ModuleList(
+            [MultiheadAttention(d_model, nheads, dtype) for _ in range(n_local)])
+        self.local_norm = nn.ModuleList([LayerNorm(d_model) for _ in range(n_local)])
         self.time_mlp = nn.Sequential(
             SinusoidalPositionEmbeddings(d_model),
             Linear(d_model, 4 * d_model, dtype=dtype), nn.GELU(),
@@ -326,20 +332,32 @@ class DynamicHead(nn.Module):
 
     def condition(self, features, spatial_scales, bboxes, pro_features, t,
                   memory, memory_mask, memory_dis=None, memory_dis_mask=None,
-                  null=None):
-        """Global cross-attention + the conditioned stage(s).  pro_features
-        [B, N, D]; memory [M, D] with validity ``memory_mask`` [M].  In
-        training, ``null`` [B] bool nulls the condition of those frames
+                  null=None, local_kv=None):
+        """Local and global cross-attention, then the conditioned stage(s).
+        pro_features [B, N, D]; memory [M, D] with validity ``memory_mask``
+        [M].  ``local_kv``: the local keys, a sequence of [K_i, D] (at test
+        the chunk's top-75 and top-25 features); stage i of the local chain
+        keys on ``local_kv[min(i, len - 1)]``, with a LayerNorm and no
+        residual, and the last stage's output is the condition unless the
+        global attention overwrites it (box_head.py:359-394).  In training,
+        ``null`` [B] bool nulls the condition of those frames
         (classifier-free guidance, box_head.py:386-394)."""
-        if not self.global_enable:
-            raise NotImplementedError(
-                "conditioning without GLOBAL.ENABLE needs the local attention, "
-                "which is not ported yet")
         b, n, d = pro_features.shape
         time_emb = self.time_mlp(t)
         query = pro_features.reshape(1, b * n, d)
-        attn = self._global_chain(query, memory, memory_mask, memory_dis,
-                                  memory_dis_mask, b, n, d)
+        attn = None
+        if len(self.local_attention) and local_kv is not None:
+            for i, (mha, norm) in enumerate(zip(self.local_attention, self.local_norm)):
+                lkv = local_kv[min(i, len(local_kv) - 1)][None].to(query.dtype)
+                attn = norm(mha(query, lkv, lkv))
+        if self.global_enable:
+            attn = self._global_chain(query, memory, memory_mask, memory_dis,
+                                      memory_dis_mask, b, n, d)
+        elif attn is None:
+            raise ValueError("conditioned stages need a conditioning signal: enable "
+                             "GLOBAL.ENABLE or pass local_kv with ATTENTION.ENABLE")
+        else:
+            attn = attn.reshape(b, n, d)
         if null is not None:
             attn = attn.masked_fill(null[:, None, None], 0.0)
         inter_logits, inter_boxes = [], []
@@ -352,12 +370,16 @@ class DynamicHead(nn.Module):
         return inter_logits, inter_boxes, pro_features
 
     def forward(self, features, spatial_scales, bboxes, t, num_global: int, null):
-        """Training forward (box_head.py:273-435, the flagship branch: no
-        local attention).  ``bboxes`` [B, N, 4] noisy boxes for B = 1 current
-        + ``num_global`` frames; the global kv is the top-k features of the
-        trailing ``num_global`` frames, with their gradient; ``null`` [B]
-        bool is the classifier-free-guidance null mask.  Returns the stacked
-        logits [S, B, N, K] and boxes [S, B, N, 4] of every stage."""
+        """Training forward (box_head.py:273-435).  ``bboxes`` [B, N, 4] noisy
+        boxes for B = 1 current + ``num_global`` frames (with the local
+        attention: the current frame and the local refs first); the global
+        kv is the top-k features of the trailing ``num_global`` frames, with
+        their gradient; ``null`` [B] bool is the classifier-free-guidance
+        null mask.  With the local attention, the first ``nl = min(3, B)``
+        frames' top-k features key the local chain, the conditioned stage
+        runs on those frames only and every stage's outputs are sliced to
+        them (box_head.py:325-346, 429-431).  Returns the stacked logits
+        [S, nl or B, N, K] and boxes [S, nl or B, N, 4] of every stage."""
         inter_logits, inter_boxes, pro, _ = self.shared_stages(
             features, spatial_scales, bboxes, t)
         if len(self.head_series_cond) == 0:
@@ -366,11 +388,19 @@ class DynamicHead(nn.Module):
         kv = k1[-num_global:] if num_global > 0 else k1
         kv = kv.reshape(-1, self.d_model)
         kv_mask = torch.ones(kv.shape[0], dtype=torch.bool, device=kv.device)
+        last_boxes = inter_boxes[-1].detach()
+        if len(self.local_attention) == 0:
+            cond_logits, cond_boxes, _ = self.condition(
+                features, spatial_scales, last_boxes, pro, t, kv, kv_mask, null=null)
+            return (torch.stack(inter_logits + cond_logits),
+                    torch.stack(inter_boxes + cond_boxes))
+        nl = min(3, k1.shape[0])
+        local_kv = (k1[:nl].reshape(-1, self.d_model),)
         cond_logits, cond_boxes, _ = self.condition(
-            features, spatial_scales, inter_boxes[-1].detach(), pro, t, kv, kv_mask,
-            null=null)
-        return (torch.stack(inter_logits + cond_logits),
-                torch.stack(inter_boxes + cond_boxes))
+            [f[:nl] for f in features], spatial_scales, last_boxes[:nl], pro[:nl], t[:nl],
+            kv, kv_mask, null=None if null is None else null[:nl], local_kv=local_kv)
+        return (torch.stack([x[:nl] for x in inter_logits] + cond_logits),
+                torch.stack([x[:nl] for x in inter_boxes] + cond_boxes))
 
     def _global_chain(self, query, memory, memory_mask, memory_dis,
                       memory_dis_mask, b, n, d):

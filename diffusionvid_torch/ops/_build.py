@@ -7,6 +7,11 @@ it may include the shared headers ``csrc/*.cuh``.  The hash covers the
 source, every header and the compiler flags, so a stale library is never
 loaded.  ``build_all`` starts one ``nvcc`` per source, all at once,
 and waits for every one of them.
+
+The host library ``csrc/vidkit.cpp`` (seq-NMS's chain search and the
+evaluator's matching, ``native.py``) compiles with ``g++`` into
+``build/diffusionvid_torch/libvidkit-<hash>.so`` the same way, by
+``load_host``; ``sources`` lists the ``.cu`` files only.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diffusionvid_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# no -march=native: the library must load on any x86-64 host; no
+# floating-point contraction: an FMA would round the IoU differently from numpy
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off", "-Wall"]
 
 # name -> loaded library; a library stays loaded for the life of the process
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -87,6 +95,38 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def host_target(name: str) -> Path:
+    """The library file of the host source ``csrc/<name>.cpp``."""
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, compiled
+    with ``g++`` (``$CXX``) first if needed.  Raises with the compiler's
+    output if the build fails."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    out = host_target(name)
+    if not out.exists():
+        cxx = shutil.which(os.environ.get("CXX", "g++"))
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler to build csrc/{name}.cpp: set CXX")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{Path(cxx).name} failed on csrc/{name}.cpp "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch.  Every
     library exports ``error_string`` (``cudaGetErrorString``)."""
@@ -98,4 +138,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of ``device``, on which a wrapper launches its
+    kernel through ctypes.  The launch goes to the current device, so a
+    tensor on another card raises: its stream would be invalid there."""
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel's input is on {device} but the current device is cuda:{current}: "
+            f"call torch.cuda.set_device({device.index}) first (under torchrun, "
+            "parallel.dist.initialize does)")
     return torch.cuda.current_stream(device).cuda_stream

@@ -9,8 +9,13 @@ boundaries; ``predictions.pkl``; the AP50 (and motion buckets) report.
         --config-file configs/vid_R_101_DiffusionVID.yaml \\
         --checkpoint OUTPUT/model_0001000.pth [MODEL.DiffusionDet.SAMPLE_STEP 4]
 
-Without ``--device`` it runs on the card and raises when there is none;
-``--device cpu`` runs the kernels' plain versions on the CPU.
+Under ``torchrun --nproc_per_node W -m diffusionvid_torch.tools.test_net
+...`` rank r streams the videos of shard r of W, the predictions are
+gathered and rank 0 writes ``predictions.pkl`` and evaluates them.
+
+Without ``--device`` it runs on the card (``cuda:LOCAL_RANK`` under
+``torchrun``) and raises when there is none; ``--device cpu`` runs the
+kernels' plain versions on the CPU (over ``gloo`` under ``torchrun``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..data import SampleConfig, get_dataset
 from ..engine.inference import run_inference
 from ..evaluation.vid_eval import eval_proposals, evaluate_vid, load_motion_iou_mat
 from ..models.diffusion_det import DiffusionDetArch
+from ..parallel import dist
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import load_weights_into
 from ..utils.logging import setup_logger
@@ -131,11 +137,20 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Run the evaluation; returns the results dict (None for a shard that
-    waits on others, or for ``--box-only``)."""
+    waits on others, for a rank other than 0, or for ``--box-only``)."""
     args = parse_args(argv)
     cfg = load_config(args.config_file, args.opts)
     output_dir = args.output_dir or os.path.join(cfg.OUTPUT_DIR, "inference")
-    logger = setup_logger(save_dir=output_dir)
+    started = not dist.is_initialized() and dist.initialize(args.device)
+    try:
+        return _main(cfg, args, output_dir)
+    finally:
+        if started:
+            dist.destroy()
+
+
+def _main(cfg, args, output_dir):
+    logger = setup_logger(save_dir=output_dir if dist.rank() == 0 else None)
 
     method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
     if not (method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"):
@@ -165,6 +180,8 @@ def main(argv=None):
             shard=args.shard, num_shards=args.num_shards, logger=logger,
             max_videos=args.max_videos)
 
+    if dist.rank() != 0:
+        return None     # rank 0 evaluates the gathered predictions
     if args.box_only or cfg.MODEL.RPN_ONLY:
         # proposal-recall mode (reference vid_eval.py:26-37, 85-130)
         line = f"Recall: {eval_proposals(gt_list, predictions)['recall']:.4f}"

@@ -25,13 +25,28 @@ timesteps from ``iteration_generator(seed, it)``.  So a run resumed from a
 checkpoint at a multiple of ``BATCH_REUSE_STEPS`` continues the
 uninterrupted run bit for bit on the CPU.
 
-Without ``--device`` it runs on the card and raises when there is none;
-``--device cpu`` runs the kernels' plain versions on the CPU.
+Data parallel under ``torchrun --nproc_per_node W -m
+diffusionvid_torch.tools.train_net ...``: the W ranks play the part of the
+JAX CLI's mesh of W devices (``TPU.MESH_DP``, if set above 1, must be W).
+Each batch of W indices comes from the same aspect-ratio batches, rank r
+builds sample r from ``RandomState`` seed ``(1000003 * it + 12345 + r) %
+(2**31 - 1)`` (the JAX CLI draws all W samples from one ``RandomState`` in
+turn: ROADMAP.md C), takes the r-th of the reuse swap's draws and row r of
+the step's draws, which are the JAX CLI's.  Rank 0 alone writes
+``config.yml``, the log, ``metrics.jsonl`` and the checkpoints; every rank
+resumes from the same checkpoint; validation runs sharded by rank and rank
+0 evaluates the merged predictions.
+
+Without ``--device`` it runs on the card (``cuda:LOCAL_RANK`` under
+``torchrun``) and raises when there is none; ``--device cpu`` runs the
+kernels' plain versions on the CPU (over ``gloo`` under ``torchrun``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import logging
 import os
 import time
 
@@ -42,8 +57,10 @@ from ..config import load_config
 from ..data import (ConcatDataset, PrefetchIterator, SampleConfig, aspect_ratio_group_ids,
                     get_dataset, grouped_batches)
 from ..engine.inference import run_inference
-from ..engine.train import TrainBatch, optimizer_from_config, resume, train_loop
-from ..models.diffusion_det import DiffusionDetArch
+from ..engine.train import (
+    TrainBatch, optimizer_from_config, resume, train_loop, wrap_data_parallel)
+from ..models.diffusion_det import DiffusionDetArch, local_stages
+from ..parallel import dist
 from ..utils.checkpoint import last_checkpoint
 from ..utils.collect_env import collect_env_info
 from ..utils.convert import load_weights_into, weight_path
@@ -80,13 +97,14 @@ def parse_args(argv=None):
 
 
 def train_sample_config(cfg) -> SampleConfig:
-    """The train samples' layout and transforms of the config.  Local refs
-    (ATTENTION.ENABLE) are not ported: ``DiffusionDetArch.from_config``
-    refuses such a config."""
+    """The train samples' layout and transforms of the config: with the
+    local attention (ATTENTION.ENABLE), REF_NUM_LOCAL local refs follow the
+    current frame, ahead of the global refs (box_head.py:325-346)."""
     mega = cfg.MODEL.VID.MEGA
     min_train = cfg.INPUT.MIN_SIZE_TRAIN
     return SampleConfig(
-        num_global=mega.REF_NUM_GLOBAL, num_local=0,
+        num_global=mega.REF_NUM_GLOBAL,
+        num_local=mega.REF_NUM_LOCAL if local_stages(cfg) > 0 else 0,
         local_min_offset=mega.MIN_OFFSET, local_max_offset=mega.MAX_OFFSET,
         min_size=tuple(min_train) if isinstance(min_train, (tuple, list)) else min_train,
         max_size=cfg.INPUT.MAX_SIZE_TRAIN, transform=bool(cfg.INPUT.TRANSFORM),
@@ -106,24 +124,35 @@ def build_model(cfg, args, logger):
     return model, loaded
 
 
+def sample_seed(it: int, rank: int = 0) -> int:
+    """The ``RandomState`` seed of the samples that rank ``rank`` loads at
+    iteration ``it``; rank 0's is the JAX CLI's."""
+    return (1000003 * it + 12345 + rank) % (2 ** 31 - 1)
+
+
 def sample_batches(ds: ConcatDataset, batch_iter, cfg: SampleConfig, start_iter: int,
-                   reuse_steps: int):
+                   reuse_steps: int, rank: int = 0, world: int = 1):
     """The batches loaded from ``start_iter`` on, one every ``reuse_steps``
-    iterations: the samples of ``batch_iter``'s next indices, drawn from a
-    RandomState seeded from the iteration that loads them."""
+    iterations: the samples of ``batch_iter``'s next indices (with W ranks,
+    the rank's one of each W), drawn from a RandomState seeded from the
+    iteration that loads them and the rank."""
     it = start_iter
     while True:
-        rng = np.random.RandomState((1000003 * it + 12345) % (2 ** 31 - 1))
-        yield [ds.sample(i, rng, cfg) for i in next(batch_iter)]
+        rng = np.random.RandomState(sample_seed(it, rank))
+        indices = next(batch_iter)
+        yield [ds.sample(i, rng, cfg) for i in indices[rank::world]]
         it = (it // reuse_steps + 1) * reuse_steps
 
 
-def reuse_swap(samples, it: int, first_global: int) -> None:
+def reuse_swap(samples, it: int, first_global: int, rank: int = 0) -> None:
     """Batch reuse (the reference's engine/trainer.py:107-124): swap each
     sample's current frame, in place, with a global ref drawn from a
     RandomState seeded from the iteration, so the same loaded batch trains
-    another step."""
+    another step.  Rank r's sample takes the r-th draw, as the JAX CLI's
+    sample r does (every sample has the same frames)."""
     rng = np.random.RandomState((7654321 + it) % (2 ** 31 - 1))
+    for _ in range(rank):
+        rng.randint(first_global, samples[0]["images"].shape[0])
     for smp in samples:
         j = rng.randint(first_global, smp["images"].shape[0])
         for key in ("images", "gt_boxes", "gt_labels", "gt_valid"):
@@ -131,7 +160,7 @@ def reuse_swap(samples, it: int, first_global: int) -> None:
 
 
 def iteration_samples(batches, start_iter: int, max_iter: int, reuse_steps: int,
-                      first_global: int):
+                      first_global: int, rank: int = 0):
     """The samples of each iteration ``start_iter .. max_iter - 1``: a new
     batch at iterations that are multiples of ``reuse_steps`` (and at the
     first), otherwise the last one with its frames swapped."""
@@ -140,7 +169,7 @@ def iteration_samples(batches, start_iter: int, max_iter: int, reuse_steps: int,
         if samples is None or it % reuse_steps == 0:
             samples = next(batches)
         else:
-            reuse_swap(samples, it, first_global)
+            reuse_swap(samples, it, first_global, rank)
         yield samples
 
 
@@ -166,16 +195,48 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"VID.METHOD {method} (META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}): only "
             "DiffusionVID is ported; the MEGA family is ROADMAP.md A7")
+    started = not dist.is_initialized() and dist.initialize(args.device)
+    try:
+        return _main(cfg, args)
+    finally:
+        if started:
+            dist.destroy()
+
+
+def _main(cfg, args) -> dict:
+    world = dist.world_size()
+    if cfg.TPU.MESH_DP > 1 and cfg.TPU.MESH_DP != world:
+        raise ValueError(f"TPU.MESH_DP {cfg.TPU.MESH_DP} but {world} ranks: the ranks are "
+                         "the data-parallel axis (torchrun --nproc_per_node)")
     device = resolve_device(args.device)
-    with log_to_file(setup_logger(), cfg.OUTPUT_DIR) as logger:
+    logger = setup_logger()
+    if dist.rank() == 0:
+        logger.setLevel(logging.DEBUG)
+        to_file = log_to_file(logger, cfg.OUTPUT_DIR)
+    else:   # the other ranks print their warnings and write nothing
+        logger.setLevel(logging.WARNING)
+        to_file = contextlib.nullcontext(logger)
+    with to_file:
         return _train(cfg, args, device, logger)
+
+
+class _NoWriter:
+    """``MetricsWriter``'s place on the ranks that write no files."""
+
+    def write(self, step: int, **scalars):
+        pass
+
+    def close(self):
+        pass
 
 
 def _train(cfg, args, device, logger) -> dict:
     output_dir, sol = cfg.OUTPUT_DIR, cfg.SOLVER
+    rank, world = dist.rank(), dist.world_size()
     logger.info(f"config:\n{cfg.dump()}")
-    with open(os.path.join(output_dir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
+    if rank == 0:
+        with open(os.path.join(output_dir, "config.yml"), "w") as f:
+            f.write(cfg.dump())
     logger.info(f"environment:\n{collect_env_info()}")
 
     sample_cfg = train_sample_config(cfg)
@@ -186,62 +247,79 @@ def _train(cfg, args, device, logger) -> dict:
     if start_iter:
         logger.info(f"resumed from {last_checkpoint(output_dir)} @ iter {start_iter}")
 
-    # one sample per step; the reference's schedule is IMS_PER_BATCH
-    # (1 a GPU) x GPUs x ACCUMULATION_STEPS (data parallelism: ROADMAP.md A4)
-    eff = max(1, sol.ACCUMULATION_STEPS)
-    logger.info(f"effective batch per optimizer step: {eff} samples "
-                f"(SOLVER.IMS_PER_BATCH={sol.IMS_PER_BATCH})")
+    # one sample a rank a step; the reference's schedule is IMS_PER_BATCH
+    # (1 a GPU) x GPUs x ACCUMULATION_STEPS
+    eff = world * max(1, sol.ACCUMULATION_STEPS)
+    logger.info(f"data-parallel ranks: {world}; effective batch per optimizer step: {eff} "
+                f"samples (SOLVER.IMS_PER_BATCH={sol.IMS_PER_BATCH})")
     if sol.IMS_PER_BATCH > eff:
-        logger.warning(f"IMS_PER_BATCH={sol.IMS_PER_BATCH} exceeds the accumulation={eff}; "
-                       f"raise SOLVER.ACCUMULATION_STEPS to match the reference schedule")
+        logger.warning(f"IMS_PER_BATCH={sol.IMS_PER_BATCH} exceeds ranks x accumulation={eff}; "
+                       f"raise SOLVER.ACCUMULATION_STEPS or the ranks to match the reference "
+                       f"schedule")
 
     # aspect-ratio-grouped batches: every batch has one padding bucket.
     # Batches load at iterations that are multiples of BATCH_REUSE_STEPS;
     # a resumed run skips the ones the earlier run used.
     train_ds = ConcatDataset(datasets)
-    batch_iter = grouped_batches(aspect_ratio_group_ids(train_ds), 1, seed=0)
+    batch_iter = grouped_batches(aspect_ratio_group_ids(train_ds), world, seed=0)
     reuse_steps = max(1, int(sol.BATCH_REUSE_STEPS))
     for _ in range((start_iter + reuse_steps - 1) // reuse_steps):
         next(batch_iter)
-    batches = sample_batches(train_ds, batch_iter, sample_cfg, start_iter, reuse_steps)
+    batches = sample_batches(train_ds, batch_iter, sample_cfg, start_iter, reuse_steps,
+                             rank, world)
     if not args.no_prefetch:
         batches = PrefetchIterator(batches, depth=2)
 
     meters = MetricLogger()
-    writer = MetricsWriter(output_dir, resume_step=start_iter if args.resume else None)
-    prof = StepProfiler(args.profile_dir, start=start_iter + 10, stop=start_iter + 15)
+    writer = (MetricsWriter(output_dir, resume_step=start_iter if args.resume else None)
+              if rank == 0 else _NoWriter())
+    prof = StepProfiler(args.profile_dir if rank == 0 else None, start=start_iter + 10,
+                        stop=start_iter + 15)
     state = {"t_last": time.perf_counter(), "val_failures": 0}
 
     def device_batches():
         samples = iteration_samples(batches, start_iter, sol.MAX_ITER, reuse_steps,
-                                    1 + sample_cfg.num_local)
+                                    1 + sample_cfg.num_local, rank)
         for it, smp in enumerate(samples, start_iter):
             prof.step(it)
             yield collate(smp, device)
 
     def validate(done: int):
-        """Periodic validation (engine/trainer.py:187-207).  A missing val
-        set is tolerated; any other failure aborts at the second in a row,
-        so a broken val path cannot hide behind warnings."""
+        """Periodic validation (engine/trainer.py:187-207), sharded by rank
+        and evaluated on rank 0.  A missing val set is tolerated; any other
+        failure aborts at the second in a row, so a broken val path cannot
+        hide behind warnings.  Under a process group the ranks agree on the
+        outcome (a failure on any rank is a failure on every rank), so that
+        all of them go on training or all of them raise."""
+        error = None
         try:
             val_ds = get_dataset(cfg.DATASETS.TEST[0], is_train=False, data_dir=args.data_dir)
             _, _, results = run_inference(model, val_ds, sample_config(cfg), **detector_args(cfg),
                                           max_videos=VAL_MAX_VIDEOS, logger=logger)
             if results:
                 writer.write(done, **{"Val/mAP": results["ap50"]})
-            state["val_failures"] = 0
+            outcome = "ok"
         except FileNotFoundError as e:
-            logger.warning(f"periodic validation skipped (no data): {e}")
+            outcome, error = "missing", e
         except Exception as e:
-            state["val_failures"] += 1
-            if state["val_failures"] >= 2:
-                raise
-            logger.warning(f"periodic validation failed ({state['val_failures']}/2): {e}",
-                           exc_info=True)
+            outcome, error = "failed", e
+        outcomes = dist.gather_objects(outcome)
+        if error is None and any(o != "ok" for o in outcomes):
+            error = dist.RankFailed(f"periodic validation by rank: {dict(enumerate(outcomes))}")
+        if "failed" not in outcomes:
+            state["val_failures"] = 0
+            if error is not None:
+                logger.warning(f"periodic validation skipped (no data): {error}")
+            return
+        state["val_failures"] += 1
+        if state["val_failures"] >= 2:
+            raise error
+        logger.warning(f"periodic validation failed ({state['val_failures']}/2): {error}",
+                       exc_info=error)
 
     def on_step(done: int, metrics: dict):
-        if done % LOG_PERIOD == 0:
-            vals = {k: float(v) for k, v in metrics.items()}
+        if done % LOG_PERIOD == 0:     # means over the ranks
+            vals = {k: float(v) for k, v in dist.all_reduce_mean(metrics).items()}
             meters.update(**vals)
             now = time.perf_counter()
             dt, state["t_last"] = (now - state["t_last"]) / LOG_PERIOD, now
@@ -251,7 +329,8 @@ def _train(cfg, args, device, logger) -> dict:
             validate(done)
 
     try:
-        metrics = train_loop(model, opt, device_batches(), num_global=sample_cfg.num_global,
+        metrics = train_loop(wrap_data_parallel(model), opt, device_batches(),
+                             num_global=sample_cfg.num_global,
                              max_iter=sol.MAX_ITER, seed=args.seed, start_iter=start_iter,
                              checkpoint_period=sol.CHECKPOINT_PERIOD, output_dir=output_dir,
                              log_every=0, on_step=on_step)
@@ -260,6 +339,7 @@ def _train(cfg, args, device, logger) -> dict:
         writer.close()
         if isinstance(batches, PrefetchIterator):
             batches.close()
+    dist.barrier()      # rank 0 has written the last checkpoint
     checkpoint = last_checkpoint(output_dir)
     logger.info(f"trained iterations {start_iter}..{sol.MAX_ITER}; last checkpoint {checkpoint}")
     return {"start_iter": start_iter, "max_iter": sol.MAX_ITER, "pretrained_tensors": loaded,

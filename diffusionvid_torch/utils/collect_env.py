@@ -10,10 +10,12 @@ import sys
 import numpy as np
 import torch
 
+from ..native import library_path
+
 
 def collect_env_info() -> str:
     """Python, torch, CUDA, the card's name and power limit (when there is
-    a card) and numpy, one per line."""
+    a card), numpy and the host library ``vidkit``'s file, one per line."""
     lines = [f"python: {sys.version.split()[0]} ({platform.platform()})",
              f"torch: {torch.__version__}  cuda: {torch.version.cuda}"]
     if torch.cuda.is_available():
@@ -29,4 +31,7 @@ def collect_env_info() -> str:
     else:
         lines.append("card: none")
     lines.append(f"numpy: {np.__version__}")
+    built = library_path()
+    lines.append(f"vidkit (seq-NMS, evaluation): "
+                 f"{built if built else 'not built yet (g++ builds it at first use)'}")
     return "\n".join(lines)

@@ -132,6 +132,10 @@ def _torch_name(path, fpn_levels) -> str:
         m = re.fullmatch(r"global_attn(\d+)", mod)
         if m:
             return f"head.global_attention.{m.group(1)}.0." + ".".join(path[2:])
+        m = re.fullmatch(r"local_(attn|norm)(\d+)", mod)
+        if m:
+            kind = "attention" if m.group(1) == "attn" else "norm"
+            return f"head.local_{kind}.{m.group(2)}." + ".".join(path[2:])
     raise KeyError(f"no port name for JAX parameter {'/'.join(path)}")
 
 

@@ -52,7 +52,8 @@ from test_data import mini_vid  # noqa: F401  (the shared fixture)
 from test_torch_port_eval import make_case
 from test_torch_port_stream import _JaxRecorder
 from test_torch_port_stream_x4 import _renewal_agrees, spread
-from test_torch_port_weights import PROPS, jax_model_and_params, port_model, rel_err
+from test_torch_port_weights import (  # noqa: F401  (one_thread: the fixture)
+    PROPS, jax_model_and_params, one_thread, port_model, rel_err)
 
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 3

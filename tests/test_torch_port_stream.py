@@ -22,7 +22,8 @@ from diffusionvid_tpu.engine.streaming import StreamingDetector as JaxDetector
 
 from diffusionvid_torch.engine.streaming import StreamingDetector
 from diffusionvid_torch.models.diffusion_det import ddim_times
-from test_torch_port_weights import H, PROPS, W, jax_model_and_params, port_model, rel_err
+from test_torch_port_weights import (  # noqa: F401  (one_thread: the fixture)
+    H, PROPS, W, jax_model_and_params, one_thread, port_model, rel_err)
 
 KW = dict(infer_batch=2, mem_size=16, mem_dis_size=8, num_proposals=PROPS,
           detections_per_img=PROPS)

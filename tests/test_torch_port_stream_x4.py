@@ -39,7 +39,8 @@ from diffusionvid_tpu.models.diffusion_det import (
 from diffusionvid_torch.engine.postprocess import postprocess_ensemble
 from diffusionvid_torch.models.diffusion_det import make_schedule, predict_noise_from_start
 from test_torch_port_stream import _frames_agree, run_both
-from test_torch_port_weights import H, PROPS, W, jax_model_and_params, port_model, rel_err
+from test_torch_port_weights import (  # noqa: F401  (one_thread: the fixture)
+    H, PROPS, W, jax_model_and_params, one_thread, port_model, rel_err)
 
 MARGIN = 1e-4
 SPREAD = 20.0

@@ -36,7 +36,7 @@ from diffusionvid_torch.models.resnet import FrozenBatchNorm2d
 from diffusionvid_torch.utils import checkpoint as ck
 from diffusionvid_torch.utils.convert import state_dict_from_jax
 from chip_smoke import conditioned_train_model
-from test_torch_port_weights import rel_err
+from test_torch_port_weights import one_thread, rel_err  # noqa: F401
 
 P, H, W, S, B, G, K, NUM_GLOBAL = 50, 64, 96, 2, 3, 6, 5, 2
 ARCH = dict(depth=18, num_classes=K, num_proposals=P, num_heads=2, num_heads_local=1)

@@ -4,7 +4,8 @@
 tree leaf for leaf with nothing unmatched, and the port's model must load
 the state dict with ``strict=True``, for a ResNet and a Swin-T model.
 ``jax_model_and_params`` and ``port_model`` build the small JAX/port pair
-the other port tests share.
+the other port tests share, and ``one_thread`` is the module-wide
+one-intra-op-thread fixture that the heavier port test modules import.
 """
 
 import numpy as np
@@ -21,6 +22,17 @@ from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
 from diffusionvid_torch.utils.convert import state_dict_from_jax
 
 H, W, PROPS = 64, 96, 16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's small ops in the module: with
+    several test workers on the host, threads that wait for each other at
+    every op slow such runs many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 SWIN_T = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
@@ -78,6 +90,7 @@ def port_model(jmodel, variables):
         depth=jmodel.depth, num_classes=jmodel.num_classes, num_proposals=jmodel.num_proposals,
         num_heads=jmodel.num_heads, num_heads_local=jmodel.num_heads_local,
         res_stage=jmodel.res_stage, global_enable=jmodel.global_enable,
+        local_stages=jmodel.local_stages,
         backbone_type=jmodel.backbone_type, swin_size=jmodel.swin_size, fpn_in=jmodel.fpn_in,
         compute_dtype=torch.float32)
     model.load_state_dict(state_dict_from_jax(variables["params"]), strict=True)
