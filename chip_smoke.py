@@ -117,6 +117,19 @@ Phases, one JSON line each:
               through the library and through the Python paths, which must
               give equal keep masks, rescored scores, match flags and
               ignored shares, each path timed (``vidkit_check``).
+  10b. mega_family_tiny the MEGA family's ``base``, ``rdn``, ``mega`` (with
+              its stage rings) and ``dafa`` at depth 18 on 64x96 frames,
+              card against CPU (selections equal, values within 1e-3; DAFA
+              alone launches K1 and K2); then ``mega_family``, the four R-101
+              configs (``vid_R_101_C4_1x``, ``RDN/..._RDN_base_1x``,
+              ``MEGA/..._MEGA_1x``, ``MEGA/..._DAFA_1x``) at full width, bf16,
+              through ``run_inference_video_arch`` on one rendered video of 12
+              frames at 600x1000: fps, peak memory, the memories' fill, the
+              K1/K2 launches (DAFA: 78), one frame's device time and idle
+              share, its NMS calls and the C4 pooler's ms and peak; then
+              ``mega_family_kernels``, K1 and K2 on DAFA's own inputs (the
+              extract pass and one frame), checked and timed
+              (``phase_mega_family``).
   11. flagship_train_cli training from files on disk through the port's
               train CLI (``tools/train_net.main``, after phase 8's Swin-B
               step): the R-101 config at full width with the SSD
@@ -155,7 +168,8 @@ Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
 K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
-``eval_launches`` in phase 10's x1 run; K1's, K2's and K3's with
+``eval_launches`` in phase 10's x1 run and ``dafa_launches`` in phase
+10b's DAFA run; K1's, K2's and K3's with
 ``train_cli_launches`` in phase 11's first run; K1's and K2's with
 ``local_attn_launches`` and K1's, K2's and K3's with
 ``local_attn_train_launches`` (phase 12) and ``ddp_rank_launches`` (a
@@ -2221,6 +2235,350 @@ def tiny_cli_card_vs_cpu(seed: int, work: Path) -> dict:
             "detections_per_frame": sum(len(p["scores"]) for p in card) / len(card)}
 
 
+# ---------------------------------------------------------------- the MEGA family
+
+MEGA_FAMILY = {"base": "vid_R_101_C4_1x.yaml", "rdn": "RDN/vid_R_101_C4_RDN_base_1x.yaml",
+               "mega": "MEGA/vid_R_101_C4_MEGA_1x.yaml", "dafa": "MEGA/vid_R_101_C4_DAFA_1x.yaml"}
+# the tiny models: depth 18, fp32, 5 classes, 100 boxes before the RPN's NMS,
+# 8 current proposals and 8 a reference frame (MEGA 25: its stage rings push
+# 75 rows a frame), 16 memory slots and 2 ring frames; DAFA 16 proposals
+MEGA_TINY_OPTS = ["MODEL.RESNETS.DEPTH", "18", "TPU.COMPUTE_DTYPE", "float32",
+                  "MODEL.ROI_BOX_HEAD.NUM_CLASSES", "5", "MODEL.RPN.PRE_NMS_TOP_N_TEST", "100",
+                  "MODEL.RPN.POST_NMS_TOP_N_TEST", "8", "MODEL.VID.RPN.REF_POST_NMS_TOP_N",
+                  "8", "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST", "16",
+                  "MODEL.VID.MEGA.MEMORY.SIZE", "2", "MODEL.DiffusionDet.NUM_PROPOSALS", "16",
+                  "MODEL.DiffusionDet.NUM_CLASSES", "5"]
+MEGA_TINY_RINGS = ["MODEL.VID.RPN.REF_POST_NMS_TOP_N", "25"]
+# the full-width run: one rendered video of 12 frames at 600x1000
+MEGA_VIDEO = dict(frames=12, hw=(600, 1000))
+DAFA_STAGES = 6
+
+
+def condition_mega_family(model, gen):
+    """Weights at a scale where the trunk's maps, the attention and the
+    logits are O(1) and the scores spread, so that no selection breaks a
+    near-tie (the conditioning of ``tests/test_torch_port_rcnn.py``):
+    convolutions at variance 1/fan-in, the relation's value weights x3 and
+    geometry weights x30, the head's biases and norms perturbed, DAFA's
+    class biases near zero."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 4:
+                p.mul_(torch.rsqrt(p.var() * p[0].numel()))
+            elif name.endswith("Wv_weight"):
+                p.mul_(3.0)
+            elif name.endswith("Wg_weight"):
+                p.mul_(30.0)
+            elif name.endswith("class_logits.bias"):
+                p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+            elif p.dim() == 1 and "backbone" not in name and (
+                    name.endswith("bias") or name.startswith("heads.")):
+                p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _mega_drive(model, method: str, gframes, frames, hw):
+    """prime_state, then every frame through detect_frame: (BoxArrays, the
+    last state)."""
+    from diffusionvid_torch.engine.inference_mega import detect_frame, prime_state
+    dev = next(model.parameters()).device
+    gframes, frames = gframes.to(dev), frames.to(dev)
+    whwh = torch.tensor([hw[1], hw[0], hw[1], hw[0]], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        state = prime_state(model, method, gframes, whwh, hw)
+        outs = []
+        for f in range(frames.shape[0]):
+            dets, state = detect_frame(model, method, frames, f, state, whwh, hw)
+            outs.append(dets)
+    return outs, state
+
+
+def _memory_fill(state) -> dict:
+    if state is None:
+        return {}
+    res = {"global_memory": [state.mem.count, state.mem.feats.shape[0]]}
+    if getattr(state, "stage_count", None) is not None:
+        res["stage_rings"] = list(state.stage_count)
+    return res
+
+
+def phase_mega_family_tiny(seed: int) -> dict:
+    """The four methods' tiny models (``MEGA_TINY_OPTS`` over each config)
+    on the card against the port on the CPU, same weights and frames, TF32
+    off: 3 global frames, then 6 frames at 64x96.  Selections equal
+    (valid masks, labels, memory fills), scores and boxes within the tiny
+    phases' 1e-3; DAFA launches K1 and K2 (fp32 designs) and only it."""
+    import copy
+
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.models.detectors import build_detection_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    h, w = 64, 96
+    gframes = torch.rand(3, h, w, 3, generator=gen) * 255
+    frames = torch.rand(6, h, w, 3, generator=gen) * 255
+    rows = {}
+    for method, config in MEGA_FAMILY.items():
+        cfg = load_config(str(ROOT / "configs" / config),
+                          MEGA_TINY_OPTS + (MEGA_TINY_RINGS if method == "mega" else []))
+        cpu = condition_mega_family(build_detection_model(cfg, device="cpu", seed=seed), gen)
+        card = copy.deepcopy(cpu).cuda()
+        reset_launches()
+        c_out, c_state = _mega_drive(card, method, gframes, frames, (float(h), float(w)))
+        torch.cuda.synchronize()
+        used = read_launches()
+        p_out, p_state = _mega_drive(cpu, method, gframes, frames, (float(h), float(w)))
+        path = ("roi_align_fwd", "dynamic_conv") if method == "dafa" else ()
+        require(all((used[k] > 0) == (k in path) for k in used),
+                f"mega_family_tiny {method}: card launched {used}, expected exactly {path}")
+        require(_memory_fill(c_state) == _memory_fill(p_state),
+                f"mega_family_tiny {method}: memory fills differ")
+        errs = {"scores": 0.0, "boxes": 0.0}
+        kept = 0
+        for cd, pd in zip(c_out, p_out):
+            v = pd.valid
+            require(torch.equal(cd.valid.cpu(), v), f"mega_family_tiny {method}: valid masks differ")
+            require(torch.equal(cd.labels.cpu()[v], pd.labels[v]),
+                    f"mega_family_tiny {method}: labels differ")
+            kept += int(v.sum())
+            for key in ("scores", "boxes"):
+                g, r = getattr(cd, key).cpu().double()[v], getattr(pd, key).double()[v]
+                if r.numel():
+                    errs[key] = max(errs[key], float((g - r).abs().max() / r.abs().max()))
+        require(kept > 0, f"mega_family_tiny {method}: no detection")
+        require(max(errs.values()) < 1e-3, f"mega_family_tiny {method}: card vs CPU {errs}")
+        rows[method] = {"config": f"configs/{config}", "launches": used, "kept": kept,
+                        "rtol": 1e-3, **{f"max_rel_err_{k}": v for k, v in errs.items()},
+                        **_memory_fill(c_state)}
+        del cpu, card
+    emit("mega_family_tiny", frames=[3, 6], hw=[h, w], methods=rows)
+    return rows
+
+
+@contextlib.contextmanager
+def mega_probes(out: dict):
+    """Into ``out``: the state after the last frame, the video's frames on
+    the card, ``whwh`` and ``image_hw`` (``detect_frame``'s arguments), and
+    the global frames (``prime_state``'s)."""
+    from diffusionvid_torch.engine import inference_mega as im
+    inner_detect, inner_prime = im.detect_frame, im.prime_state
+
+    def detect(model, method, frames, f, state, whwh, image_hw, *args):
+        dets, state = inner_detect(model, method, frames, f, state, whwh, image_hw, *args)
+        out.update(state=state, frames=frames, whwh=whwh, image_hw=image_hw)
+        return dets, state
+
+    def prime(model, method, global_frames, *args):
+        out["global_frames"] = global_frames
+        return inner_prime(model, method, global_frames, *args)
+
+    im.detect_frame, im.prime_state = detect, prime
+    try:
+        yield
+    finally:
+        im.detect_frame, im.prime_state = inner_detect, inner_prime
+
+
+@contextlib.contextmanager
+def frame_breakdown(out: dict):
+    """Host-clock probes of one frame, each from a synchronised start: every
+    ``nms_select`` call (its candidates and ms) and the C4 pooler's
+    (``roi_align``) ms and its peak above the memory in use."""
+    from diffusionvid_torch.models import box_head, rpn
+    inner_nms = {m: m.nms_select for m in (rpn, box_head)}
+    inner_pool = box_head.roi_align
+    out.update(nms=[], pooler_ms=0.0, pooler_peak_gib=0.0)
+
+    def timed_nms(fn):
+        def run(boxes, scores, k, thr, valid=None, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(boxes, scores, k, thr, valid=valid, **kw)
+            torch.cuda.synchronize()
+            out["nms"].append({"candidates": int(boxes.shape[0]), "k": k,
+                               "ms": (time.perf_counter() - t0) * 1e3})
+            return res
+        return run
+
+    def pool(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = inner_pool(*args, **kw)
+        torch.cuda.synchronize()
+        out["pooler_ms"] += (time.perf_counter() - t0) * 1e3
+        out["pooler_peak_gib"] = max(out["pooler_peak_gib"],
+                                     (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        return res
+
+    for m, fn in inner_nms.items():
+        m.nms_select = timed_nms(fn)
+    box_head.roi_align = pool
+    try:
+        yield
+    finally:
+        for m, fn in inner_nms.items():
+            m.nms_select = fn
+        box_head.roi_align = inner_pool
+
+
+def dafa_kernel_checks(k1_keep: list, k2_keep: list) -> dict:
+    """K1 and K2 on DAFA's own inputs (one video's extract pass over 4
+    global frames and one frame, captured from the port's path): every
+    launch against its plain version (``k1_case``; K2 at the bf16
+    tolerance of phase 3), and one launch of each batch timed: ms, the
+    card's ``kernel_ms``, ``host_ms`` (K1), ``plain_ms``, the bound, and
+    K2's library chain ``unfused_ms``."""
+    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
+    require(len(k1_keep) == len(k2_keep) == 2 * DAFA_STAGES,
+            f"mega_family: captured {len(k1_keep)} K1 and {len(k2_keep)} K2 launches, "
+            f"expected {2 * DAFA_STAGES} each")
+    k1 = []
+    for i, cap in enumerate(k1_keep):
+        feats, rois, scales = cap["features"], cap["rois"], cap["scales"]
+        row = {"frames": int(rois.shape[0]), "rois": int(rois.shape[1]),
+               **k1_case(feats, rois, scales, what=f"mega_family K1 launch {i}")}
+        if i % DAFA_STAGES == DAFA_STAGES - 1:
+            row.update(k1_timing(feats, rois, scales))
+        k1.append(row)
+    k2 = []
+    for i, cap in enumerate(k2_keep):
+        args = cap["args"]
+        got = dynamic_conv_fused(*args)
+        row = {"s": int(args[0].shape[0]),
+               **compare(got, dynamic_conv_ref(*args), 3e-2, 3e-2, f"mega_family K2 launch {i}")}
+        if i % DAFA_STAGES == DAFA_STAGES - 1:
+            roi, p1t, p2e, lns = args[0], args[1], args[2], list(args[3:7])
+            row["bound_ms"], row["bound_by"] = k2_bound(roi, p1t, p2e, lns)
+            row["ms"] = cuda_time_ms(lambda: dynamic_conv_fused(*args))
+            row["kernel_ms"] = device_ms(lambda: dynamic_conv_fused(*args), K2_KERNELS, 20, 1)
+            row["plain_ms"] = cuda_time_ms(lambda: dynamic_conv_ref(*args))
+            row["unfused_ms"] = cuda_time_ms(k2_unfused(roi, p1t, p2e, lns))
+        k2.append(row)
+    timed = lambda rows: [r for r in rows if "ms" in r]  # noqa: E731
+    return {"k1": {"max_abs_err": max(r["max_abs_err"] for r in k1), "launches": len(k1),
+                   "timed": timed(k1)},
+            "k2": {"max_abs_err": max(r["max_abs_err"] for r in k2), "launches": len(k2),
+                   "timed": timed(k2)},
+            "dtype": str(k1_keep[0]["features"][0].dtype)}
+
+
+def phase_mega_family(seed: int) -> dict:
+    """The four MEGA-family configs at full width (R-101, bf16, random
+    weights from ``seed``), each through ``run_inference_video_arch`` on
+    one rendered video of 12 frames at 600x1000 (a warm-up pass, then the
+    timed one): fps, peak memory, the global memory's and the stage rings'
+    fill, the K1/K2 launches (DAFA: 6 a frame and 6 for the extract pass,
+    the others none).  Then one frame profiled (device busy, idle share)
+    and one probed (every NMS call's candidates and host ms, the C4
+    pooler's ms and peak).  Last, K1 and K2 on DAFA's own inputs
+    (``dafa_kernel_checks``).  Returns DAFA's launches."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine import inference_mega as im
+    from diffusionvid_torch.models.detectors import build_detection_model
+    from diffusionvid_torch.tools.test_net import sample_config
+
+    work = ROOT / "build" / "chip_smoke" / "mega_family"
+    n, (h, w) = MEGA_VIDEO["frames"], MEGA_VIDEO["hw"]
+    ds = open_eval_dataset(write_eval_dataset(work / "data", 1, n, (h, w), seed))
+    res = {"frames": n, "hw": [h, w], "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi_line(), "methods": {}}
+    dafa_launches, kernels = None, None
+    for method, config in MEGA_FAMILY.items():
+        cfg = load_config(str(ROOT / "configs" / config))
+        t0 = time.perf_counter()
+        model = build_detection_model(cfg, seed=seed)
+        build_s = time.perf_counter() - t0
+        scfg = sample_config(cfg)
+
+        def run():
+            return im.run_inference_video_arch(model, ds, scfg, method=method, seed=seed)
+
+        run()                                   # warm-up: allocator, cuDNN plans
+        probe = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with mega_probes(probe):
+            t0 = time.perf_counter()
+            preds, gts, results = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k: (DAFA_STAGES * (n + 1) if method == "dafa" and k in
+                    ("roi_align_fwd", "dynamic_conv") else 0) for k in launches}
+        require(launches == want, f"mega_family {method}: launches {launches}, expected {want}")
+        require(len(preds) == n == len(gts), f"mega_family {method}: {len(preds)} predictions")
+        for p in preds:
+            require(all(np.isfinite(p[k]).all() for k in ("boxes", "scores")),
+                    f"mega_family {method}: non-finite predictions")
+            if len(p["boxes"]):
+                require(p["boxes"].min() >= 0 and p["boxes"][:, 0::2].max() <= w
+                        and p["boxes"][:, 1::2].max() <= h,
+                        f"mega_family {method}: boxes outside the image")
+                ncls = (cfg.MODEL.DiffusionDet.NUM_CLASSES if method == "dafa"
+                        else cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1)
+                require(p["labels"].min() >= 1 and p["labels"].max() <= ncls,
+                        f"mega_family {method}: labels out of range")
+        fill = _memory_fill(probe["state"])
+        if method in ("mega", "dafa"):
+            require(fill["global_memory"][0] > 0, f"mega_family {method}: empty memory")
+        if method == "mega":
+            require(fill["stage_rings"] == [75 * n] * cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION.STAGE,
+                    f"mega_family mega: stage rings {fill['stage_rings']}")
+
+        # the middle frame, profiled and then probed, after priming the state
+        frames, whwh, hw = probe["frames"], probe["whwh"], probe["image_hw"]
+        with torch.no_grad():
+            state = im.prime_state(model, method, probe["global_frames"], whwh, hw)
+
+            def frame():
+                return im.detect_frame(model, method, frames, n // 2, state, whwh, hw)
+
+            prof = profile_device(frame, f"mega_family_{method}_frame")
+            breakdown = {}
+            with frame_breakdown(breakdown):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frame()
+                torch.cuda.synchronize()
+                probed_ms = (time.perf_counter() - t0) * 1e3
+        row = {"config": f"configs/{config}", "dtype": str(model.compute_dtype).split(".")[1],
+               "frames": n, "hw": [h, w], "model_build_s": build_s, "fps": n / wall,
+               "run_s": wall, "peak_mem_gib": peak,
+               "launches": launches, **fill,
+               "detections_per_frame": sum(len(p["scores"]) for p in preds) / n,
+               "ap50_random_weights": results["ap50"],
+               "frame_wall_ms": prof["profiled_wall_ms"],
+               "frame_device_busy_ms": prof["device_busy_ms"],
+               "frame_device_idle_share": prof["device_idle_share"],
+               "frame_device_ops": prof["device_ops"], "frame_top_device_ms": prof["top_device_ms"],
+               "frame_top_host_ms": prof["top_host_ms"],
+               "probed_frame_ms": probed_ms, "nms_calls": len(breakdown["nms"]),
+               "nms_host_ms": sum(c["ms"] for c in breakdown["nms"]),
+               "nms": breakdown["nms"], "pooler_ms": breakdown["pooler_ms"],
+               "pooler_peak_gib": breakdown["pooler_peak_gib"]}
+        if method == "dafa":
+            dafa_launches = launches
+            k1_keep, k2_keep = [], []
+            with torch.no_grad(), capture_k1(k1_keep), capture_k2(k2_keep):
+                state = im.prime_state(model, method, probe["global_frames"], whwh, hw)
+                im.detect_frame(model, method, frames, n - 1, state, whwh, hw)
+            kernels = dafa_kernel_checks(k1_keep, k2_keep)
+            del k1_keep, k2_keep
+        res["methods"][method] = row
+        emit("mega_family", method=method, **row, card=res["card"])
+        del model, state, frames, probe
+        torch.cuda.empty_cache()
+    emit("mega_family_kernels", **kernels, card=res["card"])
+    res["kernels"] = kernels
+    return {"launches": dafa_launches, **res}
+
+
 # ---------------------------------------------------------------- train paths
 
 TRAIN_KERNELS = ("roi_align_fwd", "dynamic_conv", "roi_align_bwd")
@@ -3201,6 +3559,8 @@ def main(argv=None) -> int:
     x4_launches = {k: x4[k] for k in ("roi_align_fwd", "dynamic_conv")}
     x4_launches.update({k: swin_x4[k] for k in ("swin_block_attn", "swin_block_mlp")})
     eval_counts = phase_flagship_eval(args.seed)["launches"]
+    phase_mega_family_tiny(args.seed)
+    dafa_counts = phase_mega_family(args.seed)["launches"]
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []
@@ -3240,6 +3600,7 @@ def main(argv=None) -> int:
             line[-1]["x4_launches"] = x4_launches[name]
         if name in ("roi_align_fwd", "dynamic_conv"):   # run_inference, R-101 x1
             line[-1]["eval_launches"] = eval_counts[name]
+            line[-1]["dafa_launches"] = dafa_counts[name]   # DAFA, run_inference_video_arch
         if name in TRAIN_KERNELS:   # the train CLI's uninterrupted run
             line[-1]["train_cli_launches"] = train_cli[name]
         if name in ("roi_align_fwd", "dynamic_conv"):   # R-101 with the local attention

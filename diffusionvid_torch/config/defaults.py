@@ -18,6 +18,9 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.META_ARCHITECTURE = "DiffusionDet"
     _C.MODEL.DEVICE = "cuda"
     _C.MODEL.RPN_ONLY = False
+    _C.MODEL.MASK_ON = False
+    _C.MODEL.KEYPOINT_ON = False
+    _C.MODEL.RETINANET_ON = False
     _C.MODEL.WEIGHT = ""
     _C.MODEL.PIXEL_MEAN = (123.675, 116.280, 103.530)
     _C.MODEL.PIXEL_STD = (58.395, 57.120, 57.375)
@@ -53,6 +56,25 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIAlignV2"
     _C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
     _C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 2
+    _C.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 31   # 30 VID classes + background
+
+    # RPN of the C4 architectures (reference defaults.py:119-180)
+    _C.MODEL.RPN = CfgNode()
+    _C.MODEL.RPN.USE_FPN = False
+    _C.MODEL.RPN.ANCHOR_SIZES = (64, 128, 256, 512)
+    _C.MODEL.RPN.ANCHOR_STRIDE = (16,)
+    _C.MODEL.RPN.ASPECT_RATIOS = (0.5, 1.0, 2.0)
+    _C.MODEL.RPN.STRADDLE_THRESH = 0
+    _C.MODEL.RPN.FG_IOU_THRESHOLD = 0.7
+    _C.MODEL.RPN.BG_IOU_THRESHOLD = 0.3
+    _C.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 256
+    _C.MODEL.RPN.POSITIVE_FRACTION = 0.5
+    _C.MODEL.RPN.PRE_NMS_TOP_N_TRAIN = 12000
+    _C.MODEL.RPN.PRE_NMS_TOP_N_TEST = 6000
+    _C.MODEL.RPN.POST_NMS_TOP_N_TRAIN = 2000
+    _C.MODEL.RPN.POST_NMS_TOP_N_TEST = 300
+    _C.MODEL.RPN.NMS_THRESH = 0.7
+    _C.MODEL.RPN.MIN_SIZE = 0
 
     # DiffusionDet head (reference add_diffusiondet_config)
     _C.MODEL.DiffusionDet = CfgNode()
@@ -81,6 +103,14 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION = CfgNode()
     _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE = False
     _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION.STAGE = 2
+    _C.MODEL.VID.ROI_BOX_HEAD.ATTENTION.ADVANCED_STAGE = 0
+    _C.MODEL.VID.RPN = CfgNode()
+    _C.MODEL.VID.RPN.REF_PRE_NMS_TOP_N = 6000
+    _C.MODEL.VID.RPN.REF_POST_NMS_TOP_N = 75
+    _C.MODEL.VID.RDN = CfgNode()
+    _C.MODEL.VID.RDN.RATIO = 0.2
+    _C.MODEL.VID.DFF = CfgNode()
+    _C.MODEL.VID.DFF.KEY_FRAME_DURATION = 10
     _C.MODEL.VID.MEGA = CfgNode()
     _C.MODEL.VID.MEGA.MIN_OFFSET = -12
     _C.MODEL.VID.MEGA.MAX_OFFSET = 12
@@ -89,18 +119,24 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.MEGA.SHUFFLED_CUR_TEST = False
     _C.MODEL.VID.MEGA.LOCAL = CfgNode()
     _C.MODEL.VID.MEGA.LOCAL.ENABLE = True
+    _C.MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND = False
+    _C.MODEL.VID.MEGA.MEMORY = CfgNode()
+    _C.MODEL.VID.MEGA.MEMORY.ENABLE = False
+    _C.MODEL.VID.MEGA.MEMORY.SIZE = 25
     _C.MODEL.VID.MEGA.GLOBAL = CfgNode()
     _C.MODEL.VID.MEGA.GLOBAL.ENABLE = True
     _C.MODEL.VID.MEGA.GLOBAL.RES_STAGE = 1
     _C.MODEL.VID.MEGA.GLOBAL.SIZE = 50
     _C.MODEL.VID.MEGA.GLOBAL.SHUFFLE = True
     _C.MODEL.VID.MEGA.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST = True
+    _C.MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND = False
     _C.MODEL.VID.MEGA.REF_NUM_GLOBAL = 4
     _C.MODEL.VID.MEGA.REF_NUM_LOCAL = 2
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_METRIC = "distance"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_TYPE = "greedy"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST = 750
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TRAIN = 300
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TEST = 1000
 
     _C.INPUT = CfgNode()
     _C.INPUT.MIN_SIZE_TRAIN = (600,)
@@ -151,6 +187,13 @@ def get_default_cfg() -> CfgNode:
     _C.TEST.EXPECTED_RESULTS_SIGMA_TOL = 4
     _C.TEST.DETECTIONS_PER_IMG = 300
     _C.TEST.SEQ_NMS = False
+    # test-time box augmentation (reference defaults.py:552-565); not ported
+    _C.TEST.BBOX_AUG = CfgNode()
+    _C.TEST.BBOX_AUG.ENABLED = False
+    _C.TEST.BBOX_AUG.H_FLIP = True
+    _C.TEST.BBOX_AUG.SCALES = ()
+    _C.TEST.BBOX_AUG.MAX_SIZE = 4000
+    _C.TEST.BBOX_AUG.SCALE_H_FLIP = False
 
     _C.TPU = CfgNode()
     _C.TPU.COMPUTE_DTYPE = "bfloat16"

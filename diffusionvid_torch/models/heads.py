@@ -166,6 +166,26 @@ class DynamicConv(nn.Module):
         return F.relu(self.norm3(x))
 
 
+def reset_head_parameters(module: nn.Module, gen: torch.Generator):
+    """The JAX package's initializers for decoder stages under ``module``:
+    xavier-uniform weights, zero biases, LayerNorm at identity, each
+    stage's class bias at the focal prior."""
+    for m in module.modules():
+        if isinstance(m, (Linear, nn.Linear)):
+            _xavier_(m.weight, gen)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, MultiheadAttention):
+            _xavier_(m.in_proj_weight, gen)
+            with torch.no_grad():
+                m.in_proj_bias.zero_()
+    for m in module.modules():
+        if isinstance(m, RCNNHead):
+            with torch.no_grad():
+                m.class_logits.bias.fill_(-math.log((1 - m.prior_prob) / m.prior_prob))
+
+
 def _tower(d: int, n: int, dtype):
     """torch ModuleList [Linear(no bias), LayerNorm, ReLU] x n."""
     mods = []
@@ -177,25 +197,30 @@ def _tower(d: int, n: int, dtype):
 class RCNNHead(nn.Module):
     """One decoder stage (box_head.py:438-548); ``conditioned=True`` is
     RCNNHead_cond (box_head.py:593-664): the FiLM shift comes from the
-    temporal cross-attention output."""
+    temporal cross-attention output.  ``use_time=False`` is the plain
+    Sparse R-CNN stage of DAFA (the JAX package's ``RCNNHead(use_time=
+    False)``): no time FiLM and no ``block_time_mlp``; conditioned, the
+    shift ``c_mlp(cond)`` is added alone."""
 
     def __init__(self, d_model: int = 256, num_classes: int = 30,
                  dim_feedforward: int = 2048, num_heads: int = 8,
                  num_cls: int = 1, num_reg: int = 3, pooler_resolution: int = 7,
                  sampling_ratio: int = 2, conditioned: bool = False,
-                 prior_prob: float = 0.01, dtype=torch.float32):
+                 prior_prob: float = 0.01, use_time: bool = True, dtype=torch.float32):
         super().__init__()
         d = d_model
         self.d_model = d
         self.pooler_resolution, self.sampling_ratio = pooler_resolution, sampling_ratio
         self.conditioned, self.prior_prob = conditioned, prior_prob
+        self.use_time = use_time
         self.self_attn = MultiheadAttention(d, num_heads, dtype)
         self.inst_interact = DynamicConv(d, pooler_resolution=pooler_resolution, dtype=dtype)
         self.linear1 = Linear(d, dim_feedforward, dtype=dtype)
         self.linear2 = Linear(dim_feedforward, d, dtype=dtype)
         self.norm1, self.norm2, self.norm3 = LayerNorm(d), LayerNorm(d), LayerNorm(d)
-        self.block_time_mlp = nn.Sequential(
-            nn.SiLU(), Linear(4 * d, d if conditioned else 2 * d, dtype=dtype))
+        if use_time:
+            self.block_time_mlp = nn.Sequential(
+                nn.SiLU(), Linear(4 * d, d if conditioned else 2 * d, dtype=dtype))
         if conditioned:
             self.c_mlp = nn.Sequential(nn.SiLU(), Linear(d, d, dtype=dtype))
         self.cls_module = _tower(d, num_cls, dtype)
@@ -206,7 +231,8 @@ class RCNNHead(nn.Module):
     def forward(self, features, spatial_scales, bboxes, pro_features, time_emb,
                 cond=None):
         """features: list of [B, Hl, Wl, C] maps; bboxes [B, N, 4] xyxy;
-        pro_features [B, N, D] or None; time_emb [B, 4D]; cond [B, N, D].
+        pro_features [B, N, D] or None; time_emb [B, 4D] (None without
+        time); cond [B, N, D].
         Returns (class_logits [B, N, K], pred_boxes [B, N, 4] float32,
         obj_features [B, N, D])."""
         d = self.d_model
@@ -225,13 +251,17 @@ class RCNNHead(nn.Module):
         obj_features = self.norm3(x + y)
 
         fc = obj_features.reshape(b * n, d)
-        if self.conditioned:
-            scale = self.block_time_mlp(time_emb).repeat_interleave(n, 0)
-            shift = self.c_mlp(cond.reshape(b * n, d))
+        if not self.use_time:
+            if self.conditioned:
+                fc = fc + self.c_mlp(cond.reshape(b * n, d))
         else:
-            ss = self.block_time_mlp(time_emb).repeat_interleave(n, 0)
-            scale, shift = ss.chunk(2, -1)
-        fc = fc * (scale + 1.0) + shift
+            if self.conditioned:
+                scale = self.block_time_mlp(time_emb).repeat_interleave(n, 0)
+                shift = self.c_mlp(cond.reshape(b * n, d))
+            else:
+                ss = self.block_time_mlp(time_emb).repeat_interleave(n, 0)
+                scale, shift = ss.chunk(2, -1)
+            fc = fc * (scale + 1.0) + shift
 
         cls_feat = fc
         for m in self.cls_module:
@@ -289,22 +319,7 @@ class DynamicHead(nn.Module):
             Linear(4 * d_model, 4 * d_model, dtype=dtype))
 
     def reset_parameters(self, gen: torch.Generator):
-        """The JAX package's initializers: xavier-uniform weights, zero
-        biases, LayerNorm at identity, the class bias at the focal prior."""
-        for m in self.modules():
-            if isinstance(m, (Linear, nn.Linear)):
-                _xavier_(m.weight, gen)
-                if m.bias is not None:
-                    with torch.no_grad():
-                        m.bias.zero_()
-            elif isinstance(m, MultiheadAttention):
-                _xavier_(m.in_proj_weight, gen)
-                with torch.no_grad():
-                    m.in_proj_bias.zero_()
-        for m in self.modules():
-            if isinstance(m, RCNNHead):
-                with torch.no_grad():
-                    m.class_logits.bias.fill_(-math.log((1 - m.prior_prob) / m.prior_prob))
+        reset_head_parameters(self, gen)
 
     def shared_stages(self, features, spatial_scales, bboxes, t):
         """Run the shared stages → per-stage logits and boxes, the last

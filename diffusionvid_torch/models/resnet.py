@@ -59,16 +59,18 @@ class Conv2d(nn.Module):
     (detectron2's ``layers.Conv2d``), run in the input's dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, bias: bool = False, norm: bool = False):
+                 padding: int = 0, bias: bool = False, norm: bool = False,
+                 dilation: int = 1):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.norm = FrozenBatchNorm2d(cout) if norm else None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+        y = F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding,
+                     self.dilation)
         return y if self.norm is None else self.norm(y)
 
 
@@ -83,14 +85,19 @@ class BasicStem(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
-    """torchvision bottleneck: 1x1 → 3x3 (stride) → 1x1, FrozenBN, ReLU."""
+    """torchvision bottleneck: 1x1 → 3x3 (stride) → 1x1, FrozenBN, ReLU.
+    A dilation above 1 sets the stride to 1 (maskrcnn-benchmark's
+    ``Bottleneck``: "if dilation > 1: stride = 1")."""
 
-    def __init__(self, cin: int, mid: int, cout: int, stride: int):
+    def __init__(self, cin: int, mid: int, cout: int, stride: int, dilation: int = 1):
         super().__init__()
+        if dilation > 1:
+            stride = 1
         self.shortcut = (Conv2d(cin, cout, 1, stride=stride, norm=True)
                          if (stride != 1 or cin != cout) else None)
         self.conv1 = Conv2d(cin, mid, 1, norm=True)
-        self.conv2 = Conv2d(mid, mid, 3, stride=stride, padding=1, norm=True)
+        self.conv2 = Conv2d(mid, mid, 3, stride=stride, padding=dilation, norm=True,
+                            dilation=dilation)
         self.conv3 = Conv2d(mid, cout, 1, norm=True)
 
     def forward(self, x):
@@ -99,6 +106,15 @@ class BottleneckBlock(nn.Module):
         y = self.conv3(y)
         identity = x if self.shortcut is None else self.shortcut(x)
         return F.relu(y + identity)
+
+
+def he_init_(module: nn.Module, gen: torch.Generator):
+    """Every ``Conv2d`` under ``module``: normal with variance 2 / fan-out."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            fan_out = m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3]
+            with torch.no_grad():
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
 
 
 class ResNet(nn.Module):
@@ -126,11 +142,7 @@ class ResNet(nn.Module):
     def reset_parameters(self, gen: torch.Generator):
         """He init over fan-out (the JAX package's variance_scaling(2.0,
         "fan_out"), normal instead of truncated), identity FrozenBN."""
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                fan_out = m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3]
-                with torch.no_grad():
-                    m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
+        he_init_(self, gen)
 
     def forward(self, x):
         x = self.stem(x)
@@ -139,3 +151,24 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x)
             outs[name] = x
         return {k: outs[k] for k in self.out_features}
+
+
+class ResNetStage(nn.Module):
+    """One standalone ResNet stage: the C4 architectures' res5 box head on
+    the pooled 14x14 features (the JAX package's ``ResNetStage``; the
+    reference's ``ResNetHead``).  ``dilation`` is ``RES5_DILATION``; above 1
+    the stage keeps stride 1."""
+
+    def __init__(self, depth: int = 101, stage: int = 5, stride: int = 2,
+                 dilation: int = 1):
+        super().__init__()
+        n_blocks = RESNET_STAGES[depth][stage - 2]
+        mid, cout = 64 * 2 ** (stage - 2), 256 * 2 ** (stage - 2)
+        cin = cout // 2
+        self.stage = stage
+        self.add_module(f"res{stage}", nn.Sequential(*[
+            BottleneckBlock(cin if b == 0 else cout, mid, cout, stride if b == 0 else 1,
+                            dilation) for b in range(n_blocks)]))
+
+    def forward(self, x):
+        return getattr(self, f"res{self.stage}")(x)

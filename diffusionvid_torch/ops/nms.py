@@ -60,3 +60,60 @@ def batched_nms_mask(boxes, scores, labels, iou_threshold: float, valid=None,
     offsets = labels.to(boxes.dtype)[..., None] * (max_coord + 1.0)
     return nms_mask(boxes + offsets, scores, iou_threshold, valid=valid,
                     plus_one=plus_one)
+
+
+def _greedy_survivors(suppress, live):
+    """The greedy pass over score-sorted candidates: ``keep[j] = live[j]``
+    and no kept ``i < j`` has ``suppress[i, j]``.  Iterated from ``keep =
+    live`` to its unique fixed point, as in ``nms_mask``."""
+    keep = live
+    for _ in range(live.shape[0] + 1):
+        nxt = live & ~(suppress & keep[:, None]).any(0)
+        if torch.equal(nxt, keep):
+            break
+        keep = nxt
+    return keep
+
+
+def nms_select(boxes, scores, k: int, iou_threshold: float, valid=None,
+               plus_one: bool = False, block: int = 2048):
+    """Greedy NMS → the first ``k`` survivors' indices in selection order,
+    ``[k]`` int64, and ``[k]`` bool valid; the slots past the survivors are
+    index 0 and invalid (the JAX package's ``nms_select``, one image).
+
+    The JAX package selects one box a step by ``argmax``, so among tied
+    scores the LOWER index goes first (``nms_mask`` puts the higher first).
+    Here the candidates (valid, score above -inf) are sorted by a stable
+    descending sort, which gives the same order, and the greedy pass is
+    solved over them at once; the first ``k`` survivors do not depend on
+    later ones.  The IoU is the JAX package's: ``inter / max(union,
+    1e-12)``.  The suppression matrix is built ``block`` rows at a time."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    neg_inf = torch.full_like(scores, -float("inf"))
+    live = valid & (scores > neg_inf)
+    order = torch.sort(torch.where(live, scores, neg_inf), descending=True, stable=True).indices
+    m = int(live.sum())
+    order = order[:m]
+    sb = boxes[order]
+    off = 1.0 if plus_one else 0.0
+    area = (sb[:, 2] - sb[:, 0] + off) * (sb[:, 3] - sb[:, 1] + off)
+    cols = torch.arange(m, device=dev)
+    suppress = torch.empty(m, m, dtype=torch.bool, device=dev)
+    for s in range(0, m, block):
+        rows = sb[s:s + block]
+        lt = torch.maximum(rows[:, None, :2], sb[None, :, :2])
+        rb = torch.minimum(rows[:, None, 2:], sb[None, :, 2:])
+        wh = (rb - lt + off).clamp(min=0.0)
+        inter = wh[..., 0] * wh[..., 1]
+        iou = inter / (area[s:s + block, None] + area[None, :] - inter).clamp(min=1e-12)
+        later = cols[None, :] > cols[s:s + block, None]
+        suppress[s:s + block] = (iou > iou_threshold) & later
+    keep = _greedy_survivors(suppress, torch.ones(m, dtype=torch.bool, device=dev))
+    picked = order[keep][:k]
+    idx = torch.zeros(k, dtype=torch.long, device=dev)
+    idx[:picked.shape[0]] = picked
+    ok = torch.arange(k, device=dev) < picked.shape[0]
+    return idx, ok

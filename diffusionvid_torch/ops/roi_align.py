@@ -560,3 +560,59 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois,
 
 
 multilevel_roi_align.launches = 0
+
+
+def _axis_taps(coords, size):
+    """Per sample along one axis: the low and high cells and their
+    bilinear weights, zero outside [-1, size] (the CUDA border rule)."""
+    sz = size.float()
+    inside = (coords >= -1.0) & (coords <= sz)
+    cc = torch.minimum(coords.clamp(min=0.0), sz - 1.0)
+    low = torch.floor(cc)
+    high = torch.minimum(low + 1.0, sz - 1.0)
+    frac = cc - low
+    return low.long(), high.long(), (1.0 - frac) * inside, frac * inside
+
+
+def roi_align(features, rois, spatial_scale: float, output_size: int = 14,
+              sampling_ratio: int = 2, aligned: bool = True, chunk: int = 32):
+    """Single-level ROIAlign → ``[B, R, p, p, C]`` (y-major) in the
+    features' dtype: the C4 box head's pooler (the JAX package's
+    ``ops/roi_align.py: roi_align``, which is plain ``lax`` there, never a
+    Pallas kernel).  ``features`` ``[B, H, W, C]`` NHWC.
+
+    The plain gather on every device, in fp32, taken one axis at a time: the
+    bilinear weights and the border mask of a sample are a product of a y
+    and an x factor, so each ROI gathers its samples' rows, blends them and
+    averages the ``sampling_ratio`` rows of a bin, then does the same along
+    x.  The sum is the JAX package's up to the order of the additions.
+    ``chunk`` ROIs go at a time: a chunk holds ``chunk * p * sr * W * C``
+    fp32 values of blended rows (a MEGA frame pools about 675 ROIs)."""
+    b, r = rois.shape[:2]
+    hgt, wid, c = features.shape[1:]
+    p, sr = output_size, sampling_ratio
+    dev = rois.device
+    level = torch.zeros(b, r, dtype=torch.int32, device=dev)
+    ys, xs, lvl_h, lvl_w = _sample_coords(rois, level, [(hgt, wid)], [spatial_scale], p, sr,
+                                          aligned)
+    y0, y1, wy0, wy1 = _axis_taps(ys, lvl_h[..., None])
+    x0, x1, wx0, wx1 = _axis_taps(xs, lvl_w[..., None])
+    frame = torch.arange(b, device=dev)[:, None, None] * hgt
+    rows = features.reshape(b * hgt, wid, c)
+    y0, y1 = (y0 + frame).reshape(b * r, -1), (y1 + frame).reshape(b * r, -1)
+    x0, x1 = x0.reshape(b * r, -1), x1.reshape(b * r, -1)
+    wy0, wy1, wx0, wx1 = (t.reshape(b * r, -1) for t in (wy0, wy1, wx0, wx1))
+    out = torch.empty(b * r, p, p, c, dtype=features.dtype, device=dev)
+    for s in range(0, b * r, chunk):
+        e = min(s + chunk, b * r)
+        n = e - s
+        vert = (rows[y0[s:e]].float() * wy0[s:e, :, None, None]
+                + rows[y1[s:e]].float() * wy1[s:e, :, None, None])       # [n, p*sr, W, C]
+        vert = vert.view(n, p, sr, wid, c).mean(2)                       # [n, p, W, C]
+
+        def cols(idx):
+            return torch.gather(vert, 2, idx[s:e, None, :, None].expand(n, p, p * sr, c))
+
+        horiz = cols(x0) * wx0[s:e, None, :, None] + cols(x1) * wx1[s:e, None, :, None]
+        out[s:e] = horiz.view(n, p, p, sr, c).mean(3).to(features.dtype)
+    return out.reshape(b, r, p, p, c)

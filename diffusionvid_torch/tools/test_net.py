@@ -2,8 +2,10 @@
 
 Port of ``tools/test_net.py`` (the reference's ``tools/test_net.py:29-138``):
 the model from the config with random weights from seed 0, then a
-checkpoint over them; per-video streaming inference sharded at video
-boundaries; ``predictions.pkl``; the AP50 (and motion buckets) report.
+checkpoint over them; per-video inference sharded at video boundaries
+(DiffusionVID streaming, or the MEGA family's ``base``, ``rdn``, ``mega``
+and ``dafa`` through ``engine/inference_mega.py``); ``predictions.pkl``;
+the AP50 (and motion buckets) report.
 
     python -m diffusionvid_torch.tools.test_net \\
         --config-file configs/vid_R_101_DiffusionVID.yaml \\
@@ -21,18 +23,20 @@ kernels' plain versions on the CPU (over ``gloo`` under ``torchrun``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pickle
 
 from ..config import load_config
 from ..data import SampleConfig, get_dataset
 from ..engine.inference import run_inference
+from ..engine.inference_mega import run_inference_video_arch
 from ..evaluation.vid_eval import eval_proposals, evaluate_vid, load_motion_iou_mat
-from ..models.diffusion_det import DiffusionDetArch
+from ..models.detectors import build_detection_model, check_supported, video_method
 from ..parallel import dist
 from ..utils.checkpoint import load_checkpoint
-from ..utils.convert import load_weights_into
-from ..utils.logging import setup_logger
+from ..utils.convert import load_jax_checkpoint, load_weights_into
+from ..utils.logging import log_to_file, setup_logger
 from ..utils.metrics_io import check_expected_results
 from ..utils.profiling import trace
 
@@ -93,14 +97,18 @@ def load_motion_ious(path, logger):
 
 
 def load_weights(model, args, logger):
-    """``--checkpoint``: the port's own ``model_<step>.pth``, loaded
+    """``--checkpoint``: the port's own ``model_<step>.pth`` or a JAX
+    package checkpoint (``utils/convert.py: load_jax_checkpoint``), loaded
     strictly.  ``--torch-weights``: a reference weight file in any format
     of ``utils/convert.py: load_pretrained`` (a full-model ``.pth``, with or
     without a ``module.`` prefix, among them), merged over the model's
     tensors where names and shapes match, nothing skipped; a file that
     matches no tensor raises."""
     if args.checkpoint:
-        model.load_state_dict(load_checkpoint(args.checkpoint)["model"], strict=True)
+        state = load_jax_checkpoint(args.checkpoint)
+        if state is None:
+            state = load_checkpoint(args.checkpoint)["model"]
+        model.load_state_dict(state, strict=True)
         logger.info(f"loaded checkpoint {args.checkpoint}")
     elif args.torch_weights:
         n = load_weights_into(model, args.torch_weights)
@@ -150,19 +158,24 @@ def main(argv=None):
 
 
 def _main(cfg, args, output_dir):
-    logger = setup_logger(save_dir=output_dir if dist.rank() == 0 else None)
+    """Rank 0 copies the log to ``output_dir/log.txt``, whatever directory
+    an earlier run in this process logged to."""
+    logger = setup_logger()
+    to_file = log_to_file(logger, output_dir) if dist.rank() == 0 else contextlib.nullcontext()
+    with to_file:
+        return _evaluate(cfg, args, output_dir, logger)
 
-    method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
-    if not (method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"):
-        raise NotImplementedError(
-            f"VID.METHOD {method} (META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}): only "
-            "DiffusionVID is ported; the MEGA family is ROADMAP.md A10")
+
+def _evaluate(cfg, args, output_dir, logger):
+    method = video_method(cfg)
+    is_diffusion = method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"
+    check_supported(cfg)
     dataset_name = cfg.DATASETS.TEST[0]
     ds = get_dataset(dataset_name, is_train=False, data_dir=args.data_dir)
     if not ds.is_video:
         raise NotImplementedError(f"{dataset_name} is not a video dataset: the still-image "
                                   "evaluation is ROADMAP.md A11")
-    model = DiffusionDetArch.from_config(cfg, device=args.device)
+    model = build_detection_model(cfg, device=args.device)
     load_weights(model, args, logger)
 
     motion_ious = None
@@ -172,13 +185,18 @@ def _main(cfg, args, output_dir):
             mat = os.path.join(args.data_dir, "vid_groundtruth_motion_iou.mat")
         motion_ious = load_motion_ious(mat, logger)
 
+    common = dict(output_dir=output_dir, use_seq_nms=args.seq_nms, motion_ious=motion_ious,
+                  motion_specific=args.motion_specific, shard=args.shard,
+                  num_shards=args.num_shards, logger=logger, max_videos=args.max_videos)
     with trace(args.profile_dir):
-        predictions, gt_list, results = run_inference(
-            model, ds, sample_config(cfg), **detector_args(cfg),
-            output_dir=output_dir, use_seq_nms=args.seq_nms,
-            motion_ious=motion_ious, motion_specific=args.motion_specific,
-            shard=args.shard, num_shards=args.num_shards, logger=logger,
-            max_videos=args.max_videos)
+        if is_diffusion:
+            predictions, gt_list, results = run_inference(
+                model, ds, sample_config(cfg), **detector_args(cfg), **common)
+        else:
+            predictions, gt_list, results = run_inference_video_arch(
+                model, ds, sample_config(cfg), method=method,
+                use_bbox_aug=bool(cfg.TEST.BBOX_AUG.ENABLED),
+                shuffled_cur=bool(cfg.MODEL.VID.MEGA.SHUFFLED_CUR_TEST), **common)
 
     if dist.rank() != 0:
         return None     # rank 0 evaluates the gathered predictions

@@ -194,7 +194,7 @@ def main(argv=None) -> dict:
     if not (method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"):
         raise NotImplementedError(
             f"VID.METHOD {method} (META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}): only "
-            "DiffusionVID is ported; the MEGA family is ROADMAP.md A7")
+            "DiffusionVID trains in the port; the MEGA family's train half is ROADMAP.md A7.5")
     started = not dist.is_initialized() and dist.initialize(args.device)
     try:
         return _main(cfg, args)

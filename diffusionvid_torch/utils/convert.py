@@ -1,7 +1,10 @@
 """Weights from other formats onto the port's parameter names.
 
 The port's modules carry the reference's detectron2/DiffusionDet names
-(``backbone.bottom_up.stem.conv1.weight``, ``head.head_series.0...``).
+(``backbone.bottom_up.stem.conv1.weight``, ``head.head_series.0...``).  The
+MEGA family's follow the JAX package's tree (``detector.rpn.conv.weight``,
+``detector.roi_head.head.res5.0.conv1.weight``, ``relation.attn0.Wq.weight``,
+DAFA's ``heads.{i}``), its trunks again detectron2's names.
 
 ``state_dict_from_jax``: the JAX package stores every parameter in torch
 layout (conv weights [out, in, kh, kw], linear weights [out, in], fused MHA
@@ -98,25 +101,45 @@ def _swin_name(path) -> str | None:
     return None
 
 
+def _resnet_name(path) -> str | None:
+    """One ResNet tree path (``conv1``/``bn1`` or ``layerS.B/sub/leaf``) →
+    its detectron2 name (``stem.conv1.*``, ``res{S+1}.B.conv{k}[.norm].*``),
+    or None."""
+    mod = path[0]
+    if mod in ("conv1", "bn1"):
+        return "stem.conv1." + (path[1] if mod == "conv1" else f"norm.{path[1]}")
+    m = re.fullmatch(r"layer(\d)\.(\d+)", mod)
+    if m:
+        stage, block = int(m.group(1)) + 1, m.group(2)
+        sub, leaf = path[1], path[2]
+        conv = {"downsample_conv": "shortcut", "downsample_bn": "shortcut"}.get(
+            sub, re.sub(r"^bn", "conv", sub))
+        tail = leaf if sub.endswith("conv") or sub.startswith("conv") else f"norm.{leaf}"
+        return f"res{stage}.{block}.{conv}.{tail}"
+    return None
+
+
+# MEGA-family modules whose port names join the JAX path as it is
+_JOINED = ("rpn", "predictor", "reduce", "relation", "global_lm", "temporal_attn",
+           "init_proposal_boxes", "init_proposal_features")
+
+
 def _torch_name(path, fpn_levels) -> str:
     top = path[0]
     if top == "backbone":
-        swin = _swin_name(path[1:])
-        if swin is not None:
-            return "backbone.bottom_up." + swin
-        mod = path[1]
-        if mod in ("conv1", "bn1"):
-            leaf = path[2]
-            return ("backbone.bottom_up.stem.conv1."
-                    + (leaf if mod == "conv1" else f"norm.{leaf}"))
-        m = re.fullmatch(r"layer(\d)\.(\d+)", mod)
-        if m:
-            stage, block = int(m.group(1)) + 1, m.group(2)
-            sub, leaf = path[2], path[3]
-            conv = {"downsample_conv": "shortcut", "downsample_bn": "shortcut"}.get(
-                sub, re.sub(r"^bn", "conv", sub))
-            tail = leaf if sub.endswith("conv") or sub.startswith("conv") else f"norm.{leaf}"
-            return f"backbone.bottom_up.res{stage}.{block}.{conv}.{tail}"
+        name = _swin_name(path[1:]) or _resnet_name(path[1:])
+        if name is not None:
+            return "backbone.bottom_up." + name
+    elif top == "detector":
+        return "detector." + _torch_name(path[1:], fpn_levels)
+    elif top in _JOINED:
+        return ".".join(path)
+    elif top == "roi_head" and path[1] == "head":
+        name = _resnet_name(path[2:])
+        if name is not None:
+            return "roi_head.head." + name
+    elif re.fullmatch(r"head\d+", top):   # DAFA's decoder stages
+        return f"heads.{top[4:]}.{_rcnn_head_name(path[1:])}"
     elif top == "fpn":
         m = re.fullmatch(r"(lateral|output)(\d)", path[1])
         if m and path[2] == "Conv_0":
@@ -140,9 +163,10 @@ def _torch_name(path, fpn_levels) -> str:
 
 
 def state_dict_from_jax(params, fpn_levels=(3, 4, 5)) -> Dict[str, torch.Tensor]:
-    """JAX ``DiffusionDetArch`` parameter tree (``{"params": ...}`` or the
-    bare tree, leaves array-like) → the port's state dict (float32 tensors,
-    and each Swin block's int64 ``relative_position_index``)."""
+    """A JAX parameter tree (``{"params": ...}`` or the bare tree, leaves
+    array-like) of ``DiffusionDetArch``, ``GeneralizedRCNN``, ``RDNArch``,
+    ``MEGAArch`` or ``SparseRCNNDAFA`` → the port's state dict (float32
+    tensors, and each Swin block's int64 ``relative_position_index``)."""
     tree = params.get("params", params)
     state = {}
     for path, v in _flatten(tree):
@@ -320,3 +344,27 @@ def weight_path(weight: str):
     if not os.path.exists(weight):
         raise FileNotFoundError(f"MODEL.WEIGHT {weight!r} does not exist")
     return weight
+
+
+def load_jax_checkpoint(path: str):
+    """A JAX package checkpoint (``utils/checkpoint.py: save_checkpoint``)
+    → the port's state dict, or None when ``path`` is not one.  The JAX
+    package writes ``model_<step>.pkl``, a pickle of numpy trees with
+    ``params``, when ``orbax`` is missing; ``path`` may name that file or
+    leave out its ``.pkl``.  An orbax directory needs ``orbax``, which
+    imports JAX, so it raises: re-save it as that pickle where JAX runs."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory, which the port does not read: "
+            f"re-save it where JAX runs as the JAX package's pickle form, "
+            f"pickle.dump(jax.tree.map(np.asarray, load_checkpoint(path)), "
+            f"open(path + '.pkl', 'wb'))")
+    pkl = path if path.endswith(".pkl") else path + ".pkl"
+    if not os.path.isfile(pkl):
+        return None
+    import pickle
+    with open(pkl, "rb") as f:
+        payload = pickle.load(f)
+    if not (isinstance(payload, dict) and "params" in payload):
+        raise ValueError(f"{pkl} holds no 'params' tree: not a JAX package checkpoint")
+    return state_dict_from_jax(payload["params"])

@@ -362,8 +362,8 @@ def test_cli_without_a_card_raises(catalog_vid, monkeypatch, tmp_path):
 
 
 def test_cli_refuses_unported_methods(catalog_vid, tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A7.1"):
         cli(catalog_vid, tmp_path, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
-            "MODEL.VID.ENABLE", "True", "MODEL.VID.METHOD", "mega")
+            "MODEL.VID.ENABLE", "True", "MODEL.VID.METHOD", "dff")
     with pytest.raises(NotImplementedError, match="A11"):
         cli(catalog_vid, tmp_path, "DATASETS.TEST", "('coco_2017_val',)")

@@ -20,7 +20,20 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffusionvid_tpu")
 PORT_FILES = sorted((ROOT / "diffusionvid_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthetic.yaml",
-           "configs/vid_Swin_B_DiffusionVID.yaml"]
+           "configs/vid_Swin_B_DiffusionVID.yaml", "configs/vid_R_101_C4_1x.yaml",
+           "configs/RDN/vid_R_101_C4_RDN_base_1x.yaml", "configs/MEGA/vid_R_101_C4_MEGA_1x.yaml",
+           "configs/MEGA/vid_R_101_C4_DAFA_1x.yaml"]
+# the keys the MEGA family's builder, engine and CLI read
+MEGA_KEYS = {"MODEL.RPN.ANCHOR_SIZES", "MODEL.RPN.PRE_NMS_TOP_N_TEST",
+             "MODEL.RPN.POST_NMS_TOP_N_TEST", "MODEL.ROI_BOX_HEAD.NUM_CLASSES",
+             "MODEL.RESNETS.RES5_DILATION", "MODEL.VID.ROI_BOX_HEAD.ATTENTION.ADVANCED_STAGE",
+             "MODEL.VID.RPN.REF_POST_NMS_TOP_N", "MODEL.VID.RDN.RATIO",
+             "MODEL.VID.MEGA.MEMORY.ENABLE", "MODEL.VID.MEGA.MEMORY.SIZE",
+             "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST", "MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND",
+             "MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND", "MODEL.VID.MEGA.SHUFFLED_CUR_TEST",
+             "MODEL.VID.DFF.KEY_FRAME_DURATION", "TEST.BBOX_AUG.ENABLED", "TEST.BBOX_AUG.SCALES",
+             "MODEL.MASK_ON", "MODEL.KEYPOINT_ON", "MODEL.RETINANET_ON", "MODEL.VID.METHOD",
+             "MODEL.META_ARCHITECTURE"}
 
 
 def _imported_roots(path: Path):
@@ -46,7 +59,9 @@ def test_imports_with_jax_blocked():
                 "data.catalog", "data.transforms", "evaluation.vid_eval", "engine.seq_nms",
                 "engine.inference", "tools.test_net", "tools.test_prediction",
                 "utils.logging", "utils.metrics_io", "utils.profiling", "data.samplers",
-                "tools.train_net", "utils.collect_env", "utils.convert"):
+                "tools.train_net", "utils.collect_env", "utils.convert", "models.rpn",
+                "models.box_head", "models.rcnn", "models.relation", "models.video_archs",
+                "models.dafa", "models.detectors", "engine.inference_mega"):
         assert "diffusionvid_torch." + new in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
@@ -75,7 +90,7 @@ def test_config_matches_jax_package(cfg_file):
             "TEST.SEQ_NMS", "DATASETS.TEST", "MODEL.VID.MEGA.GLOBAL.SHUFFLE", "INPUT.TRANSFORM",
             "SOLVER.TEST_PERIOD", "SOLVER.IMS_PER_BATCH", "SOLVER.BATCH_REUSE_STEPS",
             "DATALOADER.ASPECT_RATIO_GROUPING", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TRAIN",
-            "DATASETS.TRAIN", "SOLVER.CHECKPOINT_PERIOD", "SOLVER.MAX_ITER"} <= set(shared)
+            "DATASETS.TRAIN", "SOLVER.CHECKPOINT_PERIOD", "SOLVER.MAX_ITER"} | MEGA_KEYS <= set(shared)
     for k, v in shared.items():
         assert v == ref[k], k
 
