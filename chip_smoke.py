@@ -130,6 +130,23 @@ Phases, one JSON line each:
               ``mega_family_kernels``, K1 and K2 on DAFA's own inputs (the
               extract pass and one frame), checked and timed
               (``phase_mega_family``).
+  10c. mega_family_rest_tiny the rest of the MEGA family (``MEGA_REST``):
+              DFF (keys at frames 0 and 4), FGFA, MEGA on ResNeXt (the X-101
+              config narrowed to 8 groups of 8), ``base`` with
+              ``TEST.BBOX_AUG`` (h-flip and two scales, each flipped too) and
+              MEGA on the pixel paths (160x240 frames) at depth 18, card
+              against CPU (labels equal, values within 1e-3, memories'
+              fills equal, no launch of K1–K7); then ``mega_family_rest``,
+              the five at full width, bf16 (``DFF/..._DFF_1x``,
+              ``FGFA/..._FGFA_1x``, ``MEGA/vid_X_101_C4_MEGA_1x``,
+              ``vid_R_101_C4_1x`` with ``BBOX_AUG`` at scales 400 and 800,
+              max 2000, and ``MEGA/..._MEGA_1x`` with ``ATTENTION.ENABLE``
+              off and both pixel flags), through ``run_inference_video_arch``
+              with the CLI's options on one rendered video of 12 frames at
+              600x1000: fps, peak memory, the memories' and pixel caches'
+              fill, DFF's key passes, no launch of K1–K7, the middle frame's
+              device busy ms and idle share, FlowNetS's ms a pair
+              (``phase_mega_family_rest``).
   11. flagship_train_cli training from files on disk through the port's
               train CLI (``tools/train_net.main``, after phase 8's Swin-B
               step): the R-101 config at full width with the SSD
@@ -2260,7 +2277,8 @@ def condition_mega_family(model, gen):
     near-tie (the conditioning of ``tests/test_torch_port_rcnn.py``):
     convolutions at variance 1/fan-in, the relation's value weights x3 and
     geometry weights x30, the head's biases and norms perturbed, DAFA's
-    class biases near zero."""
+    class biases near zero; FlowNetS's flow layer x8, so that the flows
+    reach a few feature pixels (``tests/test_torch_port_flow.py``)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() == 4:
@@ -2269,6 +2287,8 @@ def condition_mega_family(model, gen):
                 p.mul_(3.0)
             elif name.endswith("Wg_weight"):
                 p.mul_(30.0)
+            if name.startswith("flownet.Convolution5."):    # flows past the map's border
+                p.mul_(8.0)
             elif name.endswith("class_logits.bias"):
                 p.copy_(0.2 * torch.randn(p.shape, generator=gen))
             elif p.dim() == 1 and "backbone" not in name and (
@@ -2365,8 +2385,8 @@ def mega_probes(out: dict):
     from diffusionvid_torch.engine import inference_mega as im
     inner_detect, inner_prime = im.detect_frame, im.prime_state
 
-    def detect(model, method, frames, f, state, whwh, image_hw, *args):
-        dets, state = inner_detect(model, method, frames, f, state, whwh, image_hw, *args)
+    def detect(model, method, frames, f, state, whwh, image_hw, *args, **kw):
+        dets, state = inner_detect(model, method, frames, f, state, whwh, image_hw, *args, **kw)
         out.update(state=state, frames=frames, whwh=whwh, image_hw=image_hw)
         return dets, state
 
@@ -2577,6 +2597,266 @@ def phase_mega_family(seed: int) -> dict:
     emit("mega_family_kernels", **kernels, card=res["card"])
     res["kernels"] = kernels
     return {"launches": dafa_launches, **res}
+
+
+# ---------------------------------------------------------------- the rest of the MEGA family
+
+# the five paths of the MEGA family's rest: (config, overrides, method); the
+# tiny runs add MEGA_TINY_OPTS and REST_TINY
+MEGA_REST = {
+    "dff": ("DFF/vid_R_101_C4_DFF_1x.yaml", [], "dff"),
+    "fgfa": ("FGFA/vid_R_101_C4_FGFA_1x.yaml", [], "fgfa"),
+    "mega_x101": ("MEGA/vid_X_101_C4_MEGA_1x.yaml", [], "mega"),
+    "base_bbox_aug": ("vid_R_101_C4_1x.yaml",
+                      ["TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True",
+                       "TEST.BBOX_AUG.SCALES", "(400, 800)", "TEST.BBOX_AUG.MAX_SIZE", "2000",
+                       "TEST.BBOX_AUG.SCALE_H_FLIP", "True"], "base"),
+    "mega_pixel": ("MEGA/vid_R_101_C4_MEGA_1x.yaml",
+                   ["MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE", "False",
+                    "MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND", "True",
+                    "MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND", "True"], "mega"),
+}
+# at depth 18: DFF's keys at frames 0 and 4; the X-101 trunk narrowed to 8
+# groups of 8 and its rings fed 25 rows a frame; the scales of 64x96 frames;
+# the pixel path on 160x240 frames (a res4 map of 150 pixels: its memories
+# keep 100 of a frame), its pixel cache at 200 rows
+REST_TINY = {
+    "dff": ["MODEL.VID.DFF.KEY_FRAME_DURATION", "4"],
+    "mega_x101": ["MODEL.RESNETS.NUM_GROUPS", "8", "MODEL.RESNETS.WIDTH_PER_GROUP", "8"]
+    + MEGA_TINY_RINGS,
+    "base_bbox_aug": ["TEST.BBOX_AUG.SCALES", "(48, 80)", "TEST.BBOX_AUG.MAX_SIZE", "160"],
+    "mega_pixel": ["MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TEST", "200"],
+}
+
+
+def _rest_drive(model, cfg, method: str, gframes, frames) -> tuple:
+    """``prime_state``, then every frame through ``detect_frame`` with the
+    CLI's options (and ``bbox_aug_frame`` with ``TEST.BBOX_AUG``): the
+    frames' detections above 0.05 as host dicts, and the last state."""
+    from diffusionvid_torch.engine import inference_mega as im
+    from diffusionvid_torch.tools.test_net import video_arch_args
+    kw = video_arch_args(cfg)
+    aug = {k[len("bbox_aug_"):]: v for k, v in kw.items() if k.startswith("bbox_aug_")}
+    frame_kw = dict(key_frame_duration=kw["key_frame_duration"],
+                    pixel_offsets=im.local_pixel_frame_offsets(
+                        interval=kw["all_frame_interval"], key_location=kw["key_frame_location"]))
+    dev = next(model.parameters()).device
+    h, w = frames.shape[1:3]
+    hw = (float(h), float(w))
+    whwh = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
+    dev_frames = frames.to(dev)
+    outs = []
+    with torch.no_grad():
+        state = im.prime_state(model, method, gframes.to(dev), whwh, hw)
+        for f in range(frames.shape[0]):
+            dets, state = im.detect_frame(model, method, dev_frames, f, state, whwh, hw,
+                                          **frame_kw)
+            if kw["use_bbox_aug"]:
+                outs.append(im.bbox_aug_frame(model, frames[f].numpy(), dets, (h, w), 1.0,
+                                              **aug))
+            else:
+                outs.append(im._to_numpy(dets, 1.0))
+    return outs, state
+
+
+def _rest_fill(state) -> dict:
+    """The memories' fill after a run: MEGA's box memory and rings, and on
+    the pixel path its caches (``ext``, the ring of pixels in confident
+    detections, and ``gpix``, the global frames' FPS pixel cache)."""
+    from diffusionvid_torch.engine.inference_mega import PixelVideoState
+    if isinstance(state, PixelVideoState):
+        p = state.pixel
+        return {**_memory_fill(state.box), "ext": [p.ext.count, p.ext.feats.shape[0]],
+                "gpix": [p.gpix.count, p.gpix.feats.shape[0]],
+                "last_high": int(p.last_high_valid.sum()), "irr": int(p.irr_valid.sum())}
+    if hasattr(state, "mem"):
+        return _memory_fill(state)
+    return {}
+
+
+def phase_mega_family_rest_tiny(seed: int) -> dict:
+    """The five paths of ``MEGA_REST`` at depth 18 (``MEGA_TINY_OPTS`` and
+    ``REST_TINY``) on the card against the port on the CPU, same weights
+    and frames, TF32 off: 3 global frames, then 6 frames of random pixels
+    at 64x96 (the pixel path 160x240).  Frame by frame the labels equal and
+    the scores and boxes within the tiny phases' 1e-3, the memories' fills
+    equal; no path launches K1–K7."""
+    import copy
+
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.models.detectors import build_detection_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    rows = {}
+    for name, (config, opts, method) in MEGA_REST.items():
+        h, w = (160, 240) if name == "mega_pixel" else (64, 96)
+        gframes = (torch.rand(3, h, w, 3, generator=gen) * 255).to(torch.uint8)
+        frames = (torch.rand(6, h, w, 3, generator=gen) * 255).to(torch.uint8)
+        cfg = load_config(str(ROOT / "configs" / config),
+                          opts + MEGA_TINY_OPTS + REST_TINY.get(name, []))
+        cpu = condition_mega_family(build_detection_model(cfg, device="cpu", seed=seed), gen)
+        card = copy.deepcopy(cpu).cuda()
+        reset_launches()
+        c_out, c_state = _rest_drive(card, cfg, method, gframes, frames)
+        torch.cuda.synchronize()
+        used = read_launches()
+        p_out, p_state = _rest_drive(cpu, cfg, method, gframes, frames)
+        require(not any(used.values()), f"mega_family_rest_tiny {name}: launched {used}")
+        require(_rest_fill(c_state) == _rest_fill(p_state),
+                f"mega_family_rest_tiny {name}: memory fills differ: {_rest_fill(c_state)} "
+                f"vs {_rest_fill(p_state)}")
+        errs = {"scores": 0.0, "boxes": 0.0}
+        kept = 0
+        for f, (cd, pd) in enumerate(zip(c_out, p_out)):
+            require(np.array_equal(cd["labels"], pd["labels"]),
+                    f"mega_family_rest_tiny {name} frame {f}: labels differ")
+            kept += len(pd["labels"])
+            for key in ("scores", "boxes"):
+                if len(pd[key]):
+                    g, r = cd[key].astype(np.float64), pd[key].astype(np.float64)
+                    errs[key] = max(errs[key], float(np.abs(g - r).max() / np.abs(r).max()))
+        require(kept > 0, f"mega_family_rest_tiny {name}: no detection")
+        require(max(errs.values()) < 1e-3, f"mega_family_rest_tiny {name}: card vs CPU {errs}")
+        rows[name] = {"config": f"configs/{config}", "method": method, "hw": [h, w],
+                      "launches": used, "kept": kept, "rtol": 1e-3,
+                      **{f"max_rel_err_{k}": v for k, v in errs.items()}, **_rest_fill(c_state)}
+        del cpu, card
+    emit("mega_family_rest_tiny", frames=[3, 6], paths=rows)
+    return rows
+
+
+def _flownet_ms(model, method: str, frames) -> float:
+    """FlowNetS's card ms a (current, reference) pair at the video's size:
+    DFF's one pair with the scale map, FGFA's five-frame window and the
+    current frame (6 pairs) in one call."""
+    from diffusionvid_torch.models.video_archs import _image_pair
+    n = 1 if method == "dff" else 6
+    pair = _image_pair(frames[6:7].expand(n, *frames.shape[1:]), frames[:n])
+    with torch.no_grad():
+        return cuda_time_ms(lambda: model.flownet(pair), iters=10) / n
+
+
+def phase_mega_family_rest(seed: int) -> dict:
+    """The five paths of ``MEGA_REST`` at full width (bf16, random weights
+    from ``seed``), each through ``run_inference_video_arch`` with the CLI's
+    options on one rendered video of 12 frames at 600x1000 (a warm-up pass,
+    then the timed one): fps, peak memory, no launch of K1–K7, the
+    memories' fill (the pixel path's ``ext`` and ``gpix``), DFF's keys;
+    then the middle frame profiled (device busy ms, idle share), and
+    FlowNetS's ms a pair (DFF, FGFA)."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.engine import inference_mega as im
+    from diffusionvid_torch.models.detectors import build_detection_model
+    from diffusionvid_torch.tools.test_net import sample_config, video_arch_args
+
+    work = ROOT / "build" / "chip_smoke" / "mega_family_rest"
+    n, (h, w) = MEGA_VIDEO["frames"], MEGA_VIDEO["hw"]
+    ds = open_eval_dataset(write_eval_dataset(work / "data", 1, n, (h, w), seed))
+    res = {"frames": n, "hw": [h, w], "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi_line(), "paths": {}}
+    for name, (config, opts, method) in MEGA_REST.items():
+        cfg = load_config(str(ROOT / "configs" / config), opts)
+        t0 = time.perf_counter()
+        model = build_detection_model(cfg, seed=seed)
+        build_s = time.perf_counter() - t0
+        scfg, kw = sample_config(cfg), video_arch_args(cfg)
+        keys = []
+        inner_key = getattr(model, "key_features", None)
+        if inner_key is not None:    # DFF: which frames ran the trunk
+
+            def key_features(images, inner=inner_key):
+                keys.append(len(keys))
+                return inner(images)
+
+            model.key_features = key_features
+
+        def run():
+            return im.run_inference_video_arch(model, ds, scfg, method=method, seed=seed, **kw)
+
+        run()                                   # warm-up: allocator, cuDNN plans
+        keys.clear()
+        probe = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with mega_probes(probe):
+            t0 = time.perf_counter()
+            preds, gts, results = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(not any(launches.values()), f"mega_family_rest {name}: launched {launches}")
+        require(len(preds) == n == len(gts), f"mega_family_rest {name}: {len(preds)} predictions")
+        for p in preds:
+            require(all(np.isfinite(p[k]).all() for k in ("boxes", "scores")),
+                    f"mega_family_rest {name}: non-finite predictions")
+            if len(p["boxes"]):
+                require(p["boxes"].min() >= -1 and p["boxes"][:, 0::2].max() <= w
+                        and p["boxes"][:, 1::2].max() <= h,
+                        f"mega_family_rest {name}: boxes outside the image")
+                require(p["labels"].min() >= 1
+                        and p["labels"].max() <= cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1,
+                        f"mega_family_rest {name}: labels out of range")
+        fill = _rest_fill(probe["state"])
+        if method == "mega":
+            require(fill["global_memory"][0] > 0, f"mega_family_rest {name}: empty memory")
+        if name == "mega_pixel":
+            require(fill["gpix"][0] > 0 and fill["irr"] > 0,
+                    f"mega_family_rest {name}: pixel caches {fill}")
+        if name == "mega_x101":
+            require(fill["stage_rings"] == [75 * n] * cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION.STAGE,
+                    f"mega_family_rest {name}: stage rings {fill['stage_rings']}")
+        key_passes = len(keys)
+        if method == "dff":
+            require(key_passes == 2, f"mega_family_rest dff: {key_passes} key passes, expected 2")
+
+        frames, whwh, hw = probe["frames"], probe["whwh"], probe["image_hw"]
+        frame_kw = dict(key_frame_duration=kw["key_frame_duration"],
+                        pixel_offsets=im.local_pixel_frame_offsets(
+                            interval=kw["all_frame_interval"],
+                            key_location=kw["key_frame_location"]))
+        host_frame = frames[n // 2].cpu().numpy()
+        aug = {k[len("bbox_aug_"):]: v for k, v in kw.items() if k.startswith("bbox_aug_")}
+        with torch.no_grad():
+            state = im.prime_state(model, method, probe["global_frames"], whwh, hw)
+            if method == "dff":     # the middle frame warps frame 0's map
+                state = im.KeyFrame(0, model.key_features(frames[:1]))
+
+            def frame():
+                dets, _ = im.detect_frame(model, method, frames, n // 2, state, whwh, hw,
+                                          **frame_kw)
+                if kw["use_bbox_aug"]:
+                    im.bbox_aug_frame(model, host_frame, dets, (int(hw[0]), int(hw[1])), 1.0,
+                                      **aug)
+
+            prof = profile_device(frame, f"mega_family_rest_{name}_frame")
+            flow_ms = _flownet_ms(model, method, frames) if method in ("dff", "fgfa") else None
+        row = {"config": f"configs/{config}", "overrides": opts, "method": method,
+               "dtype": str(model.compute_dtype).split(".")[1], "frames": n, "hw": [h, w],
+               "model_build_s": build_s, "fps": n / wall, "run_s": wall, "peak_mem_gib": peak,
+               "launches": launches, **fill,
+               "detections_per_frame": sum(len(p["scores"]) for p in preds) / n,
+               "ap50_random_weights": results["ap50"],
+               "frame_wall_ms": prof["profiled_wall_ms"],
+               "frame_device_busy_ms": prof["device_busy_ms"],
+               "frame_device_idle_share": prof["device_idle_share"],
+               "frame_device_ops": prof["device_ops"],
+               "frame_top_device_ms": prof["top_device_ms"],
+               "frame_top_host_ms": prof["top_host_ms"]}
+        if method == "dff":
+            row["key_passes"] = key_passes
+        if flow_ms is not None:
+            row["flownet_ms_per_pair"] = flow_ms
+        if kw["use_bbox_aug"]:
+            row["passes_per_frame"] = 1 + 1 + 2 * len(kw["bbox_aug_scales"])
+        res["paths"][name] = row
+        emit("mega_family_rest", path=name, **row, card=res["card"])
+        del model, state, frames, probe
+        torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------- train paths
@@ -3561,6 +3841,8 @@ def main(argv=None) -> int:
     eval_counts = phase_flagship_eval(args.seed)["launches"]
     phase_mega_family_tiny(args.seed)
     dafa_counts = phase_mega_family(args.seed)["launches"]
+    phase_mega_family_rest_tiny(args.seed)
+    phase_mega_family_rest(args.seed)
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []

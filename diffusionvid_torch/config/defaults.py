@@ -109,7 +109,15 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.RPN.REF_POST_NMS_TOP_N = 75
     _C.MODEL.VID.RDN = CfgNode()
     _C.MODEL.VID.RDN.RATIO = 0.2
+    _C.MODEL.VID.FGFA = CfgNode()
+    _C.MODEL.VID.FGFA.MIN_OFFSET = -9
+    _C.MODEL.VID.FGFA.MAX_OFFSET = 9
+    _C.MODEL.VID.FGFA.ALL_FRAME_INTERVAL = 19
+    _C.MODEL.VID.FGFA.KEY_FRAME_LOCATION = 9
+    _C.MODEL.VID.FGFA.REF_NUM = 2
     _C.MODEL.VID.DFF = CfgNode()
+    _C.MODEL.VID.DFF.MIN_OFFSET = -9
+    _C.MODEL.VID.DFF.MAX_OFFSET = 0
     _C.MODEL.VID.DFF.KEY_FRAME_DURATION = 10
     _C.MODEL.VID.MEGA = CfgNode()
     _C.MODEL.VID.MEGA.MIN_OFFSET = -12
@@ -130,12 +138,14 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.MEGA.GLOBAL.SHUFFLE = True
     _C.MODEL.VID.MEGA.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST = True
     _C.MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND = False
+    _C.MODEL.VID.MEGA.GLOBAL.PIXEL_STAGE = 0
     _C.MODEL.VID.MEGA.REF_NUM_GLOBAL = 4
     _C.MODEL.VID.MEGA.REF_NUM_LOCAL = 2
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_METRIC = "distance"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_TYPE = "greedy"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST = 750
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TRAIN = 300
+    _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TRAIN = 3000
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TEST = 1000
 
     _C.INPUT = CfgNode()
@@ -187,7 +197,7 @@ def get_default_cfg() -> CfgNode:
     _C.TEST.EXPECTED_RESULTS_SIGMA_TOL = 4
     _C.TEST.DETECTIONS_PER_IMG = 300
     _C.TEST.SEQ_NMS = False
-    # test-time box augmentation (reference defaults.py:552-565); not ported
+    # test-time box augmentation (reference defaults.py:552-565), base only
     _C.TEST.BBOX_AUG = CfgNode()
     _C.TEST.BBOX_AUG.ENABLED = False
     _C.TEST.BBOX_AUG.H_FLIP = True

@@ -26,11 +26,12 @@ from .resnet import ResNetStage
 
 class C4BoxFeatureExtractor(nn.Module):
     """ROIAlign(14x14, 1/16, sampling ratio 2, aligned) → res5 → mean pool
-    → ``[B, R, 2048]``."""
+    → ``[B, R, 2048]``; res5 grouped as the trunk (ResNeXt)."""
 
-    def __init__(self, depth: int = 101, dilation: int = 1):
+    def __init__(self, depth: int = 101, dilation: int = 1, num_groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
-        self.head = ResNetStage(depth, 5, 2, dilation)
+        self.head = ResNetStage(depth, 5, 2, dilation, num_groups, width_per_group)
 
     def forward(self, res4_nhwc, boxes):
         pooled = roi_align(res4_nhwc, boxes, 1.0 / 16, output_size=14, sampling_ratio=2)

@@ -2,9 +2,11 @@
 
 Port of ``diffusionvid_tpu/models/detectors.py:15-115`` for the methods the
 port runs: ``diffusion`` (``DiffusionDetArch``) and the MEGA family's
-``base``, ``rdn``, ``mega`` and ``dafa``.  The rest raise and name their
-ROADMAP.md item.  The model is placed on the card unless ``device`` says
-otherwise, with random weights drawn from ``seed``.  As in the JAX package,
+``base``, ``dff``, ``fgfa``, ``rdn``, ``mega`` and ``dafa``, with ResNeXt
+(``RESNETS.NUM_GROUPS`` / ``WIDTH_PER_GROUP``) on the C4 ones and MEGA's
+pixel flags.  RetinaNet and the mask and keypoint heads raise and name
+their ROADMAP.md item (A8).  The model is placed on the card unless
+``device`` says otherwise, with random weights drawn from ``seed``.  As in the JAX package,
 the MEGA family keeps its modules' pixel mean and std whatever
 ``MODEL.PIXEL_MEAN`` says (the defaults are the same).
 """
@@ -14,11 +16,6 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-
-REFUSALS = {
-    "dff": "VID.METHOD dff (flow warping, models/flownet.py) is not ported: ROADMAP.md A7.1",
-    "fgfa": "VID.METHOD fgfa (flow warping, models/flownet.py) is not ported: ROADMAP.md A7.1",
-}
 
 
 def video_method(cfg) -> str:
@@ -34,26 +31,11 @@ def check_supported(cfg):
         return
     if cfg.MODEL.RETINANET_ON or arch == "RetinaNet":
         raise NotImplementedError("RetinaNet is not ported: ROADMAP.md A8")
-    if method in REFUSALS:
-        raise NotImplementedError(REFUSALS[method])
-    if method not in ("base", "rdn", "mega", "dafa"):
+    if method not in ("base", "dff", "fgfa", "rdn", "mega", "dafa"):
         raise ValueError(f"unknown META_ARCHITECTURE={arch} / VID.METHOD={method}")
-    if method != "dafa" and cfg.MODEL.RESNETS.NUM_GROUPS > 1:
-        raise NotImplementedError(
-            "RESNETS.NUM_GROUPS > 1 (ResNeXt) is not ported: ROADMAP.md A7.3")
     if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError("MODEL.MASK_ON / KEYPOINT_ON (the mask and keypoint "
                                   "heads) are not ported: ROADMAP.md A8")
-    mega = cfg.MODEL.VID.MEGA
-    attn = cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION
-    stages = attn.STAGE if attn.ENABLE else 0
-    # the JAX builder gives RDN no pixel flag: only MEGA reads them
-    if method == "mega" and ((mega.LOCAL.PIXEL_ATTEND and stages == 0)
-                             or mega.GLOBAL.PIXEL_ATTEND):
-        raise NotImplementedError("LOCAL/GLOBAL.PIXEL_ATTEND (the pixel-attention paths) "
-                                  "is not ported: ROADMAP.md A7.2")
-    if cfg.TEST.BBOX_AUG.ENABLED:
-        raise NotImplementedError("TEST.BBOX_AUG is not ported: ROADMAP.md A7.4")
 
 
 def compute_dtype(cfg):
@@ -76,13 +58,26 @@ def build_detection_model(cfg, device=None, dtype=None, seed: int = 0, **kw):
     dil = cfg.MODEL.RESNETS.RES5_DILATION
     rpn = cfg.MODEL.RPN
     mega = cfg.MODEL.VID.MEGA
+    # the JAX builder's nms_kw: ResNeXt reaches every C4 architecture
+    trunk = dict(num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
+                 width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP)
+    nms = dict(pre_nms=rpn.PRE_NMS_TOP_N_TEST, post_nms=rpn.POST_NMS_TOP_N_TEST)
     if method == "base":
         from .rcnn import GeneralizedRCNN
         model = GeneralizedRCNN(depth=depth, num_classes=ncls,
                                 anchor_sizes=tuple(rpn.ANCHOR_SIZES),
                                 pre_nms_test=rpn.PRE_NMS_TOP_N_TEST,
                                 post_nms_test=rpn.POST_NMS_TOP_N_TEST, res5_dilation=dil,
-                                compute_dtype=dt)
+                                compute_dtype=dt, **trunk)
+    elif method == "dff":
+        from .video_archs import DFFArch
+        model = DFFArch(depth=depth, num_classes=ncls,
+                        key_frame_duration=cfg.MODEL.VID.DFF.KEY_FRAME_DURATION,
+                        res5_dilation=dil, compute_dtype=dt, **nms, **trunk)
+    elif method == "fgfa":
+        from .video_archs import FGFAArch
+        model = FGFAArch(depth=depth, num_classes=ncls, res5_dilation=dil, compute_dtype=dt,
+                         **nms, **trunk)
     elif method == "dafa":
         from .dafa import SparseRCNNDAFA
         model = SparseRCNNDAFA(depth=depth, num_classes=cfg.MODEL.DiffusionDet.NUM_CLASSES,
@@ -93,18 +88,21 @@ def build_detection_model(cfg, device=None, dtype=None, seed: int = 0, **kw):
         from .video_archs import MEGAArch, RDNArch
         attn = cfg.MODEL.VID.ROI_BOX_HEAD.ATTENTION
         ref_post = cfg.MODEL.VID.RPN.REF_POST_NMS_TOP_N
+        # ATTENTION.ENABLE off gives no relation stage, which is also what
+        # arms LOCAL.PIXEL_ATTEND's replacement of the box relation; the JAX
+        # builder gives RDN no pixel flag: only MEGA reads them
         common = dict(depth=depth, num_classes=ncls, res5_dilation=dil,
-                      pre_nms=rpn.PRE_NMS_TOP_N_TEST, post_nms=rpn.POST_NMS_TOP_N_TEST,
                       relation_stages=attn.STAGE if attn.ENABLE else 0,
                       advanced_stages=attn.ADVANCED_STAGE,
                       advanced_num=int(ref_post * cfg.MODEL.VID.RDN.RATIO),
-                      ref_post_nms=ref_post, compute_dtype=dt)
+                      ref_post_nms=ref_post, compute_dtype=dt, **nms, **trunk)
         if method == "rdn":
             model = RDNArch(**common)
         else:
             model = MEGAArch(**common, memory_size=mega.MEMORY_MANAGEMENT_SIZE_TEST,
                              use_stage_mem=mega.MEMORY.ENABLE, mem_frames=mega.MEMORY.SIZE,
                              pixel_attend_local=mega.LOCAL.PIXEL_ATTEND,
-                             pixel_attend_global=mega.GLOBAL.PIXEL_ATTEND)
+                             pixel_attend_global=mega.GLOBAL.PIXEL_ATTEND,
+                             pixel_mem_size=mega.MEMORY_MANAGEMENT_SIZE_PIXEL_TEST)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -2,7 +2,8 @@
 
 Port of ``diffusionvid_tpu/models/rcnn.py:29-159``: ResNet-C4 trunk (res4
 at 1/16) → RPN → C4 box head → Fast R-CNN predictor → classic
-post-processing, one fixed-size ``BoxArray`` an image.  The MEGA family
+post-processing, one fixed-size ``BoxArray`` an image; with ``num_groups``
+above 1 the trunk and the res5 head are ResNeXt.  The MEGA family
 (``video_archs.py``) builds on the same pieces.  The train forward
 (``losses_from_features``) belongs to the train half (ROADMAP.md A7.5);
 ``MASK_ON`` / ``KEYPOINT_ON`` are not ported (A8).
@@ -28,13 +29,13 @@ from .rpn import RPNHead, generate_anchors, select_proposals, shift_anchors
 
 class C4Backbone(nn.Module):
     """The trunk up to res4, held as ``bottom_up`` so its tensors carry the
-    DiffusionVID model's ``backbone.bottom_up.*`` names.  ResNeXt
-    (``RESNETS.NUM_GROUPS`` above 1) is not ported: ROADMAP.md A7.3, refused
-    by ``models/detectors.py``."""
+    DiffusionVID model's ``backbone.bottom_up.*`` names; ResNeXt with
+    ``num_groups`` above 1 (``RESNETS.NUM_GROUPS`` / ``WIDTH_PER_GROUP``)."""
 
-    def __init__(self, depth: int):
+    def __init__(self, depth: int, num_groups: int = 1, width_per_group: int = 64):
         super().__init__()
-        self.bottom_up = ResNet(depth, out_features=("res4",))
+        self.bottom_up = ResNet(depth, out_features=("res4",), num_groups=num_groups,
+                                width_per_group=width_per_group)
 
     def forward(self, x):
         return self.bottom_up(x)["res4"]
@@ -49,7 +50,7 @@ class GeneralizedRCNN(nn.Module):
                  anchor_sizes: Sequence[int] = (64, 128, 256, 512),
                  anchor_ratios: Sequence[float] = (0.5, 1.0, 2.0), anchor_stride: int = 16,
                  pre_nms_test: int = 2000, post_nms_test: int = 300, ref_post_nms: int = 75,
-                 res5_dilation: int = 1,
+                 res5_dilation: int = 1, num_groups: int = 1, width_per_group: int = 64,
                  pixel_mean=(123.675, 116.280, 103.530), pixel_std=(58.395, 57.120, 57.375),
                  compute_dtype=torch.float32, with_predictor: bool = True):
         super().__init__()
@@ -61,9 +62,9 @@ class GeneralizedRCNN(nn.Module):
         self.compute_dtype = compute_dtype
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
-        self.backbone = C4Backbone(depth)
+        self.backbone = C4Backbone(depth, num_groups, width_per_group)
         self.rpn = RPNHead(1024, len(self.anchor_sizes) * len(self.anchor_ratios))
-        self.roi_head = C4BoxFeatureExtractor(depth, res5_dilation)
+        self.roi_head = C4BoxFeatureExtractor(depth, res5_dilation, num_groups, width_per_group)
         self.predictor = FastRCNNPredictor(2048, num_classes) if with_predictor else None
         self._anchor_cache = {}
 
@@ -103,7 +104,11 @@ class GeneralizedRCNN(nn.Module):
     def forward(self, images, image_hw) -> BoxArray:
         """images ``[B, H, W, 3]``; ``image_hw`` the true (h, w) of the
         content → one ``BoxArray`` of 300 detections an image."""
-        feat = self.features(images)
+        return self.detect(self.features(images), image_hw)
+
+    def detect(self, feat, image_hw) -> BoxArray:
+        """The res4 map ``[B, 1024, h, w]`` → RPN, box head, predictor and
+        post-processing (what DFF and FGFA run on their warped maps)."""
         props = self.proposals(feat, image_hw)
         cls_logits, box_deltas = self.predictor(self.box_features(feat, props.boxes))
         dets = [postprocess_classic(cl, bd, pb, pv, image_hw)

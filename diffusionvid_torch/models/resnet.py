@@ -60,17 +60,18 @@ class Conv2d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = False, norm: bool = False,
-                 dilation: int = 1):
+                 dilation: int = 1, groups: int = 1):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.norm = FrozenBatchNorm2d(cout) if norm else None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding,
-                     self.dilation)
+                     self.dilation, self.groups)
         return y if self.norm is None else self.norm(y)
 
 
@@ -87,9 +88,11 @@ class BasicStem(nn.Module):
 class BottleneckBlock(nn.Module):
     """torchvision bottleneck: 1x1 → 3x3 (stride) → 1x1, FrozenBN, ReLU.
     A dilation above 1 sets the stride to 1 (maskrcnn-benchmark's
-    ``Bottleneck``: "if dilation > 1: stride = 1")."""
+    ``Bottleneck``: "if dilation > 1: stride = 1").  ``groups`` is
+    ResNeXt's cardinality, on the 3x3 only."""
 
-    def __init__(self, cin: int, mid: int, cout: int, stride: int, dilation: int = 1):
+    def __init__(self, cin: int, mid: int, cout: int, stride: int, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
         if dilation > 1:
             stride = 1
@@ -97,7 +100,7 @@ class BottleneckBlock(nn.Module):
                          if (stride != 1 or cin != cout) else None)
         self.conv1 = Conv2d(cin, mid, 1, norm=True)
         self.conv2 = Conv2d(mid, mid, 3, stride=stride, padding=dilation, norm=True,
-                            dilation=dilation)
+                            dilation=dilation, groups=groups)
         self.conv3 = Conv2d(mid, cout, 1, norm=True)
 
     def forward(self, x):
@@ -117,23 +120,34 @@ def he_init_(module: nn.Module, gen: torch.Generator):
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
 
 
+def bottleneck_width(num_groups: int, width_per_group: int) -> int:
+    """res2's bottleneck width, doubling a stage: ResNeXt's ``NUM_GROUPS x
+    WIDTH_PER_GROUP``, else 64 (the JAX package's rule, which ignores
+    ``WIDTH_PER_GROUP`` without groups)."""
+    return num_groups * width_per_group if num_groups > 1 else 64
+
+
 class ResNet(nn.Module):
     """Stem + stages res2..res<max of out_features>; returns the requested
-    stage outputs (NCHW)."""
+    stage outputs (NCHW).  ``num_groups`` above 1 makes it ResNeXt (the 3x3
+    convolutions grouped, the bottlenecks ``num_groups x width_per_group``
+    wide at res2); ``STRIDE_IN_1X1`` is ignored, as in the JAX package."""
 
-    def __init__(self, depth: int = 101, out_features=("res3", "res4", "res5")):
+    def __init__(self, depth: int = 101, out_features=("res3", "res4", "res5"),
+                 num_groups: int = 1, width_per_group: int = 64):
         super().__init__()
         self.out_features = tuple(out_features)
         self.stem = BasicStem(64)
         max_stage = max(int(k[-1]) for k in self.out_features)
-        cin, mid, cout = 64, 64, 256
+        cin, mid, cout = 64, bottleneck_width(num_groups, width_per_group), 256
         self.stage_names = []
         for idx, n_blocks in enumerate(RESNET_STAGES[depth]):
             stage = idx + 2
             if stage > max_stage:
                 break
             blocks = [BottleneckBlock(cin if b == 0 else cout, mid, cout,
-                                      (1 if idx == 0 else 2) if b == 0 else 1)
+                                      (1 if idx == 0 else 2) if b == 0 else 1,
+                                      groups=num_groups)
                       for b in range(n_blocks)]
             self.add_module(f"res{stage}", nn.Sequential(*blocks))
             self.stage_names.append(f"res{stage}")
@@ -157,18 +171,20 @@ class ResNetStage(nn.Module):
     """One standalone ResNet stage: the C4 architectures' res5 box head on
     the pooled 14x14 features (the JAX package's ``ResNetStage``; the
     reference's ``ResNetHead``).  ``dilation`` is ``RES5_DILATION``; above 1
-    the stage keeps stride 1."""
+    the stage keeps stride 1.  ``num_groups`` and ``width_per_group`` as in
+    ``ResNet``."""
 
     def __init__(self, depth: int = 101, stage: int = 5, stride: int = 2,
-                 dilation: int = 1):
+                 dilation: int = 1, num_groups: int = 1, width_per_group: int = 64):
         super().__init__()
         n_blocks = RESNET_STAGES[depth][stage - 2]
-        mid, cout = 64 * 2 ** (stage - 2), 256 * 2 ** (stage - 2)
+        mid = bottleneck_width(num_groups, width_per_group) * 2 ** (stage - 2)
+        cout = 256 * 2 ** (stage - 2)
         cin = cout // 2
         self.stage = stage
         self.add_module(f"res{stage}", nn.Sequential(*[
             BottleneckBlock(cin if b == 0 else cout, mid, cout, stride if b == 0 else 1,
-                            dilation) for b in range(n_blocks)]))
+                            dilation, num_groups) for b in range(n_blocks)]))
 
     def forward(self, x):
         return getattr(self, f"res{self.stage}")(x)

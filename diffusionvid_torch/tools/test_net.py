@@ -3,8 +3,9 @@
 Port of ``tools/test_net.py`` (the reference's ``tools/test_net.py:29-138``):
 the model from the config with random weights from seed 0, then a
 checkpoint over them; per-video inference sharded at video boundaries
-(DiffusionVID streaming, or the MEGA family's ``base``, ``rdn``, ``mega``
-and ``dafa`` through ``engine/inference_mega.py``); ``predictions.pkl``;
+(DiffusionVID streaming, or the MEGA family's ``base`` (with
+``TEST.BBOX_AUG``), ``dff``, ``fgfa``, ``rdn``, ``mega`` (ResNeXt, the pixel
+paths) and ``dafa`` through ``engine/inference_mega.py``); ``predictions.pkl``;
 the AP50 (and motion buckets) report.
 
     python -m diffusionvid_torch.tools.test_net \\
@@ -85,6 +86,20 @@ def detector_args(cfg) -> dict:
                 mem_size=mega.MEMORY_MANAGEMENT_SIZE_TEST,
                 num_proposals=cfg.MODEL.DiffusionDet.NUM_PROPOSALS,
                 stop_update_after_init=mega.GLOBAL.STOP_UPDATE_AFTER_INIT_TEST)
+
+
+def video_arch_args(cfg) -> dict:
+    """``run_inference_video_arch``'s settings from the config, what the
+    JAX package's CLI passes (``tools/test_net.py:204-216``)."""
+    aug = cfg.TEST.BBOX_AUG
+    mega = cfg.MODEL.VID.MEGA
+    return dict(key_frame_duration=cfg.MODEL.VID.DFF.KEY_FRAME_DURATION,
+                use_bbox_aug=bool(aug.ENABLED), bbox_aug_h_flip=bool(aug.H_FLIP),
+                bbox_aug_scales=tuple(aug.SCALES), bbox_aug_max_size=int(aug.MAX_SIZE),
+                bbox_aug_scale_h_flip=bool(aug.SCALE_H_FLIP),
+                shuffled_cur=bool(mega.SHUFFLED_CUR_TEST),
+                all_frame_interval=int(mega.ALL_FRAME_INTERVAL),
+                key_frame_location=int(mega.KEY_FRAME_LOCATION))
 
 
 def load_motion_ious(path, logger):
@@ -194,9 +209,7 @@ def _evaluate(cfg, args, output_dir, logger):
                 model, ds, sample_config(cfg), **detector_args(cfg), **common)
         else:
             predictions, gt_list, results = run_inference_video_arch(
-                model, ds, sample_config(cfg), method=method,
-                use_bbox_aug=bool(cfg.TEST.BBOX_AUG.ENABLED),
-                shuffled_cur=bool(cfg.MODEL.VID.MEGA.SHUFFLED_CUR_TEST), **common)
+                model, ds, sample_config(cfg), method=method, **video_arch_args(cfg), **common)
 
     if dist.rank() != 0:
         return None     # rank 0 evaluates the gathered predictions

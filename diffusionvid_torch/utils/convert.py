@@ -4,7 +4,10 @@ The port's modules carry the reference's detectron2/DiffusionDet names
 (``backbone.bottom_up.stem.conv1.weight``, ``head.head_series.0...``).  The
 MEGA family's follow the JAX package's tree (``detector.rpn.conv.weight``,
 ``detector.roi_head.head.res5.0.conv1.weight``, ``relation.attn0.Wq.weight``,
-DAFA's ``heads.{i}``), its trunks again detectron2's names.
+``flownet.deconv5.weight``, ``embednet.embed_conv1.weight``,
+``pixel_attn.attn.Wq.weight``, DAFA's ``heads.{i}``), its trunks again
+detectron2's names.  A ResNeXt convolution keeps torch's ``[out, in /
+groups, k, k]`` on both sides.
 
 ``state_dict_from_jax``: the JAX package stores every parameter in torch
 layout (conv weights [out, in, kh, kw], linear weights [out, in], fused MHA
@@ -121,7 +124,8 @@ def _resnet_name(path) -> str | None:
 
 # MEGA-family modules whose port names join the JAX path as it is
 _JOINED = ("rpn", "predictor", "reduce", "relation", "global_lm", "temporal_attn",
-           "init_proposal_boxes", "init_proposal_features")
+           "init_proposal_boxes", "init_proposal_features", "flownet", "embednet",
+           "pixel_attn")
 
 
 def _torch_name(path, fpn_levels) -> str:
@@ -164,9 +168,10 @@ def _torch_name(path, fpn_levels) -> str:
 
 def state_dict_from_jax(params, fpn_levels=(3, 4, 5)) -> Dict[str, torch.Tensor]:
     """A JAX parameter tree (``{"params": ...}`` or the bare tree, leaves
-    array-like) of ``DiffusionDetArch``, ``GeneralizedRCNN``, ``RDNArch``,
-    ``MEGAArch`` or ``SparseRCNNDAFA`` → the port's state dict (float32
-    tensors, and each Swin block's int64 ``relative_position_index``)."""
+    array-like) of ``DiffusionDetArch``, ``GeneralizedRCNN``, ``DFFArch``,
+    ``FGFAArch``, ``RDNArch``, ``MEGAArch`` or ``SparseRCNNDAFA`` → the port's
+    state dict (float32 tensors, and each Swin block's int64
+    ``relative_position_index``)."""
     tree = params.get("params", params)
     state = {}
     for path, v in _flatten(tree):

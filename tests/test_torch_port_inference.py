@@ -362,8 +362,12 @@ def test_cli_without_a_card_raises(catalog_vid, monkeypatch, tmp_path):
 
 
 def test_cli_refuses_unported_methods(catalog_vid, tmp_path):
-    with pytest.raises(NotImplementedError, match="A7.1"):
+    """RetinaNet (A8) and a still-image dataset (A11) raise before any
+    model runs; DFF, which this test refused before, runs in
+    ``test_torch_port_flow.py``."""
+    with pytest.raises(NotImplementedError, match="A8"):
         cli(catalog_vid, tmp_path, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
-            "MODEL.VID.ENABLE", "True", "MODEL.VID.METHOD", "dff")
+            "MODEL.VID.ENABLE", "True", "MODEL.VID.METHOD", "dff", "MODEL.RETINANET_ON", "True")
     with pytest.raises(NotImplementedError, match="A11"):
         cli(catalog_vid, tmp_path, "DATASETS.TEST", "('coco_2017_val',)")
+    assert not (tmp_path / "predictions.pkl").exists()

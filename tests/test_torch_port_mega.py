@@ -201,9 +201,12 @@ def test_torch_weights_copy_what_jax_copies(rcnn_params, dafa_params, reference_
 
 
 def test_cli_refuses_what_is_not_ported(catalog_vid, tmp_path):  # noqa: F811
-    for opts, item in ((["MODEL.VID.METHOD", "fgfa"], "A7.1"),
-                       (["TEST.BBOX_AUG.ENABLED", "True"], "A7.4")):
-        with pytest.raises(NotImplementedError, match=item):
+    """The mask head (A8) and, as the JAX package's engine does,
+    ``TEST.BBOX_AUG`` on a method other than ``base``."""
+    for opts, err, what in ((["MODEL.MASK_ON", "True"], NotImplementedError, r"ROADMAP\.md A8"),
+                            (["TEST.BBOX_AUG.ENABLED", "True"], ValueError,
+                             "only implemented for METHOD 'base'")):
+        with pytest.raises(err, match=what):
             test_net.main(["--config-file", DAFA_CONFIG, "--data-dir", str(catalog_vid),
                            "--output-dir", str(tmp_path), "--device", "cpu", *DAFA_OPTS,
                            *opts])

@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "diffusionvid_torch").rglob("*.py")) + [ROOT / "chip
 CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthetic.yaml",
            "configs/vid_Swin_B_DiffusionVID.yaml", "configs/vid_R_101_C4_1x.yaml",
            "configs/RDN/vid_R_101_C4_RDN_base_1x.yaml", "configs/MEGA/vid_R_101_C4_MEGA_1x.yaml",
-           "configs/MEGA/vid_R_101_C4_DAFA_1x.yaml"]
+           "configs/MEGA/vid_R_101_C4_DAFA_1x.yaml", "configs/DFF/vid_R_101_C4_DFF_1x.yaml",
+           "configs/FGFA/vid_R_101_C4_FGFA_1x.yaml", "configs/MEGA/vid_X_101_C4_MEGA_1x.yaml"]
 # the keys the MEGA family's builder, engine and CLI read
 MEGA_KEYS = {"MODEL.RPN.ANCHOR_SIZES", "MODEL.RPN.PRE_NMS_TOP_N_TEST",
              "MODEL.RPN.POST_NMS_TOP_N_TEST", "MODEL.ROI_BOX_HEAD.NUM_CLASSES",
@@ -33,7 +34,13 @@ MEGA_KEYS = {"MODEL.RPN.ANCHOR_SIZES", "MODEL.RPN.PRE_NMS_TOP_N_TEST",
              "MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND", "MODEL.VID.MEGA.SHUFFLED_CUR_TEST",
              "MODEL.VID.DFF.KEY_FRAME_DURATION", "TEST.BBOX_AUG.ENABLED", "TEST.BBOX_AUG.SCALES",
              "MODEL.MASK_ON", "MODEL.KEYPOINT_ON", "MODEL.RETINANET_ON", "MODEL.VID.METHOD",
-             "MODEL.META_ARCHITECTURE"}
+             "MODEL.META_ARCHITECTURE", "TEST.BBOX_AUG.H_FLIP", "TEST.BBOX_AUG.MAX_SIZE",
+             "TEST.BBOX_AUG.SCALE_H_FLIP", "MODEL.RESNETS.NUM_GROUPS",
+             "MODEL.RESNETS.WIDTH_PER_GROUP", "MODEL.RESNETS.STRIDE_IN_1X1",
+             "MODEL.VID.FGFA.MIN_OFFSET", "MODEL.VID.FGFA.MAX_OFFSET", "MODEL.VID.DFF.MIN_OFFSET",
+             "MODEL.VID.MEGA.ALL_FRAME_INTERVAL", "MODEL.VID.MEGA.KEY_FRAME_LOCATION",
+             "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TEST",
+             "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_PIXEL_TRAIN"}
 
 
 def _imported_roots(path: Path):
@@ -61,7 +68,8 @@ def test_imports_with_jax_blocked():
                 "utils.logging", "utils.metrics_io", "utils.profiling", "data.samplers",
                 "tools.train_net", "utils.collect_env", "utils.convert", "models.rpn",
                 "models.box_head", "models.rcnn", "models.relation", "models.video_archs",
-                "models.dafa", "models.detectors", "engine.inference_mega"):
+                "models.dafa", "models.detectors", "engine.inference_mega", "models.flownet",
+                "models.pixel_attention", "engine.bbox_aug"):
         assert "diffusionvid_torch." + new in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"

@@ -9,8 +9,9 @@ rings), and the four architectures (``GeneralizedRCNN``, ``RDNArch``,
 ``MEGAArch``, ``SparseRCNNDAFA``) at depth 18 on 64x96 frames: equal
 selections (labels, valid masks), the values before any selection within
 1e-4 relative in float32 (MEGA's logits 3e-4, ``MEGA_RTOL``) and the
-detections after them within 1e-3.  Also the builder and the CLI's refusals
-of what is not ported, and the weight carry-over's names.
+detections after them within 1e-3.  Also the builder (DFF, FGFA, ResNeXt and
+the pixel flags as the JAX package builds them), its refusals of what is not
+ported, and the weight carry-over's names.
 
 ``jax_rcnn_params`` builds every C4 architecture's tree from one jitted JAX
 ``RDNArch`` init (about 12 s; cached, as is DAFA's, for the other file in
@@ -573,29 +574,66 @@ def test_builder_reads_the_config(method):
 
 
 @pytest.mark.parametrize("opts, item", [
-    (["MODEL.VID.METHOD", "dff"], "A7.1"),
-    (["MODEL.VID.METHOD", "fgfa"], "A7.1"),
-    (["MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND", "True"], "A7.2"),
-    (["MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND", "True",
-      "MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE", "False"], "A7.2"),
-    (["MODEL.RESNETS.NUM_GROUPS", "32"], "A7.3"),
-    (["TEST.BBOX_AUG.ENABLED", "True"], "A7.4"),
     (["MODEL.MASK_ON", "True"], "A8"),
     (["MODEL.KEYPOINT_ON", "True"], "A8"),
     (["MODEL.RETINANET_ON", "True"], "A8"),
-], ids=["dff", "fgfa", "global_pixel", "local_pixel", "resnext", "bbox_aug", "mask",
-        "keypoint", "retinanet"])
+], ids=["mask", "keypoint", "retinanet"])
 def test_unported_parts_raise_naming_their_item(opts, item):
     cfg = load_config(str(ROOT / C4_CONFIGS["mega"]), TINY + opts)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md {item}"):
         build_detection_model(cfg, device="cpu")
 
 
+# the MEGA config with each option, and what both builders make of it: the
+# class, then attributes that the option sets
+PORTED = {
+    "dff": (["MODEL.VID.METHOD", "dff"], "DFFArch", ("key_frame_duration",)),
+    "fgfa": (["MODEL.VID.METHOD", "fgfa"], "FGFAArch", ()),
+    "global_pixel": (["MODEL.VID.MEGA.GLOBAL.PIXEL_ATTEND", "True"], "MEGAArch",
+                     ("pixel_attend_global", "pixel_replaces_box", "pixel_mem_size",
+                      "relation_stages")),
+    "local_pixel": (["MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND", "True",
+                     "MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE", "False"], "MEGAArch",
+                    ("pixel_attend_local", "pixel_replaces_box", "relation_stages")),
+    "resnext": (["MODEL.RESNETS.NUM_GROUPS", "32", "MODEL.RESNETS.WIDTH_PER_GROUP", "4"],
+                "MEGAArch", ("relation_stages",)),
+    "bbox_aug": (["TEST.BBOX_AUG.ENABLED", "True"], "MEGAArch", ("memory_size",)),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_parts_build_as_jax(name):
+    """Each option builds the JAX package's architecture: the same class
+    and attributes; ResNeXt's grouped 3x3s (32 groups of 4: res2's
+    bottleneck 128 wide, res5's 1,024) in the trunk and the res5 head;
+    ``TEST.BBOX_AUG`` is the engine's, which refuses it off ``base``."""
+    from diffusionvid_tpu.config import load_config as jax_load_config
+    from diffusionvid_tpu.models.detectors import build_detection_model as jax_build
+    opts, cls, attrs = PORTED[name]
+    path = str(ROOT / C4_CONFIGS["mega"])
+    model = build_detection_model(load_config(path, TINY + opts), device="cpu")
+    ref = jax_build(jax_load_config(path, TINY + opts))
+    assert type(model).__name__ == type(ref).__name__ == cls
+    for a in attrs:
+        assert getattr(model, a) == getattr(ref, a), a
+    det = model.detector
+    groups, width = (32, 4) if name == "resnext" else (1, 64)
+    assert det.backbone.bottom_up.res2[0].conv2.groups == groups
+    assert det.roi_head.head.res5[0].conv2.groups == groups
+    assert (ref.num_groups, ref.width_per_group) == (groups, width)
+    if name == "resnext":
+        assert det.backbone.bottom_up.res2[0].conv2.weight.shape == (128, 4, 3, 3)
+        assert det.roi_head.head.res5[0].conv2.weight.shape == (1024, 32, 3, 3)
+    assert hasattr(model, "pixel_attn") == ("pixel" in name)
+
+
 def test_run_inference_video_arch_refuses():
     from diffusionvid_torch.engine.inference_mega import run_inference_video_arch
-    for kw, item in ((dict(method="fgfa"), "A7.1"),
-                     (dict(method="base", use_bbox_aug=True), "A7.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_inference_video_arch(None, None, None, **kw)
+    for method in ("fgfa", "mega"):
+        with pytest.raises(ValueError, match="TEST.BBOX_AUG is only implemented for METHOD "
+                                             "'base'"):
+            run_inference_video_arch(None, None, None, method=method, use_bbox_aug=True)
+    with pytest.raises(ValueError, match="unknown VID.METHOD"):
+        run_inference_video_arch(None, None, None, method="selsa")
     with pytest.raises(ValueError, match="SHUFFLED_CUR_TEST"):
         run_inference_video_arch(None, None, None, method="rdn", shuffled_cur=True)
