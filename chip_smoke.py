@@ -147,6 +147,28 @@ Phases, one JSON line each:
               fill, DFF's key passes, no launch of K1–K7, the middle frame's
               device busy ms and idle share, FlowNetS's ms a pair
               (``phase_mega_family_rest``).
+  10d. mega_family_train_tiny one train step of each of the MEGA family's
+              methods (``MEGA_TRAIN``: ``base``, DFF, FGFA, RDN with its
+              advanced stage, MEGA, MEGA on the pixel path, DAFA) at depth 18
+              on 64x96 frames, card against CPU, same weights (conditioned),
+              sample and draws, fp32, TF32 off: losses (1e-4) and every
+              gradient (1e-3 of its norm); DAFA launches K1, K2 and K3 12
+              times each, the C4 methods none; then ``mega_family_train``,
+              the seven at full width (R-101 configs, bf16, one sample at
+              600x1000 in the method's frame layout, the RPN and predictor
+              at the reference's inits and the FrozenBN statistics taken
+              from the sample): one warm-up and 2
+              timed optimizer steps, ms per optimizer step, peak memory, the
+              losses under the JAX package's names, one micro-step profiled,
+              DAFA's 12 launches each of K1/K2/K3 a micro-step (required);
+              ``mega_family_train_kernels``, K1, K2 and K3 on DAFA's
+              captured inputs (the current frame's and the global frames'
+              passes), bf16 and fp32, timed with their bound; and
+              ``mega_family_train_cli``, the train CLI on DAFA and MEGA at
+              full width from rendered frames on disk, 4 iterations
+              (BATCH_REUSE_STEPS 2, a checkpoint at 2), then resumed from 2:
+              bit-equal to the uninterrupted run under PyTorch's
+              deterministic algorithms (``phase_mega_family_train*``).
   11. flagship_train_cli training from files on disk through the port's
               train CLI (``tools/train_net.main``, after phase 8's Swin-B
               step): the R-101 config at full width with the SSD
@@ -189,8 +211,9 @@ K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
 10b's DAFA run; K1's, K2's and K3's with
 ``train_cli_launches`` in phase 11's first run; K1's and K2's with
 ``local_attn_launches`` and K1's, K2's and K3's with
-``local_attn_train_launches`` (phase 12) and ``ddp_rank_launches`` (a
-rank's first optimizer step, phase 13); K7's with its card time, host
+``local_attn_train_launches`` (phase 12), ``ddp_rank_launches`` (a
+rank's first optimizer step, phase 13) and ``mega_train_launches`` (DAFA's
+full-width train micro-step, phase 10d); K7's with its card time, host
 time, card time in a v1 chunk and registers), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
@@ -2284,7 +2307,7 @@ def condition_mega_family(model, gen):
             if p.dim() == 4:
                 p.mul_(torch.rsqrt(p.var() * p[0].numel()))
             elif name.endswith("Wv_weight"):
-                p.mul_(3.0)
+                p.sub_(p.mean(1, keepdim=True)).mul_(3.0)
             elif name.endswith("Wg_weight"):
                 p.mul_(30.0)
             if name.startswith("flownet.Convolution5."):    # flows past the map's border
@@ -2910,39 +2933,176 @@ def conditioned_train_model(gen, images, **arch):
     reaches the delta clamp; the other head 1-D parameters are perturbed.
     Used by ``phase_tiny_train`` and by the CPU tests against JAX."""
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
-    from diffusionvid_torch.models.resnet import FrozenBatchNorm2d
     model = DiffusionDetArch(**arch, compute_dtype=torch.float32)
     model.reset_parameters(gen)
-    relu_ln = ("inst_interact.norm1.", "inst_interact.norm2.", "inst_interact.norm3.",
-               "cls_module.1.", "reg_module.1.", "reg_module.4.", "reg_module.7.")
     with torch.no_grad():
         for name, p in model.named_parameters():
             noise = torch.randn(p.shape, generator=gen)
             if p.dim() == 4:
                 p.mul_((p.shape[0] / p.shape[1]) ** 0.5)
-            elif name.startswith("backbone.") and name.endswith("norm.weight"):
-                p.copy_((1.0 if ".stem." in name else 0.5) + 0.05 * noise)
-            elif name.startswith("backbone.") and name.endswith("norm.bias"):
-                p.copy_(3.0 + 0.1 * noise)
-            elif any(k in name for k in relu_ln):
-                p.copy_((3.0 if name.endswith("bias") else 0.5) + 0.05 * noise)
-            elif name.endswith("linear1.bias"):
-                p.fill_(3.0)
-            elif name.endswith(("linear1.weight", "bboxes_delta.weight")):
-                p.mul_(0.3 if "linear1" in name else 0.05)
-            elif p.dim() == 1 and name.startswith("head."):
-                p.add_(0.2 * noise)
+            elif not _condition_trunk_norm(name, p, noise):
+                _condition_head(name, p, noise, "head.")
+    with _calibrated_norms(model), torch.no_grad():
+        model.extract_features(images)
+    return model
+
+
+# the RCNNHead layers whose output a ReLU takes after a LayerNorm
+_RELU_LN = ("inst_interact.norm1.", "inst_interact.norm2.", "inst_interact.norm3.",
+            "cls_module.1.", "reg_module.1.", "reg_module.4.", "reg_module.7.")
+
+
+def _condition_trunk_norm(name: str, p, noise) -> bool:
+    """A trunk FrozenBN's scale 0.5 (1 at the stem) and bias +3; whether
+    ``name`` is one."""
+    if "bottom_up." not in name and "roi_head." not in name:
+        return False
+    if name.endswith("norm.weight"):
+        p.copy_((1.0 if ".stem." in name else 0.5) + 0.05 * noise)
+    elif name.endswith("norm.bias"):
+        p.copy_(3.0 + 0.1 * noise)
+    else:
+        return False
+    return True
+
+
+def _condition_head(name: str, p, noise, prefix: str):
+    """The RCNNHead's ReLU LayerNorms and FFN at about +3, its box deltas
+    scaled down, its other 1-D parameters under ``prefix`` perturbed."""
+    if any(k in name for k in _RELU_LN):
+        p.copy_((3.0 if name.endswith("bias") else 0.5) + 0.05 * noise)
+    elif name.endswith("linear1.bias"):
+        p.fill_(3.0)
+    elif name.endswith(("linear1.weight", "bboxes_delta.weight")):
+        p.mul_(0.3 if "linear1" in name else 0.05)
+    elif p.dim() == 1 and name.startswith(prefix):
+        p.add_(0.2 * noise)
+
+
+@contextlib.contextmanager
+def _calibrated_norms(model, offset: float = 0.0, floor: float = 0.0):
+    """While open, each FrozenBN takes the mean and variance of its input
+    at its first call as its running statistics, the mean lowered by
+    ``offset`` standard deviations, the variance at least ``floor`` times
+    the channels' median."""
+    from diffusionvid_torch.models.resnet import FrozenBatchNorm2d
 
     def calibrate(mod, args):
-        mod.running_mean.copy_(args[0].mean((0, 2, 3)))
-        mod.running_var.copy_(args[0].var((0, 2, 3)))
+        var = args[0].var((0, 2, 3))
+        mod.running_mean.copy_(args[0].mean((0, 2, 3)) - offset * var.sqrt())
+        mod.running_var.copy_(var.clamp(min=floor * float(var.median())))
+        handles.pop(id(mod)).remove()
 
-    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
-             if isinstance(m, FrozenBatchNorm2d)]
+    handles = {id(m): m.register_forward_pre_hook(calibrate) for m in model.modules()
+               if isinstance(m, FrozenBatchNorm2d)}
+    try:
+        yield
+    finally:
+        for h in handles.values():
+            h.remove()
+
+
+def _relu_inputs(model) -> list:
+    """The MEGA family's layers whose output a ReLU (FlowNetS: a leaky
+    one) takes, outside the trunks: the RPN's conv, ``reduce``, the
+    relation's FCs, FlowNetS's encoder and deconvolutions, EmbedNet's first
+    two convs."""
+    from diffusionvid_torch.models.flownet import Deconv
+    out = []
+    for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if (name.endswith("rpn.conv") or name == "reduce" or name.startswith("relation.fc")
+                or name in ("embednet.embed_conv1", "embednet.embed_conv2")
+                or (name.startswith("flownet.") and isinstance(m, Deconv)
+                    and leaf.startswith("deconv"))
+                or (name.startswith("flownet.") and leaf.startswith("conv"))):
+            out.append(m)
+    return out
+
+
+def conditioned_method_model(model, gen, run):
+    """A float32 MEGA-family model (``base``, ``dff``, ``fgfa``, ``rdn``,
+    ``mega``, ``dafa``) set up, in place, so that two implementations' train
+    gradients compare well: no ReLU input near its kink and no selection
+    near a tie (``conditioned_train_model``'s reason).  ``run()`` is a
+    train forward of the model, the calibration pass; returns the model.
+
+    - The convolutions at fan-in variance.
+    - The trunks' and the res5 head's FrozenBN: scale 0.5 (1 at the stem),
+      bias +3, the statistics of their inputs on the pass, the mean half a
+      deviation low (with the exact mean a normalised map sums to zero, and
+      the gradient of a scale whose output is mean-pooled, the res5 head's
+      last block, cancels to noise) and the variance at least a tenth of
+      the median channel's (on the small test maps some channels of the
+      res5 head hardly vary, and the gradient of their variance, by the
+      -3/2 power, is a difference of nearly equal numbers).
+    - The relation: value weights x3; query and key weights blind to their
+      inputs' common part and x0.25 (an affinity's gradient sums to zero
+      over the references, and a sharp softmax or keys sharing most of
+      their value leave a difference of nearly equal numbers); geometric
+      weights x10 and bias +3 (``relu(emb . Wg + b)`` stays positive and
+      varies over the references, which is all its bias's gradient is).
+    - The RPN's convolutions blind to their inputs' constant part, so that
+      each frame's content ranks its anchors, and its deltas zero, so that
+      every proposal is an anchor clipped to the image, the same box to the
+      last bit on both sides: the position embedding multiplies two sides'
+      box differences by 100 over the distance of two boxes, and two
+      frames' proposals are often a fraction of a pixel apart (their
+      gradient still reaches the deltas).
+    - DAFA's decoder as DiffusionVID's, its learned boxes spread over the
+      image (its init, all the image, makes the first stage's boxes nearly
+      equal and simOTA's match among them a toss-up).
+    - The other ReLU inputs (``_relu_inputs``) shifted by a bias so that
+      each unit's least value on the pass is 1."""
     with torch.no_grad():
-        model.extract_features(images)
-    for hook in hooks:
-        hook.remove()
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen)
+            if p.dim() == 4:
+                p.mul_(torch.rsqrt(p.var() * p[0].numel()))
+                if ".rpn." in name or name.startswith("rpn."):
+                    # blind to its input's constant part: each frame's own
+                    # content ranks its anchors
+                    p.sub_(p.mean((1, 2, 3), keepdim=True))
+                if name.endswith("rpn.bbox_pred.weight"):
+                    p.zero_()
+            elif name.endswith("rpn.bbox_pred.bias"):
+                p.zero_()
+            elif _condition_trunk_norm(name, p, noise):
+                pass
+            elif name.endswith("Wv_weight"):
+                p.sub_(p.mean(1, keepdim=True)).mul_(3.0)
+            elif name.endswith(("Wq.weight", "Wk.weight")):
+                # blind to the features' common part, affinities of a few units
+                p.sub_(p.mean(1, keepdim=True)).mul_(0.25)
+            elif name.endswith("Wg_weight"):
+                p.mul_(10.0)
+            elif name.endswith("Wg_bias"):
+                p.copy_(3.0 + 0.1 * noise)
+            elif name.endswith("class_logits.bias"):
+                p.copy_(0.2 * noise)
+            elif name == "init_proposal_boxes":    # distinct boxes, not all the image
+                u = torch.rand(p.shape, generator=gen)
+                p.copy_(torch.cat([0.25 + 0.5 * u[:, :2], 0.15 + 0.4 * u[:, 2:]], 1))
+            elif name.startswith("heads."):
+                _condition_head(name, p, noise, "heads.")
+            elif p.dim() == 1 and "backbone" not in name and name.endswith("bias"):
+                p.add_(0.2 * noise)
+
+    def lift(mod, args, out):
+        dims = [d for d in range(out.dim()) if d != (1 if out.dim() == 4 else out.dim() - 1)]
+        shift = (1.0 - out.float().amin(dim=dims)).clamp(min=0.0)
+        mod.bias.add_(shift)
+        handles.pop(id(mod)).remove()
+        view = (1, -1, 1, 1) if out.dim() == 4 else (-1,)
+        return out + shift.view(view).to(out.dtype)
+
+    handles = {id(m): m.register_forward_hook(lift) for m in _relu_inputs(model)}
+    try:
+        with _calibrated_norms(model, offset=0.5, floor=0.1), torch.no_grad():
+            run()
+    finally:
+        for h in handles.values():
+            h.remove()
     return model
 
 
@@ -3330,7 +3490,7 @@ def phase_flagship_train_cli(seed: int) -> dict:
                 t0 = time.perf_counter()
                 results.append(train_net.main(
                     ["--config-file", str(config), "--data-dir", str(data), "--seed", str(seed),
-                     *(["--resume"] if i else []), *opts, "OUTPUT_DIR", str(out_dir)]))
+                     "--resume", *opts, "OUTPUT_DIR", str(out_dir)]))
                 probes[i]["run_s"] = time.perf_counter() - t0
             launches.append(read_launches())
             probes[i]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3442,6 +3602,456 @@ def phase_flagship_train_cli(seed: int) -> dict:
     torch.cuda.empty_cache()
     emit("flagship_train_cli", **res)
     return launches[0]
+
+
+# ---------------------------------------------------------------- the MEGA family's training
+
+# the six methods' train configs, and MEGA on the pixel path (its local
+# pixel attention replaces the box relation: ATTENTION.ENABLE off)
+MEGA_TRAIN = {
+    "base": ("vid_R_101_C4_1x.yaml", []),
+    "dff": ("DFF/vid_R_101_C4_DFF_1x.yaml", []),
+    "fgfa": ("FGFA/vid_R_101_C4_FGFA_1x.yaml", []),
+    "rdn": ("RDN/vid_R_101_C4_RDN_1x.yaml", []),
+    "mega": ("MEGA/vid_R_101_C4_MEGA_1x.yaml", []),
+    "mega_pixel": ("MEGA/vid_R_101_C4_MEGA_1x.yaml",
+                   ["MODEL.VID.ROI_BOX_HEAD.ATTENTION.ENABLE", "False",
+                    "MODEL.VID.MEGA.LOCAL.PIXEL_ATTEND", "True"]),
+    "dafa": ("MEGA/vid_R_101_C4_DAFA_1x.yaml", []),
+}
+# the tiny train models: depth 18, fp32, 5 classes, 100 boxes before the
+# RPN's NMS, 16 current proposals and 10 a reference frame (RDN's advanced
+# stage distils 0.2 of them), 1 memory and 2 global frames, DAFA 16
+# proposals into a 64-slot memory (no FPS: near-equal rows of two frames
+# would make its pick, and the gradient's path, a toss-up); the pixel path
+# 4 local frames (its 100 irrelevant pixels need 100 pixels: 5 maps of 4x6)
+TRAIN_TINY_OPTS = ["MODEL.RESNETS.DEPTH", "18", "TPU.COMPUTE_DTYPE", "float32",
+                   "MODEL.ROI_BOX_HEAD.NUM_CLASSES", "6", "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", "100",
+                   "MODEL.RPN.POST_NMS_TOP_N_TRAIN", "16", "MODEL.RPN.PRE_NMS_TOP_N_TEST", "100",
+                   "MODEL.RPN.POST_NMS_TOP_N_TEST", "8", "MODEL.VID.RPN.REF_POST_NMS_TOP_N", "10",
+                   "MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST", "64",
+                   "MODEL.VID.MEGA.REF_NUM_MEM", "1", "MODEL.VID.MEGA.REF_NUM_GLOBAL", "2",
+                   "MODEL.DiffusionDet.NUM_PROPOSALS", "16",
+                   "MODEL.DiffusionDet.NUM_CLASSES", "5"]
+TRAIN_TINY_PIXEL = ["MODEL.VID.MEGA.REF_NUM_LOCAL", "4"]
+# the full-width train step: a sample's frames at 600x1000
+MEGA_TRAIN_HW = (600, 1000)
+
+
+def method_model(method: str, opts=(), device="cuda", seed: int = 0):
+    """The config of ``method`` (``MEGA_TRAIN``) with ``opts``, its
+    ``MethodSampleSpec`` and model."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.data.sampling import MethodSampleSpec
+    from diffusionvid_torch.models.detectors import build_detection_model
+    config, extra = MEGA_TRAIN[method]
+    cfg = load_config(str(ROOT / "configs" / config), [*extra, *opts])
+    return cfg, MethodSampleSpec.from_config(cfg), build_detection_model(cfg, device=device,
+                                                                         seed=seed)
+
+
+def fg_classes(cfg, method: str) -> int:
+    """The foreground classes of the method's model."""
+    return (cfg.MODEL.DiffusionDet.NUM_CLASSES if method == "dafa"
+            else cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES - 1)
+
+
+def calibrate_on_sample(model, spec, batch, seed: int):
+    """A start that trains at full width in bf16, the stand-in for a
+    pretrained trunk: the C4 RPN's convolutions at normal(0.01) and the
+    Fast R-CNN predictor's at normal(0.01) (classes) and normal(0.001)
+    (deltas), biases zero, the reference's initializers (rpn/rpn.py:69-106,
+    roi_box_predictors.py), where the port's and the JAX package's He and
+    xavier inits give logits of 1e3 and deltas of 1e3 on R-101's maps; then
+    the FrozenBN statistics taken from one no-grad train forward on
+    ``batch`` (``_calibrated_norms``, each variance at least a tenth of the
+    median channel's), where the init's identity statistics grow R-101's
+    activations through its 33 blocks to losses of 1e5."""
+    from diffusionvid_torch.engine.train import iteration_generator
+    from diffusionvid_torch.engine.train_methods import (
+        draw_method_randoms, make_method_loss_fn)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            std = {"rpn.conv.weight": 0.01, "rpn.cls_logits.weight": 0.01,
+                   "rpn.bbox_pred.weight": 0.01, "predictor.cls_score.weight": 0.01,
+                   "predictor.bbox_pred.weight": 0.001}.get(name.split("detector.")[-1])
+            if std is not None:
+                p.copy_(std * torch.randn(p.shape, generator=gen))
+            elif name.split("detector.")[-1].startswith(("rpn.", "predictor.")):
+                p.zero_()
+    draws = draw_method_randoms(iteration_generator(seed, -1), 1)
+    with _calibrated_norms(model, floor=0.1), torch.no_grad():
+        make_method_loss_fn(model, spec)(batch, draws)
+
+
+def dafa_train_launches(micro_steps: int, stages: int = DAFA_STAGES) -> dict:
+    """DAFA's launches of K1, K2 and K3 in ``micro_steps`` train
+    micro-steps: each decoder stage once on the current frame and once on
+    the global frames (``extract_topk``, under gradient), and its backward
+    (K3) for both passes; nothing else."""
+    return {k: 2 * stages * micro_steps for k in TRAIN_KERNELS}
+
+
+@contextlib.contextmanager
+def boxes_without_pooling_gradient():
+    """While open, the decoder's ROIAlign on the CPU takes its boxes
+    detached: K1's gradient (K3) is the features' only, as the JAX
+    package's kernel's is (``ROADMAP.md`` §C deviation 8), while the plain
+    version differentiates the boxes too.  DAFA's learned proposal boxes
+    reach its first stage's pooling; no other box that the pooling sees is
+    a parameter's function."""
+    from diffusionvid_torch.models import heads
+    inner = heads.multilevel_roi_align
+
+    def pool(features, rois, *args, **kw):
+        return inner(features, rois.detach(), *args, **kw)
+
+    heads.multilevel_roi_align = pool
+    try:
+        yield
+    finally:
+        heads.multilevel_roi_align = inner
+
+
+def phase_mega_family_train_tiny(seed: int) -> dict:
+    """One train step of each of the MEGA family's methods (``MEGA_TRAIN``)
+    at depth 18 on 64x96 frames (``TRAIN_TINY_OPTS``), on the card against
+    the port on the CPU: the same weights (conditioned on the CPU,
+    ``conditioned_method_model``), sample and draws, float32, TF32 off,
+    through ``engine/train_methods.make_method_loss_fn``.  Losses within
+    1e-4 relative, every gradient within 1e-3 of its norm (phase 13's
+    tolerances); DAFA launches K1, K2 and K3 (``dafa_train_launches``), no
+    C4 method launches any of K1–K7."""
+    import copy
+
+    from diffusionvid_torch.engine.train_methods import (
+        draw_method_randoms, make_method_loss_fn)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 64, 96
+    rows = {}
+    for method in MEGA_TRAIN:
+        gen = torch.Generator().manual_seed(seed)
+        opts = TRAIN_TINY_OPTS + (TRAIN_TINY_PIXEL if method == "mega_pixel" else [])
+        cfg, spec, cpu = method_model(method, opts, device="cpu", seed=seed)
+        frames = 1 + spec.num_local + spec.num_mem + spec.num_global
+        classes = fg_classes(cfg, method)
+        batch = train_batch(gen, 1, frames, 6, h, w, classes, "cpu")
+        draws = draw_method_randoms(gen, 1)
+        conditioned_method_model(cpu, gen, lambda: make_method_loss_fn(cpu, spec)(batch, draws))
+        card = copy.deepcopy(cpu).cuda()
+
+        def step(model, dev):
+            total, losses = make_method_loss_fn(model, spec)(
+                type(batch)(*[t.to(dev) for t in batch]), draws)
+            total.backward()
+            grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                     for n, p in model.named_parameters()}
+            return {"total_loss": total.detach().cpu(),
+                    **{k: v.detach().cpu() for k, v in losses.items()}}, grads
+
+        reset_launches()
+        c_losses, c_grads = step(card, "cuda")
+        torch.cuda.synchronize()
+        used = read_launches()
+        want = dafa_train_launches(1, len(card.heads)) if method == "dafa" else {}
+        require(used == {k: want.get(k, 0) for k in used},
+                f"mega_family_train_tiny {method}: launches {used}, expected {want}")
+        with boxes_without_pooling_gradient():
+            p_losses, p_grads = step(cpu, "cpu")
+        require(sorted(c_losses) == sorted(p_losses),
+                f"mega_family_train_tiny {method}: loss names differ")
+        loss_err = max(float((c_losses[k] - v).abs() / v.abs().clamp(min=1e-12))
+                       for k, v in p_losses.items())
+        grad_err, worst = 0.0, ""
+        for name, g in p_grads.items():
+            e = float(torch.linalg.vector_norm(c_grads[name] - g)
+                      / torch.linalg.vector_norm(g).clamp(min=1e-12))
+            if e > grad_err:
+                grad_err, worst = e, name
+        require(all(bool(torch.isfinite(v)) for v in c_losses.values()),
+                f"mega_family_train_tiny {method}: non-finite loss")
+        require(loss_err < 1e-4 and grad_err < 1e-3,
+                f"mega_family_train_tiny {method}: card vs CPU over tolerance: loss {loss_err}, "
+                f"grad {grad_err} ({worst})")
+        rows[method] = {"config": f"configs/{MEGA_TRAIN[method][0]}", "frames": frames,
+                        "launches": used, "max_rel_err_loss": loss_err,
+                        "max_rel_err_grad": grad_err, "worst_grad": worst,
+                        "losses": sorted(p_losses),
+                        "total_loss": float(p_losses["total_loss"])}
+        del cpu, card
+    emit("mega_family_train_tiny", hw=[h, w], loss_rtol=1e-4, grad_rtol=1e-3, methods=rows)
+    return rows
+
+
+def phase_mega_family_train(seed: int, keep: dict) -> dict:
+    """The seven train steps of ``MEGA_TRAIN`` at full width: the R-101
+    configs with random weights from ``seed``, in their dtype (bfloat16),
+    one sample of the method's frames at 600x1000 with 1 to 8 random GT
+    boxes each, the FrozenBN statistics taken from it
+    (``calibrate_on_sample``), through ``engine/train.make_train_step``
+    with the method's loss and draws.  One warm-up and 2 timed optimizer steps each (the
+    configs' ACCUMULATION_STEPS 1): ms per optimizer step, peak memory,
+    finite losses under the JAX package's names, parameters moved; DAFA's
+    K1/K2/K3 launches a micro-step as ``dafa_train_launches`` counts them,
+    none for the C4 methods; one micro-step profiled (device busy, idle
+    share, top kernels).  DAFA's last micro-step's K1, K2 and K3 inputs are
+    appended to ``keep``'s lists.  Returns DAFA's launches a micro-step."""
+    from diffusionvid_torch.engine.train import (
+        iteration_generator, make_train_step, optimizer_from_config)
+    from diffusionvid_torch.engine.train_methods import (
+        draw_method_randoms, make_method_loss_fn)
+
+    h, w = MEGA_TRAIN_HW
+    res = {"hw": [h, w], "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line(),
+           "methods": {}}
+    dafa = None
+    for method in MEGA_TRAIN:
+        t0 = time.perf_counter()
+        cfg, spec, model = method_model(method, seed=seed)
+        opt = optimizer_from_config(model, cfg)
+        build_s = time.perf_counter() - t0
+        frames = 1 + spec.num_local + spec.num_mem + spec.num_global
+        classes = fg_classes(cfg, method)
+        gen = torch.Generator().manual_seed(seed)
+        batch = train_batch(gen, 1, frames, cfg.TPU.MAX_GT_BOXES, h, w, classes, "cuda")
+        calibrate_on_sample(model, spec, batch, seed)
+        step = make_train_step(model, opt, loss_fn=make_method_loss_fn(model, spec))
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = {"it": 0, "metrics": []}
+
+        def micro():
+            draws = draw_method_randoms(iteration_generator(seed, state["it"]), 1)
+            state["metrics"].append(step(batch, draws))
+            state["it"] += 1
+
+        micro()                               # warm-up: allocator, cuDNN plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            micro()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        want = dafa_train_launches(2, len(model.heads)) if method == "dafa" else {}
+        require(launches == {k: want.get(k, 0) for k in launches},
+                f"mega_family_train {method}: launches {launches}, expected {want}")
+        require(all(torch.isfinite(v).all() for m in state["metrics"] for v in m.values()),
+                f"mega_family_train {method}: non-finite loss")
+        moved = sum(int(not torch.equal(p.detach(), start[n]))
+                    for n, p in model.named_parameters())
+        require(moved > 0 and opt.count == 3, f"mega_family_train {method}: {moved} tensors "
+                f"moved in {opt.count} optimizer steps")
+        row = {"config": f"configs/{MEGA_TRAIN[method][0]}", "opts": MEGA_TRAIN[method][1],
+               "dtype": str(model.compute_dtype).split(".")[1], "frames": frames,
+               "layout": [spec.num_local, spec.num_mem, spec.num_global],
+               "model_build_s": build_s, "warmup_optimizer_steps": 1,
+               "timed_optimizer_steps": 2, "ms_per_optimizer_step": dt / 2 * 1e3,
+               "trained_frames_per_s": 2 * frames / dt,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launches,
+               "losses": {k: float(v) for k, v in state["metrics"][-1].items()},
+               "tensors_moved": moved}
+        row.update({f"micro_step_{k}": v
+                    for k, v in profile_device(micro, f"mega_family_train_{method}").items()})
+        if method == "dafa":
+            dafa = {k: n // 2 for k, n in launches.items()}
+            with contextlib.ExitStack() as stack:
+                for k, into in keep.items():
+                    stack.enter_context(CAPTURES[k](into))
+                micro()
+        res["methods"][method] = row
+        emit("mega_family_train", method=method, **row, card=res["card"])
+        del model, opt, step, state, start, batch
+        torch.cuda.empty_cache()
+    res["dafa_launches_per_micro_step"] = dafa
+    return res
+
+
+def phase_mega_family_train_kernels(keep: dict) -> dict:
+    """K1, K2 and K3 on the inputs of DAFA's full-width train micro-step
+    (``keep``: each stage's launch on the current frame and on the global
+    frames' ``extract_topk`` pass, and their backward), in bf16 as captured
+    and in fp32 on the same inputs, each against its plain version at the
+    tolerances of ``k1_case``, ``kernel_k2`` and ``k3_case``, with two
+    bit-equal launches; then the last stage of each pass timed in bf16
+    (``ms``, the card's ``kernel_ms``, the plain version's ``plain_ms``)
+    beside its bound."""
+    from diffusionvid_torch.ops import roi_align as ra
+    from diffusionvid_torch.ops.dynamic_conv import dynamic_conv_fused, dynamic_conv_ref
+    stages = DAFA_STAGES
+    for k, caps in keep.items():
+        require(len(caps) == 2 * stages, f"mega_family_train_kernels: {len(caps)} {k} launches "
+                                         f"kept, expected {2 * stages}")
+    rows = {"k1": [], "k2": [], "k3": []}
+    worst = {k: {"bfloat16": 0.0, "float32": 0.0} for k in rows}
+    for i, c in enumerate(keep["k1"]):
+        frames = int(c["rois"].shape[0])
+        row = {"launch": i, "frames": frames, "rois": int(c["rois"].shape[1])}
+        for dtype in (torch.bfloat16, torch.float32):
+            feats = [f.to(dtype) for f in c["features"]]   # captured in bf16
+            r = k1_case(feats, c["rois"], c["scales"],
+                        what=f"mega_family_train K1 launch {i}")
+            worst["k1"][str(dtype).split(".")[1]] = max(
+                worst["k1"][str(dtype).split(".")[1]], r["max_abs_err"])
+            row.setdefault("rois_per_level", r["rois_per_level"])
+        if i % stages == stages - 1:
+            row.update(k1_timing([f.to(torch.bfloat16) for f in c["features"]], c["rois"],
+                                 c["scales"]))
+        rows["k1"].append(row)
+    for i, c in enumerate(keep["k2"]):
+        row = {"launch": i, "s": int(c["args"][0].shape[0])}
+        for dtype in (torch.bfloat16, torch.float32):
+            args = c["args"] if dtype == torch.bfloat16 else [t.float() for t in c["args"]]
+            tol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+            got = dynamic_conv_fused(*args, eps=c["eps"])
+            r = compare(got, dynamic_conv_ref(*args, eps=c["eps"]), *tol,
+                        f"mega_family_train K2 launch {i} {dtype}")
+            require(torch.equal(dynamic_conv_fused(*args, eps=c["eps"]), got),
+                    f"mega_family_train K2 launch {i} {dtype}: two launches differ")
+            key = str(dtype).split(".")[1]
+            worst["k2"][key] = max(worst["k2"][key], r["max_abs_err"])
+        if i % stages == stages - 1:
+            args = c["args"]
+            call = lambda: dynamic_conv_fused(*args, eps=c["eps"])  # noqa: E731
+            row["bound_ms"], row["bound_by"] = k2_bound(args[0], args[1], args[2], args[3:7])
+            row.update(ms=cuda_time_ms(call), kernel_ms=device_ms(call, K2_KERNELS, 20, 1),
+                       plain_ms=cuda_time_ms(lambda: dynamic_conv_ref(*args, eps=c["eps"])))
+        rows["k2"].append(row)
+    for i, c in enumerate(keep["k3"]):
+        row = {"launch": i, "frames": int(c["rois"].shape[0])}
+        for dtype in (torch.bfloat16, torch.float32):
+            g = c["g"].to(dtype)
+            r, got = k3_case(dtype, g, c["rois"], c["shapes"], c["scales"],
+                             what=f"mega_family_train K3 launch {i}")
+            key = str(dtype).split(".")[1]
+            worst["k3"][key] = max(worst["k3"][key], r["max_abs_err"])
+            if dtype == torch.bfloat16:
+                row["rois_per_level"] = r["rois_per_level"]
+                if i % stages == stages - 1:
+                    row["bound_ms"], row["bound_by"], row["gflop"] = k3_bound(
+                        g, c["rois"], c["shapes"], c["scales"], got)
+                    call = lambda: ra.multilevel_roi_align_bwd(  # noqa: E731
+                        g, c["rois"], c["shapes"], c["scales"], dtype)
+                    row.update(ms=device_ms(call, K3_KERNELS), event_ms=cuda_time_ms(call),
+                               plain_ms=cuda_time_ms(lambda: ra.multilevel_roi_align_bwd_ref(
+                                   g, c["rois"], c["shapes"], c["scales"], dtype), iters=3,
+                                   warmup=1))
+        rows["k3"].append(row)
+    passes = {k: sorted({r["frames"] for r in v if "frames" in r}) for k, v in rows.items()}
+    require(len(passes["k1"]) == 2 and len(passes["k3"]) == 2,
+            f"mega_family_train_kernels: the passes' frames {passes}, expected two counts")
+    res = {"max_abs_err": worst, "passes_frames": passes, "deterministic": True,
+           "timed": {k: [r for r in v if "bound_ms" in r] for k, v in rows.items()},
+           "card": torch.cuda.get_device_name(0)}
+    emit("mega_family_train_kernels", **res)
+    return res
+
+
+def phase_mega_family_train_cli(seed: int) -> dict:
+    """The train CLI (``tools/train_net.main``, on the card) on DAFA and on
+    MEGA at full width from rendered frames on disk (``write_train_dataset``,
+    as phase 11), ``SOLVER.MAX_ITER`` 4, ``BATCH_REUSE_STEPS`` 2 (the reuse
+    swap draws a global frame), a checkpoint every 2 iterations, no
+    validation, started (``--resume``) from an iteration-0 checkpoint of the
+    config's model with its FrozenBN statistics from a sample of the
+    dataset's last video frame (``calibrate_on_sample``: random R-101
+    statistics overflow, and a full
+    model file loads into no MEGA, as in the JAX package: ``ROADMAP.md``
+    §C 5) and a fresh optimizer; then the same run resumed from its
+    iteration-2 checkpoint in
+    a second directory, which must end bit-equal to the uninterrupted one
+    (parameters and last losses).  Both runs use PyTorch's deterministic
+    algorithms (cuDNN's included; ``CUBLAS_WORKSPACE_CONFIG`` is set at the
+    script's start), which make the card's sums repeat.  Prints ms per
+    iteration, peak memory, the losses and DAFA's launches."""
+    import shutil
+
+    from diffusionvid_torch.data import ConcatDataset, get_dataset
+    from diffusionvid_torch.data.vid_dataset import VIDDataset
+    from diffusionvid_torch.engine.train import optimizer_from_config
+    from diffusionvid_torch.tools import train_net
+    from diffusionvid_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    work = ROOT / "build" / "chip_smoke" / "mega_train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    data = write_train_dataset(work / "data", seed)
+    load_image, VIDDataset.load_image = VIDDataset.load_image, rendered_vid().load_image
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    rows = {}
+    try:
+        for method in ("dafa", "mega"):
+            config = ROOT / "configs" / MEGA_TRAIN[method][0]
+            runs = [work / method / "run", work / method / "resumed"]
+            cfg, spec, model = method_model(method, seed=seed)
+            ds = ConcatDataset([get_dataset(n, is_train=True, data_dir=str(data))
+                                for n in cfg.DATASETS.TRAIN])
+            smp = ds.sample(len(ds) - 1, np.random.RandomState(seed),
+                            train_net.train_sample_config(cfg), spec)
+            calibrate_on_sample(model, spec, train_net.collate([smp], "cuda"), seed)
+            save_checkpoint(str(runs[0]), 0, {k: v.cpu() for k, v in model.state_dict().items()},
+                            optimizer_from_config(model, cfg).state_dict())
+            del model
+            torch.cuda.empty_cache()
+            opts = ["SOLVER.MAX_ITER", "4", "SOLVER.BATCH_REUSE_STEPS", "2",
+                    "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.TEST_PERIOD", "0",
+                    "MODEL.WEIGHT", "''"]
+            results, launches, times, peaks = [], [], [], []
+            for i, out_dir in enumerate(runs):
+                out_dir.mkdir(parents=True, exist_ok=True)
+                if i:
+                    ckpt = out_dir / "model_0000002.pth"
+                    shutil.copy(runs[0] / ckpt.name, ckpt)
+                    (out_dir / "last_checkpoint").write_text(str(ckpt))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                results.append(train_net.main(
+                    ["--config-file", str(config), "--data-dir", str(data), "--seed", str(seed),
+                     "--resume", *opts, "OUTPUT_DIR", str(out_dir)]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                launches.append(read_launches())
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            run, resumed = results
+            require(run["start_iter"] == 0 and resumed["start_iter"] == 2,
+                    f"mega_family_train_cli {method}: runs started at {run['start_iter']} and "
+                    f"{resumed['start_iter']}")
+            require(all(np.isfinite(v) for v in run["metrics"].values()),
+                    f"mega_family_train_cli {method}: non-finite loss {run['metrics']}")
+            end = [load_checkpoint(str(d / "model_0000004.pth"))["model"] for d in runs]
+            differ = [k for k in end[0] if not torch.equal(end[0][k], end[1][k])]
+            require(not differ and run["metrics"] == resumed["metrics"],
+                    f"mega_family_train_cli {method}: the resumed run differs from the "
+                    f"uninterrupted one in {len(differ)} tensors ({differ[:3]}), losses "
+                    f"{run['metrics']} against {resumed['metrics']}")
+            want = dafa_train_launches(1) if method == "dafa" else {}
+            require(all(launches[i] == {k: 4 * want.get(k, 0) - 2 * i * want.get(k, 0)
+                                        for k in launches[i]} for i in (0, 1)),
+                    f"mega_family_train_cli {method}: launches {launches}, an iteration "
+                    f"{want}")
+            rows[method] = {"config": f"configs/{MEGA_TRAIN[method][0]}", "iterations": 4,
+                            "resumed_at": 2, "batch_reuse_steps": 2, "run_s": times[0],
+                            "resumed_run_s": times[1], "ms_per_iteration": times[0] / 4 * 1e3,
+                            "peak_mem_gib": peaks[0], "launches": launches[0],
+                            "resumed_launches": launches[1], "losses": run["metrics"],
+                            "resumed_bit_equal": True}
+            emit("mega_family_train_cli", method=method, **rows[method],
+                 card=torch.cuda.get_device_name(0))
+            shutil.rmtree(work / method)
+    finally:
+        VIDDataset.load_image = load_image
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det[:2]
+        torch.use_deterministic_algorithms(det[2])
+    return rows
 
 
 # ---------------------------------------------------------------- main
@@ -3795,6 +4405,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS repeats its sums only with this workspace (read when it starts):
+    # phase 10d's resumed train runs must equal the uninterrupted ones
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     from diffusionvid_torch.ops import _build   # fails here without the repository
     smi = nvidia_smi_line()
@@ -3843,6 +4456,12 @@ def main(argv=None) -> int:
     dafa_counts = phase_mega_family(args.seed)["launches"]
     phase_mega_family_rest_tiny(args.seed)
     phase_mega_family_rest(args.seed)
+    phase_mega_family_train_tiny(args.seed)
+    mega_keep = {"k1": [], "k2": [], "k3": []}
+    mega_train = phase_mega_family_train(args.seed, mega_keep)
+    phase_mega_family_train_kernels(mega_keep)
+    del mega_keep
+    phase_mega_family_train_cli(args.seed)
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
     k3_inputs = []
@@ -3890,6 +4509,8 @@ def main(argv=None) -> int:
         if name in TRAIN_KERNELS:   # its train step; a DDP rank's first optimizer step
             line[-1]["local_attn_train_launches"] = local_attn["train"][name]
             line[-1]["ddp_rank_launches"] = ddp["steps"][0]["launches"][name]
+            # DAFA's full-width train step, a micro-step (phase 10d)
+            line[-1]["mega_train_launches"] = mega_train["dafa_launches_per_micro_step"][name]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -108,6 +108,11 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.RPN.REF_PRE_NMS_TOP_N = 6000
     _C.MODEL.VID.RPN.REF_POST_NMS_TOP_N = 75
     _C.MODEL.VID.RDN = CfgNode()
+    _C.MODEL.VID.RDN.MIN_OFFSET = -18
+    _C.MODEL.VID.RDN.MAX_OFFSET = 18
+    _C.MODEL.VID.RDN.ALL_FRAME_INTERVAL = 37
+    _C.MODEL.VID.RDN.KEY_FRAME_LOCATION = 18
+    _C.MODEL.VID.RDN.REF_NUM = 2
     _C.MODEL.VID.RDN.RATIO = 0.2
     _C.MODEL.VID.FGFA = CfgNode()
     _C.MODEL.VID.FGFA.MIN_OFFSET = -9
@@ -141,6 +146,7 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.VID.MEGA.GLOBAL.PIXEL_STAGE = 0
     _C.MODEL.VID.MEGA.REF_NUM_GLOBAL = 4
     _C.MODEL.VID.MEGA.REF_NUM_LOCAL = 2
+    _C.MODEL.VID.MEGA.REF_NUM_MEM = 3
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_METRIC = "distance"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_TYPE = "greedy"
     _C.MODEL.VID.MEGA.MEMORY_MANAGEMENT_SIZE_TEST = 750

@@ -230,9 +230,12 @@ class ConcatDataset:
     def annos(self):
         return [a for d in self.datasets for a in d.annos]
 
-    def sample(self, idx, rng, cfg):
+    def sample(self, idx, rng, cfg, spec: Optional[MethodSampleSpec] = None):
+        """The train sample of ``idx``: DiffusionVID's layout, or ``spec``'s."""
         ds, local = self._locate(idx)
-        return build_train_sample(ds, local, rng, cfg)
+        if spec is None:
+            return build_train_sample(ds, local, rng, cfg)
+        return build_train_sample_method(ds, local, rng, cfg, spec)
 
 
 @dataclass

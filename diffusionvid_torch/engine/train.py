@@ -7,7 +7,9 @@ this package's ``tools/train_net.py`` feeds it samples read from disk:
 
   * the loss of ``make_loss_fn``: diffusion targets, the training forward
     over the 1 + num_global frames of a sample, the deep-supervised set
-    criterion, averaged over the S samples of a batch;
+    criterion, averaged over the S samples of a batch; the MEGA family's
+    methods bring theirs (``engine/train_methods.py``) to the same step and
+    loop, with their own draws;
   * the optimizer of ``make_optimizer``: one global-norm clip over every
     gradient, then AdamW (or SGD) per parameter group: main, bias, backbone
     x BACKBONE_MULTIPLIER, backbone bias, and the frozen FrozenBN running
@@ -42,7 +44,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..models.criterion import set_criterion
 from ..parallel import dist
 from ..models.diffusion_det import (
-    diffusion_draws, make_schedule, prepare_diffusion_targets)
+    DiffusionDetArch, diffusion_draws, make_schedule, prepare_diffusion_targets)
 from ..utils.checkpoint import last_checkpoint, load_checkpoint, save_checkpoint
 
 
@@ -126,7 +128,11 @@ def param_group(name: str) -> str:
     ``class_logits_bias``.  In the trunk only the normalisation layers'
     biases have such a leaf: the Swin modules declare their other biases
     under the layer's name (``qkv_bias``, ``proj_bias``, ``mlp_fc1_bias``,
-    ``patch_embed_bias``), which JAX labels as weights."""
+    ``patch_embed_bias``), which JAX labels as weights.  JAX looks at the
+    top-level name alone, so the C4 trunk of DFF, FGFA, RDN and MEGA
+    (``detector.backbone.bottom_up.*``) is ``main`` and ``bias`` at the
+    full learning rate, while ``base``'s and DAFA's is the backbone; the
+    relation's ``Wg_bias`` / ``Wv_bias`` leaves are weights there too."""
     *path, leaf = name.split(".")
     if leaf in ("running_mean", "running_var"):
         return "frozen"
@@ -137,9 +143,9 @@ def param_group(name: str) -> str:
 
 
 def unused_in_training(model) -> list:
-    """The parameters a train step gives no gradient.  The local chain's
-    stages all take the same query and the last one's output is the
-    condition, unless the global attention overwrites it
+    """The parameters a DiffusionVID train step gives no gradient.  The
+    local chain's stages all take the same query and the last one's output
+    is the condition, unless the global attention overwrites it
     (box_head.py:359-394): so with GLOBAL.ENABLE every local stage, without
     it every local stage but the last, takes no gradient."""
     head = model.head
@@ -306,14 +312,18 @@ def unwrap(model):
 def wrap_data_parallel(model):
     """``DistributedDataParallel`` over the initialized process group (the
     model unchanged without one).  ``find_unused_parameters`` is set when a
-    train step leaves some parameter without a gradient
-    (``unused_in_training``: the local attention's overwritten stages)."""
+    train step leaves some parameter without a gradient: in DiffusionVID
+    the local attention's overwritten stages (``unused_in_training``), and
+    always for the MEGA family, whose idle parameters depend on the sample
+    (DAFA's memory attention without global frames, a MEGA without relation
+    stages whose ``global_lm`` has no memory to read)."""
     if not dist.is_initialized():
         return model
     dev = next(model.parameters()).device
+    unused = bool(unused_in_training(model)) if isinstance(model, DiffusionDetArch) else True
     return DistributedDataParallel(
         model, device_ids=[dev.index] if dev.type == "cuda" else None,
-        find_unused_parameters=bool(unused_in_training(model)))
+        find_unused_parameters=unused)
 
 
 def make_loss_fn(model, num_global: int, class_weight: float = 2.0,
@@ -346,16 +356,19 @@ def make_loss_fn(model, num_global: int, class_weight: float = 2.0,
     return loss_fn
 
 
-def make_train_step(model, opt: Optimizer, num_global: int, **loss_kw):
+def make_train_step(model, opt: Optimizer, num_global: int = 0, loss_fn=None, **loss_kw):
     """``train_step(batch, draws) -> metrics``: one micro-step (forward,
-    backward, ``opt.accumulate``).  The metrics are this rank's, detached
-    tensors on the model's device, read without a host sync
+    backward, ``opt.accumulate``) of ``loss_fn(batch, draws)``, by default
+    DiffusionVID's ``make_loss_fn(model, num_global, **loss_kw)``.  The
+    metrics are this rank's, detached tensors on the model's device, read
+    without a host sync
     (``parallel.dist.all_reduce_mean`` makes them means over the ranks
     where they are read).  With a DDP-wrapped ``model`` the micro-steps
     before an optimizer step's last run under ``no_sync`` and the last
     one's backward all-reduces the summed micro-gradients
     (``Optimizer.preset_grads``)."""
-    loss_fn = make_loss_fn(model, num_global, **loss_kw)
+    if loss_fn is None:
+        loss_fn = make_loss_fn(model, num_global, **loss_kw)
     ddp = isinstance(model, DistributedDataParallel)
 
     def train_step(batch: TrainBatch, draws: TrainDraws) -> dict:
@@ -386,33 +399,40 @@ def resume(model, opt: Optimizer, output_dir: str) -> int:
 
 
 def train_loop(model, opt: Optimizer, batches: Iterable[TrainBatch], *,
-               num_global: int, max_iter: int, seed: int = 0, start_iter: int = 0,
+               num_global: int = 0, max_iter: int, seed: int = 0, start_iter: int = 0,
                checkpoint_period: int = 0, output_dir: Optional[str] = None,
                log_every: int = 20, log: Callable[[str], None] = print,
-               on_step: Optional[Callable[[int, dict], None]] = None) -> dict:
+               on_step: Optional[Callable[[int, dict], None]] = None,
+               loss_fn=None, draw=None) -> dict:
     """Micro-steps ``start_iter .. max_iter - 1`` over ``batches`` (one
-    batch per iteration, the iterable starting at ``start_iter``'s).  The
-    draws of iteration ``it`` come from ``iteration_generator(seed, it)``;
-    under a process group of W ranks they are drawn for the W x S samples
-    of the iteration and rank r takes rows r*S .. r*S + S - 1 (``model``
-    DDP-wrapped by ``wrap_data_parallel``).  After each iteration
+    batch per iteration, the iterable starting at ``start_iter``'s) of
+    ``loss_fn`` (``make_train_step``'s; DiffusionVID's by default).  The
+    draws of iteration ``it`` are ``draw(iteration_generator(seed, it),
+    samples, frames)`` (by default DiffusionVID's ``draw_train_randoms``; a
+    named tuple of tensors whose first axis is the sample); under a process
+    group of W ranks they are drawn for the W x S samples of the iteration
+    and rank r takes rows r*S .. r*S + S - 1 (``model`` DDP-wrapped by
+    ``wrap_data_parallel``).  After each iteration
     ``on_step(iterations done, metrics)`` runs (the train CLI's logging and
     validation; the rank's own metrics), then, with ``output_dir``, the
     checkpoint every ``checkpoint_period`` iterations and at ``max_iter``,
     written by rank 0.  Logs, and returns, the metrics as means over the
     ranks."""
-    step = make_train_step(model, opt, num_global)
+    step = make_train_step(model, opt, num_global, loss_fn=loss_fn)
     net = unwrap(model)
+    if draw is None:
+        def draw(gen, samples, frames):
+            return draw_train_randoms(gen, samples, frames, net.num_proposals,
+                                      p_uncond=net.head.p_uncond)
     world, rank = dist.world_size(), dist.rank()
     metrics = {}
     batch_iter = iter(batches)
     for it in range(start_iter, max_iter):
         batch = next(batch_iter)
         s, b = batch.images.shape[:2]
-        draws = draw_train_randoms(iteration_generator(seed, it), world * s, b,
-                                   net.num_proposals, p_uncond=net.head.p_uncond)
-        draws = TrainDraws(*(x[rank * s:(rank + 1) * s].to(batch.images.device)
-                             for x in draws))
+        draws = draw(iteration_generator(seed, it), world * s, b)
+        draws = type(draws)(*(x[rank * s:(rank + 1) * s].to(batch.images.device)
+                              for x in draws))
         metrics = step(batch, draws)
         done = it + 1
         if log_every and done % log_every == 0:

@@ -1,4 +1,4 @@
-"""DAFA: Sparse R-CNN with temporal feature aggregation, at inference.
+"""DAFA: Sparse R-CNN with temporal feature aggregation.
 
 Port of ``diffusionvid_tpu/models/dafa.py`` (the reference's
 ``sparse_rcnn_dafa.py``, the AP50-84.5 predecessor of DiffusionVID): a
@@ -7,7 +7,10 @@ ResNet + FPN trunk, learned proposal boxes and features, and six
 kernel K1 and interacting through kernel K2 on the card.  Before each of
 the last ``res_stage`` stages the proposal features attend over the
 FPS-deduplicated memory of the global frames' top-75 features
-(``extract_topk`` → ``update_memory``).  ``train_loss`` is ROADMAP.md A7.5.
+(``extract_topk`` → ``update_memory``).  ``train_loss`` fills that memory
+from the global frames under gradient, runs the stages on the current
+frame and supervises every stage with the simOTA set criterion
+(``models/criterion.py``, weights 2 / 5 / 2); it draws nothing.
 
 Names follow the JAX package's tree: ``backbone`` (detectron2's FPN module
 with the trunk as ``bottom_up``), ``heads.{i}`` (the JAX package's
@@ -22,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.memory import FeatureMemory, init_memory, update_erase_memory
+from .criterion import set_criterion
 from .fpn import FPN
 from .heads import MultiheadAttention, RCNNHead, reset_head_parameters
 from .resnet import ResNet
@@ -113,6 +117,26 @@ class SparseRCNNDAFA(nn.Module):
 
     def update_memory(self, state: DafaState, feats) -> DafaState:
         return DafaState(update_erase_memory(state.mem, feats, feats.shape[0]))
+
+    def train_loss(self, cur_images, global_images, whwh, gt_boxes, gt_labels, gt_valid,
+                   class_weight: float = 2.0, l1_weight: float = 5.0,
+                   giou_weight: float = 2.0) -> dict:
+        """DAFA training (sparse_rcnn_dafa.py:247-382): the global frames'
+        top features (``extract_topk``, under gradient) fill a fresh memory,
+        the current frame ``[B, H, W, 3]`` runs the stages attending over it,
+        and every stage is supervised on the current frame's GT ``[B, G]``.
+        The loss dict holds each stage's losses and their weighted sum,
+        ``total_loss_stages``."""
+        state = None
+        if global_images is not None and global_images.shape[0] > 0:
+            state = self.update_memory(self.init_state(), self.extract_topk(global_images, whwh))
+        logits, boxes = self(cur_images, whwh, state=state)
+        total, losses = set_criterion(
+            logits, boxes, gt_labels, gt_boxes, gt_valid,
+            whwh[None].expand(cur_images.shape[0], 4), self.num_classes,
+            class_weight=class_weight, l1_weight=l1_weight, giou_weight=giou_weight)
+        losses["total_loss_stages"] = total
+        return losses
 
     def forward(self, images, whwh, state: DafaState = None):
         """Stacked per-stage float32 (logits [S, B, N, K], boxes [S, B, N, 4]).

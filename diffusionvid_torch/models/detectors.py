@@ -4,11 +4,13 @@ Port of ``diffusionvid_tpu/models/detectors.py:15-115`` for the methods the
 port runs: ``diffusion`` (``DiffusionDetArch``) and the MEGA family's
 ``base``, ``dff``, ``fgfa``, ``rdn``, ``mega`` and ``dafa``, with ResNeXt
 (``RESNETS.NUM_GROUPS`` / ``WIDTH_PER_GROUP``) on the C4 ones and MEGA's
-pixel flags.  RetinaNet and the mask and keypoint heads raise and name
-their ROADMAP.md item (A8).  The model is placed on the card unless
-``device`` says otherwise, with random weights drawn from ``seed``.  As in the JAX package,
-the MEGA family keeps its modules' pixel mean and std whatever
-``MODEL.PIXEL_MEAN`` says (the defaults are the same).
+pixel flags, and the RPN's train and test selection sizes
+(``MODEL.RPN.*_NMS_TOP_N_TRAIN`` / ``_TEST``).  RetinaNet and the mask and
+keypoint heads raise and name their ROADMAP.md item (A8).  The model is
+placed on the card unless ``device`` says otherwise, with random weights
+drawn from ``seed``.  As in the JAX package, the MEGA family keeps its
+modules' pixel mean and std whatever ``MODEL.PIXEL_MEAN`` says (the
+defaults are the same).
 """
 
 from __future__ import annotations
@@ -61,13 +63,16 @@ def build_detection_model(cfg, device=None, dtype=None, seed: int = 0, **kw):
     # the JAX builder's nms_kw: ResNeXt reaches every C4 architecture
     trunk = dict(num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
                  width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP)
-    nms = dict(pre_nms=rpn.PRE_NMS_TOP_N_TEST, post_nms=rpn.POST_NMS_TOP_N_TEST)
+    nms = dict(pre_nms=rpn.PRE_NMS_TOP_N_TEST, post_nms=rpn.POST_NMS_TOP_N_TEST,
+               pre_nms_train=rpn.PRE_NMS_TOP_N_TRAIN, post_nms_train=rpn.POST_NMS_TOP_N_TRAIN)
     if method == "base":
         from .rcnn import GeneralizedRCNN
         model = GeneralizedRCNN(depth=depth, num_classes=ncls,
                                 anchor_sizes=tuple(rpn.ANCHOR_SIZES),
                                 pre_nms_test=rpn.PRE_NMS_TOP_N_TEST,
-                                post_nms_test=rpn.POST_NMS_TOP_N_TEST, res5_dilation=dil,
+                                post_nms_test=rpn.POST_NMS_TOP_N_TEST,
+                                pre_nms_train=rpn.PRE_NMS_TOP_N_TRAIN,
+                                post_nms_train=rpn.POST_NMS_TOP_N_TRAIN, res5_dilation=dil,
                                 compute_dtype=dt, **trunk)
     elif method == "dff":
         from .video_archs import DFFArch

@@ -1,12 +1,15 @@
-"""GeneralizedRCNN: the single-frame C4 two-stage baseline, at inference.
+"""GeneralizedRCNN: the single-frame C4 two-stage baseline.
 
 Port of ``diffusionvid_tpu/models/rcnn.py:29-159``: ResNet-C4 trunk (res4
 at 1/16) → RPN → C4 box head → Fast R-CNN predictor → classic
 post-processing, one fixed-size ``BoxArray`` an image; with ``num_groups``
-above 1 the trunk and the res5 head are ResNeXt.  The MEGA family
-(``video_archs.py``) builds on the same pieces.  The train forward
-(``losses_from_features``) belongs to the train half (ROADMAP.md A7.5);
-``MASK_ON`` / ``KEYPOINT_ON`` are not ported (A8).
+above 1 the trunk and the res5 head are ResNeXt.  The train forward
+(``train_loss``, ``losses_from_features``) selects ``post_nms_train``
+proposals without gradient, puts the GT boxes in their last slots, and
+returns the RPN's and the Fast R-CNN head's losses; their samplers take
+their keys from ``draw`` (``draw(shape)`` gives uniforms in [0, 1) on the
+model's device).  The MEGA family (``video_archs.py``) builds on the same
+pieces.  ``MASK_ON`` / ``KEYPOINT_ON`` are not ported (A8).
 
 Module names follow the JAX package's tree: ``backbone.bottom_up`` the
 trunk (detectron2 names, as in the DiffusionVID model), ``rpn``,
@@ -21,10 +24,19 @@ import torch
 import torch.nn as nn
 
 from ..structures.boxes import BoxArray
-from .box_head import C4BoxFeatureExtractor, FastRCNNPredictor, postprocess_classic
+from .box_head import (C4BoxFeatureExtractor, FastRCNNPredictor, fast_rcnn_loss,
+                       postprocess_classic)
 from .heads import reset_head_parameters
 from .resnet import ResNet, he_init_
-from .rpn import RPNHead, generate_anchors, select_proposals, shift_anchors
+from .rpn import Proposals, RPNHead, generate_anchors, rpn_loss, select_proposals, shift_anchors
+
+
+def with_gt(props: Proposals, gt_boxes, gt_valid):
+    """The proposals ``[B, K]`` with their last ``G`` slots replaced by the
+    GT ``[B, G]`` (add_gt_proposals, rpn/inference.py): (boxes, valid)."""
+    g = gt_boxes.shape[1]
+    return (torch.cat([props.boxes[:, :-g], gt_boxes.to(props.boxes.dtype)], 1),
+            torch.cat([props.valid[:, :-g], gt_valid], 1))
 
 
 class C4Backbone(nn.Module):
@@ -49,6 +61,7 @@ class GeneralizedRCNN(nn.Module):
     def __init__(self, depth: int = 101, num_classes: int = 31,
                  anchor_sizes: Sequence[int] = (64, 128, 256, 512),
                  anchor_ratios: Sequence[float] = (0.5, 1.0, 2.0), anchor_stride: int = 16,
+                 pre_nms_train: int = 2000, post_nms_train: int = 300,
                  pre_nms_test: int = 2000, post_nms_test: int = 300, ref_post_nms: int = 75,
                  res5_dilation: int = 1, num_groups: int = 1, width_per_group: int = 64,
                  pixel_mean=(123.675, 116.280, 103.530), pixel_std=(58.395, 57.120, 57.375),
@@ -57,6 +70,7 @@ class GeneralizedRCNN(nn.Module):
         self.num_classes = num_classes
         self.anchor_sizes, self.anchor_ratios = tuple(anchor_sizes), tuple(anchor_ratios)
         self.anchor_stride = anchor_stride
+        self.pre_nms_train, self.post_nms_train = pre_nms_train, post_nms_train
         self.pre_nms_test, self.post_nms_test = pre_nms_test, post_nms_test
         self.ref_post_nms = ref_post_nms
         self.compute_dtype = compute_dtype
@@ -97,9 +111,40 @@ class GeneralizedRCNN(nn.Module):
         return select_proposals(logits, deltas, anchors, image_hw, pre_nms=self.pre_nms_test,
                                 post_nms=self.ref_post_nms if ref else self.post_nms_test)
 
+    def train_proposals(self, feat, image_hw):
+        """The RPN's outputs and the ``post_nms_train`` proposals selected
+        from them without gradient (the reference's RPN inference runs
+        under no_grad): (proposals, logits, deltas, anchors)."""
+        logits, deltas = self.rpn(feat)
+        anchors = self.anchors(feat.shape[2:], feat.device)
+        with torch.no_grad():
+            props = select_proposals(logits, deltas, anchors, image_hw,
+                                     pre_nms=self.pre_nms_train, post_nms=self.post_nms_train)
+        return props, logits, deltas, anchors
+
     def box_features(self, feat, boxes):
         """Pooled per-proposal features ``[B, R, 2048]``."""
         return self.roi_head(feat.permute(0, 2, 3, 1), boxes)
+
+    def losses_from_features(self, feat, image_hw, gt_boxes, gt_labels, gt_valid,
+                             draw) -> dict:
+        """The RPN and Fast R-CNN losses on a res4 map ``[B, 1024, h, w]``
+        and its GT ``[B, G]``: the shared train tail of ``base``, DFF and
+        FGFA (generalized_rcnn_dff.py:88-115, generalized_rcnn_fgfa.py:105-143)."""
+        props, logits, deltas, anchors = self.train_proposals(feat, image_hw)
+        b = feat.shape[0]
+        losses = rpn_loss(draw((b, 2, anchors.shape[0])), logits, deltas, anchors, gt_boxes,
+                          gt_valid)
+        boxes, valid = with_gt(props, gt_boxes, gt_valid)
+        cls_logits, box_deltas = self.predictor(self.box_features(feat, boxes))
+        losses.update(fast_rcnn_loss(draw((b, 2, boxes.shape[1])), cls_logits, box_deltas,
+                                     boxes, valid, gt_boxes, gt_labels, gt_valid))
+        return losses
+
+    def train_loss(self, images, image_hw, gt_boxes, gt_labels, gt_valid, draw) -> dict:
+        """images ``[B, H, W, 3]`` and their GT → the loss dict."""
+        return self.losses_from_features(self.features(images), image_hw, gt_boxes,
+                                         gt_labels, gt_valid, draw)
 
     def forward(self, images, image_hw) -> BoxArray:
         """images ``[B, H, W, 3]``; ``image_hw`` the true (h, w) of the

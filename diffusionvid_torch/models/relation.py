@@ -24,6 +24,14 @@ import torch.nn.functional as F
 from .heads import Linear
 
 
+def _abs(x):
+    """``|x|`` with the JAX package's gradient at 0 (``jnp.abs``: +1;
+    ``torch.abs``: 0).  In training a current proposal and the same box
+    among the current frame's reference proposals have equal centres, and
+    the reference box takes the gradient of that offset."""
+    return torch.where(x >= 0, x, -x)
+
+
 def position_matrix(boxes, ref_boxes):
     """[N, M, 4] log-scale geometry features (+1 width convention; a
     degenerate box's width and height clamp at 1e-3)."""
@@ -34,8 +42,8 @@ def position_matrix(boxes, ref_boxes):
 
     w, h, cx, cy = parts(boxes)
     wr, hr, cxr, cyr = parts(ref_boxes)
-    dx = torch.log(torch.abs((cx[:, None] - cxr[None, :]) / w[:, None]) + 1e-3)
-    dy = torch.log(torch.abs((cy[:, None] - cyr[None, :]) / h[:, None]) + 1e-3)
+    dx = torch.log(_abs((cx[:, None] - cxr[None, :]) / w[:, None]) + 1e-3)
+    dy = torch.log(_abs((cy[:, None] - cyr[None, :]) / h[:, None]) + 1e-3)
     dw = torch.log(w[:, None] / wr[None, :])
     dh = torch.log(h[:, None] / hr[None, :])
     return torch.stack([dx, dy, dw, dh], -1)

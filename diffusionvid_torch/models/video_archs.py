@@ -1,6 +1,6 @@
-"""The MEGA family's video architectures at inference: DFF, FGFA, RDN, MEGA.
+"""The MEGA family's video architectures: DFF, FGFA, RDN, MEGA.
 
-Port of ``diffusionvid_tpu/models/video_archs.py:46-818`` (inference):
+Port of ``diffusionvid_tpu/models/video_archs.py:46-818``:
 
   * ``DFFArch`` (generalized_rcnn_dff.py:42-120): key frames run the trunk;
     the others warp the key frame's res4 map by FlowNetS's flow and scale it
@@ -23,8 +23,19 @@ subsample of the reference maps' pixels and the pixel memories before the
 RPN; with no relation stage the local flag replaces the box relation
 (``pixel_replaces_box``, ``MEGAArch.pixel_call``), and the global flag
 enhances the global frames' maps and keeps an FPS pixel cache
-(``update_global_pixels``).  Their caches live in ``PixelState``.  The
-train forwards are ROADMAP.md A7.5.
+(``update_global_pixels``).  Their caches live in ``PixelState``.
+
+The train forwards (``train_loss``, MEGA's ``train_loss_mega``) return the
+RPN's and the Fast R-CNN head's losses on the current frame's GT, their
+samplers' keys from ``draw`` (``rcnn.py``): DFF trains on the key frame's
+map warped onto the current frame, FGFA on the sampled references' maps
+aggregated against the current frame's embedding (the current frame itself
+is not among them), RDN relation-attends the current frame's proposals
+over the 75 proposals of the current frame and of each reference, MEGA adds
+the memory and global frames' 75 proposals each as geometry-free keys.  As
+in the JAX package only the current frame's proposals are detached: the
+references' boxes stay on the gradient path (the position embedding, the
+pooling), back to the references' RPN deltas.
 
 Module names follow the JAX package's tree: ``detector`` (the C4
 ``GeneralizedRCNN``; RDN and MEGA build it without its predictor),
@@ -47,8 +58,10 @@ from .box_head import FastRCNNPredictor, postprocess_classic
 from .flownet import EmbedNet, FlowNetS, warp_features
 from .heads import Linear, reset_head_parameters
 from .pixel_attention import PixelMemoryAttention, pixel_positional_embedding
-from .rcnn import GeneralizedRCNN
+from .box_head import fast_rcnn_loss
+from .rcnn import GeneralizedRCNN, with_gt
 from .relation import RelationAttention, RelationStack
+from .rpn import rpn_loss
 from .resnet import he_init_
 
 # ---------------------------------------------------------------------------
@@ -172,12 +185,13 @@ class _FlowArch(nn.Module):
     """The C4 detector with its predictor, and FlowNetS."""
 
     def __init__(self, depth: int, num_classes: int, pre_nms: int, post_nms: int,
-                 res5_dilation: int, num_groups: int, width_per_group: int, compute_dtype,
-                 predict_scale: bool):
+                 pre_nms_train: int, post_nms_train: int, res5_dilation: int, num_groups: int,
+                 width_per_group: int, compute_dtype, predict_scale: bool):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.detector = GeneralizedRCNN(
             depth=depth, num_classes=num_classes, pre_nms_test=pre_nms, post_nms_test=post_nms,
+            pre_nms_train=pre_nms_train, post_nms_train=post_nms_train,
             res5_dilation=res5_dilation, num_groups=num_groups,
             width_per_group=width_per_group, compute_dtype=compute_dtype)
         self.flownet = FlowNetS(predict_scale=predict_scale, compute_dtype=compute_dtype)
@@ -207,10 +221,12 @@ class DFFArch(_FlowArch):
     ``detect``), with the same numbers."""
 
     def __init__(self, depth: int = 101, num_classes: int = 31, key_frame_duration: int = 10,
-                 pre_nms: int = 2000, post_nms: int = 300, res5_dilation: int = 1,
-                 num_groups: int = 1, width_per_group: int = 64, compute_dtype=torch.float32):
-        super().__init__(depth, num_classes, pre_nms, post_nms, res5_dilation, num_groups,
-                         width_per_group, compute_dtype, predict_scale=True)
+                 pre_nms: int = 2000, post_nms: int = 300, pre_nms_train: int = 2000,
+                 post_nms_train: int = 300, res5_dilation: int = 1, num_groups: int = 1,
+                 width_per_group: int = 64, compute_dtype=torch.float32):
+        super().__init__(depth, num_classes, pre_nms, post_nms, pre_nms_train, post_nms_train,
+                         res5_dilation, num_groups, width_per_group, compute_dtype,
+                         predict_scale=True)
         self.key_frame_duration = key_frame_duration
 
     def key_features(self, images):
@@ -225,6 +241,16 @@ class DFFArch(_FlowArch):
     def detect(self, feat, image_hw) -> BoxArray:
         return self.detector.detect(feat, image_hw)
 
+    def train_loss(self, cur_images, ref_images, image_hw, gt_boxes, gt_labels, gt_valid,
+                   draw) -> dict:
+        """The trunk on the sampled key frame ``ref_images`` ``[1, H, W, 3]``
+        only, its map warped onto the current frame, the losses on the
+        current frame's GT (generalized_rcnn_dff.py:88-115)."""
+        key_feat = self.key_features(ref_images)
+        feat = self.warp_from_key(ref_images, cur_images, key_feat)
+        return self.detector.losses_from_features(feat, image_hw, gt_boxes, gt_labels,
+                                                  gt_valid, draw)
+
     def forward(self, key_images, cur_images, image_hw, is_key: bool = False) -> BoxArray:
         key_feat = self.key_features(key_images)
         feat = key_feat if is_key else self.warp_from_key(key_images, cur_images, key_feat)
@@ -235,30 +261,57 @@ class FGFAArch(_FlowArch):
     """Flow-Guided Feature Aggregation."""
 
     def __init__(self, depth: int = 101, num_classes: int = 31, pre_nms: int = 2000,
-                 post_nms: int = 300, res5_dilation: int = 1, num_groups: int = 1,
-                 width_per_group: int = 64, compute_dtype=torch.float32):
-        super().__init__(depth, num_classes, pre_nms, post_nms, res5_dilation, num_groups,
-                         width_per_group, compute_dtype, predict_scale=False)
+                 post_nms: int = 300, pre_nms_train: int = 2000, post_nms_train: int = 300,
+                 res5_dilation: int = 1, num_groups: int = 1, width_per_group: int = 64,
+                 compute_dtype=torch.float32):
+        super().__init__(depth, num_classes, pre_nms, post_nms, pre_nms_train, post_nms_train,
+                         res5_dilation, num_groups, width_per_group, compute_dtype,
+                         predict_scale=False)
         self.embednet = EmbedNet()
 
     def reset_parameters(self, gen: torch.Generator):
         super().reset_parameters(gen)
         he_init_(self.embednet, gen)
 
+    def _warp_refs(self, cur_images, ref_images, ref_feats):
+        r = ref_images.shape[0]
+        flow = self.flow(cur_images.expand(r, *cur_images.shape[1:]), ref_images,
+                         ref_feats.shape[2:])
+        return warp_features(ref_feats, flow)
+
+    @staticmethod
+    def _weighted(warped, emb, cur_emb):
+        """The warped maps' average weighted by the softmax over frames of
+        the cosine between their embeddings and ``cur_emb``; in float32."""
+        def unit(e):
+            e = e.float()
+            return e / torch.linalg.vector_norm(e, dim=1, keepdim=True).clamp(min=1e-6)
+
+        weight = torch.softmax((unit(emb) * unit(cur_emb)).sum(1), 0)[:, None]
+        return (warped.float() * weight).sum(0, keepdim=True).to(warped.dtype)
+
     def aggregate(self, cur_images, ref_images, ref_feats):
         """Each reference map warped onto the current frame, then their
         average weighted by the softmax over frames of the cosine between
         each warped map's embedding and the current frame's, the last
         reference (generalized_rcnn_fgfa.py:45-110); in float32."""
-        r = ref_images.shape[0]
-        flow = self.flow(cur_images.expand(r, *cur_images.shape[1:]), ref_images,
-                         ref_feats.shape[2:])
-        warped = warp_features(ref_feats, flow)
-        emb = self.embednet(warped).float()
-        unit = emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True).clamp(min=1e-6)
-        cos = (unit * unit[-1:]).sum(1)
-        weight = torch.softmax(cos, 0)[:, None]
-        return (warped.float() * weight).sum(0, keepdim=True).to(warped.dtype)
+        warped = self._warp_refs(cur_images, ref_images, ref_feats)
+        emb = self.embednet(warped)
+        return self._weighted(warped, emb, emb[-1:])
+
+    def train_loss(self, cur_images, ref_images, image_hw, gt_boxes, gt_labels, gt_valid,
+                   draw) -> dict:
+        """One trunk pass over [cur, refs]; the references' maps warped onto
+        the current frame and aggregated against the current frame's own
+        embedding, without the current map among them (as the reference
+        trains, generalized_rcnn_fgfa.py:105-143); the losses on the
+        current frame's GT."""
+        feats = self.detector.features(torch.cat([cur_images, ref_images], 0))
+        warped = self._warp_refs(cur_images, ref_images, feats[1:])
+        emb = self.embednet(torch.cat([feats[:1], warped], 0))
+        feat = self._weighted(warped, emb[1:], emb[:1])
+        return self.detector.losses_from_features(feat, image_hw, gt_boxes, gt_labels,
+                                                  gt_valid, draw)
 
     def forward(self, cur_images, ref_images, image_hw) -> BoxArray:
         """``ref_images`` end with the current frame."""
@@ -283,14 +336,14 @@ class RDNArch(nn.Module):
     JAX package's tree holds it only then."""
 
     pixel_sparse = 0.1          # the test-time reference subsample (:609)
-    pixel_sparse_train = 0.25   # the global maps' self-enhancement (:360, 474)
+    pixel_sparse_train = 0.25   # the train-side subsample, the global maps' (:360, 474)
 
     def __init__(self, depth: int = 101, num_classes: int = 31, feat_dim: int = 1024,
                  relation_stages: int = 2, advanced_stages: int = 0, advanced_num: int = 15,
                  ref_post_nms: int = 75, pre_nms: int = 2000, post_nms: int = 300,
-                 joint: bool = False, res5_dilation: int = 1, num_groups: int = 1,
-                 width_per_group: int = 64, pixel_attend_local: bool = False,
-                 compute_dtype=torch.float32):
+                 pre_nms_train: int = 2000, post_nms_train: int = 300, joint: bool = False,
+                 res5_dilation: int = 1, num_groups: int = 1, width_per_group: int = 64,
+                 pixel_attend_local: bool = False, compute_dtype=torch.float32):
         super().__init__()
         self.num_classes, self.feat_dim = num_classes, feat_dim
         self.relation_stages = relation_stages
@@ -298,7 +351,8 @@ class RDNArch(nn.Module):
         self.compute_dtype = compute_dtype
         self.detector = GeneralizedRCNN(
             depth=depth, num_classes=num_classes, pre_nms_test=pre_nms,
-            post_nms_test=post_nms, ref_post_nms=ref_post_nms,
+            post_nms_test=post_nms, pre_nms_train=pre_nms_train,
+            post_nms_train=post_nms_train, ref_post_nms=ref_post_nms,
             res5_dilation=res5_dilation, num_groups=num_groups,
             width_per_group=width_per_group, compute_dtype=compute_dtype,
             with_predictor=False)
@@ -361,11 +415,52 @@ class RDNArch(nn.Module):
         if self.pixel_replaces_box:
             cur_feat = self._pixel_enhance(cur_feat, feats)
         props = self.detector.proposals(cur_feat, image_hw)
-        ref_props = self.detector.proposals(ref_feat, image_hw, ref=True)
         cur_x = self.pooled(cur_feat, props.boxes)[0]
+        return (props, cur_x, *self._ref_pooled(ref_feat, image_hw))
+
+    def _ref_pooled(self, ref_feat, image_hw):
+        """The 75 reference proposals of each map ``[F, C, h, w]``: their
+        pooled features ``[F*75, D]``, boxes and valid masks, flattened."""
+        ref_props = self.detector.proposals(ref_feat, image_hw, ref=True)
         ref_x = self.pooled(ref_feat, ref_props.boxes).reshape(-1, self.feat_dim)
-        return (props, cur_x, ref_x, ref_props.boxes.reshape(-1, 4),
-                ref_props.valid.reshape(-1))
+        return ref_x, ref_props.boxes.reshape(-1, 4), ref_props.valid.reshape(-1)
+
+    def train_loss(self, cur_images, ref_images, image_hw, gt_boxes, gt_labels, gt_valid, draw,
+                   extra_kv=None, extra_valid=None) -> dict:
+        """RDN training (generalized_rcnn_rdn.py:75-106): one trunk pass over
+        [cur, refs]; the RPN's loss on the current frame; its proposals
+        (detached, the GT in their last slots, GT ``[G]`` unbatched)
+        relation-attended over the 75 proposals of the current frame and of
+        each reference, then the Fast R-CNN loss.  ``extra_kv`` / ``extra_valid``:
+        MEGA's geometry-free memory keys, over which a model without
+        relation stages takes one ``global_lm`` pass.  On the pixel path the
+        current map is first enhanced over every map of the pass (0.25 of
+        their pixels) and their irrelevant pixels
+        (generalized_rcnn_mega.py:352-363)."""
+        feats = self.detector.features(torch.cat([cur_images, ref_images], 0))
+        cur_feat, ref_feat = feats[:1], feats[1:]
+        if self.pixel_replaces_box:
+            irr, irr_valid = _irrelevant_pixels(
+                feats.permute(0, 2, 3, 1).reshape(-1, feats.shape[1]))
+            cur_feat = self._pixel_enhance(cur_feat, feats, sparse=self.pixel_sparse_train,
+                                           memory=irr, memory_valid=irr_valid)
+        props, logits, deltas, anchors = self.detector.train_proposals(cur_feat, image_hw)
+        gt_b, gt_l, gt_v = gt_boxes[None], gt_labels[None], gt_valid[None]
+        losses = rpn_loss(draw((1, 2, anchors.shape[0])), logits, deltas, anchors, gt_b, gt_v)
+        boxes, valid = with_gt(props, gt_b, gt_v)
+        cur_x = self.pooled(cur_feat, boxes)[0]
+        ref_x, ref_boxes, ref_valid = self._ref_pooled(torch.cat([cur_feat, ref_feat], 0),
+                                                       image_hw)
+        x = self.relation(cur_x, ref_x, boxes[0], ref_boxes, ref_valid, extra_kv=extra_kv,
+                          extra_valid=extra_valid)
+        if self.relation_stages == 0 and extra_kv is not None:
+            # update_lm at train (roi_box_feature_extractors.py:1259-1263)
+            lm = self.global_lm(x, extra_kv, None, extra_valid)
+            x = torch.where(extra_valid.any(), x + lm, x)
+        cls_logits, box_deltas = self.predictor(x[None])
+        losses.update(fast_rcnn_loss(draw((1, 2, boxes.shape[1])), cls_logits, box_deltas,
+                                     boxes, valid, gt_b, gt_l, gt_v))
+        return losses
 
     def _detect(self, x, props, image_hw) -> BoxArray:
         cls_logits, box_deltas = self.predictor(x[None])
@@ -445,6 +540,19 @@ class MEGAArch(RDNArch):
         props = self.detector.proposals(feat, image_hw, ref=True)
         x = self.pooled(feat, props.boxes)
         return x.reshape(-1, self.feat_dim), props.valid.reshape(-1)
+
+    def train_loss_mega(self, cur_images, local_images, mem_images, global_images, image_hw,
+                        gt_boxes, gt_labels, gt_valid, draw) -> dict:
+        """MEGA training (generalized_rcnn_mega.py:252-388): the memory and
+        global frames' 75 reference proposals each, pooled, are the
+        geometry-free keys of ``train_loss`` over the local frames."""
+        aux = [t for t in (mem_images, global_images) if t is not None and t.shape[0] > 0]
+        extra_kv = extra_valid = None
+        if aux:
+            extra_kv, _, extra_valid = self._ref_pooled(
+                self.detector.features(torch.cat(aux, 0)), image_hw)
+        return self.train_loss(cur_images, local_images, image_hw, gt_boxes, gt_labels, gt_valid,
+                               draw, extra_kv=extra_kv, extra_valid=extra_valid)
 
     def update_memory(self, state: MegaState, feats, valid) -> MegaState:
         """The valid features, compacted to a prefix in order, merged into

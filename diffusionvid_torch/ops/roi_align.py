@@ -567,7 +567,8 @@ def _axis_taps(coords, size):
     bilinear weights, zero outside [-1, size] (the CUDA border rule)."""
     sz = size.float()
     inside = (coords >= -1.0) & (coords <= sz)
-    cc = torch.minimum(coords.clamp(min=0.0), sz - 1.0)
+    # maximum, as jnp.clip: a sample on the border takes half the gradient
+    cc = torch.minimum(torch.maximum(coords, coords.new_zeros(())), sz - 1.0)
     low = torch.floor(cc)
     high = torch.minimum(low + 1.0, sz - 1.0)
     frac = cc - low

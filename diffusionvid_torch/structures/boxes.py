@@ -2,8 +2,8 @@
 
 Port of ``diffusionvid_tpu/structures/boxes.py``: a fixed-size padded
 detection set plus a validity mask, and the xyxy/cxcywh, IoU, GIoU,
-clipping and delta-decoding functions the inference and training paths
-use.  Every function takes leading batch dimensions.
+clipping and delta encoding and decoding functions the inference and
+training paths use.  Every function takes leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -93,6 +93,24 @@ def clip_to_image(boxes, image_size_hw, plus_one: bool = False):
 
 
 _DEFAULT_SCALE_CLAMP = math.log(1000.0 / 16)
+
+
+def encode_boxes(reference_boxes, proposals, weights=(10.0, 10.0, 5.0, 5.0),
+                 plus_one: bool = True):
+    """The deltas ``[..., 4]`` that take ``proposals`` to ``reference_boxes``
+    (maskrcnn BoxCoder.encode), the inverse of ``decode_boxes``."""
+    off = 1.0 if plus_one else 0.0
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0] + off
+    ex_h = proposals[..., 3] - proposals[..., 1] + off
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + off
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + off
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w, wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w), wh * torch.log(gt_h / ex_h)], -1)
 
 
 def decode_boxes(deltas, boxes, weights=(10.0, 10.0, 5.0, 5.0),

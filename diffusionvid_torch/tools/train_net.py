@@ -1,17 +1,22 @@
-"""Train DiffusionVID with the PyTorch port.
+"""Train DiffusionVID and the MEGA family with the PyTorch port.
 
-Port of ``tools/train_net.py`` for the diffusion method (the reference's
-``tools/train_net.py:154-243``): the config and its ``KEY VALUE``
+Port of ``tools/train_net.py`` (the reference's ``tools/train_net.py:154-243``)
+for the diffusion method and the MEGA family's ``base``, ``dff``,
+``fgfa``, ``rdn``, ``mega`` and ``dafa``: the config and its ``KEY VALUE``
 overrides; ``config.yml`` and a log with the environment in ``OUTPUT_DIR``;
 the model from the config with random weights from ``--seed``, then
 ``--pretrained`` or ``MODEL.WEIGHT`` over them with the class head kept
 fresh; the optimizer of ``engine/train.py: optimizer_from_config``; train
 samples read from ``DATASETS.TRAIN`` on disk (with the SSD augmentation
-when ``INPUT.TRANSFORM`` is set), one a batch, in aspect-ratio groups; the
-iterations of ``engine/train.py: train_loop``, with the batch-reuse swap,
-a log line and a ``metrics.jsonl`` record every 20 iterations, periodic
-validation through ``run_inference`` and checkpoints; ``--resume`` from the
-last checkpoint.
+when ``INPUT.TRANSFORM`` is set), one a batch, in aspect-ratio groups, in
+the method's frame layout (``MethodSampleSpec``); the iterations of
+``engine/train.py: train_loop`` with the method's loss
+(``engine/train_methods.py`` for the MEGA family), with the batch-reuse
+swap, a log line and a ``metrics.jsonl`` record every 20 iterations,
+periodic validation through ``run_inference`` (the MEGA family:
+``run_inference_video_arch`` over 5 videos) and checkpoints; ``--resume``
+from the last checkpoint.  RetinaNet and ``MASK_ON`` / ``KEYPOINT_ON``
+raise, naming ROADMAP.md A8.
 
     python -m diffusionvid_torch.tools.train_net \\
         --config-file configs/vid_R_101_DiffusionVID.yaml --data-dir DATA \\
@@ -21,7 +26,8 @@ Every random draw of an iteration derives from the iteration's index: the
 samples of the batch loaded at iteration ``it`` from
 ``RandomState((1000003 * it + 12345) % (2**31 - 1))``, the reuse swap from
 ``RandomState((7654321 + it) % (2**31 - 1))``, the step's noise and
-timesteps from ``iteration_generator(seed, it)``.  So a run resumed from a
+timesteps (the MEGA family: its samplers' seeds) from
+``iteration_generator(seed, it)``.  So a run resumed from a
 checkpoint at a multiple of ``BATCH_REUSE_STEPS`` continues the
 uninterrupted run bit for bit on the CPU.
 
@@ -56,9 +62,13 @@ import torch
 from ..config import load_config
 from ..data import (ConcatDataset, PrefetchIterator, SampleConfig, aspect_ratio_group_ids,
                     get_dataset, grouped_batches)
+from ..data.sampling import MethodSampleSpec
 from ..engine.inference import run_inference
+from ..engine.inference_mega import run_inference_video_arch
 from ..engine.train import (
     TrainBatch, optimizer_from_config, resume, train_loop, wrap_data_parallel)
+from ..engine.train_methods import draw_method_randoms, make_method_loss_fn
+from ..models.detectors import build_detection_model, check_supported, video_method
 from ..models.diffusion_det import DiffusionDetArch, local_stages
 from ..parallel import dist
 from ..utils.checkpoint import last_checkpoint
@@ -71,7 +81,11 @@ from ..utils.profiling import StepProfiler
 from .test_net import detector_args, sample_config
 
 LOG_PERIOD = 20        # iterations between log lines and metrics.jsonl records
-VAL_MAX_VIDEOS = 20    # videos a periodic validation runs over
+VAL_MAX_VIDEOS = 20    # videos a periodic validation runs over (DiffusionVID)
+VAL_MAX_VIDEOS_METHODS = 5   # the MEGA family's
+# the methods whose C4 trunk nests under ``detector``: a trunk file matches
+# none of their tensors, in the JAX package's loader as in the port's
+NESTED_TRUNK = ("dff", "fgfa", "rdn", "mega")
 
 
 def parse_args(argv=None):
@@ -96,15 +110,25 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def is_diffusion(cfg) -> bool:
+    return video_method(cfg) == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"
+
+
+def method_spec(cfg):
+    """The MEGA family's sample layout of the config; None for DiffusionVID."""
+    return None if is_diffusion(cfg) else MethodSampleSpec.from_config(cfg)
+
+
 def train_sample_config(cfg) -> SampleConfig:
-    """The train samples' layout and transforms of the config: with the
-    local attention (ATTENTION.ENABLE), REF_NUM_LOCAL local refs follow the
-    current frame, ahead of the global refs (box_head.py:325-346)."""
+    """The train samples' layout and transforms of the config: DiffusionVID
+    with the local attention (ATTENTION.ENABLE) takes REF_NUM_LOCAL local
+    refs after the current frame, ahead of the global refs
+    (box_head.py:325-346); the MEGA family's layout is ``method_spec``'s."""
     mega = cfg.MODEL.VID.MEGA
     min_train = cfg.INPUT.MIN_SIZE_TRAIN
     return SampleConfig(
         num_global=mega.REF_NUM_GLOBAL,
-        num_local=mega.REF_NUM_LOCAL if local_stages(cfg) > 0 else 0,
+        num_local=mega.REF_NUM_LOCAL if is_diffusion(cfg) and local_stages(cfg) > 0 else 0,
         local_min_offset=mega.MIN_OFFSET, local_max_offset=mega.MAX_OFFSET,
         min_size=tuple(min_train) if isinstance(min_train, (tuple, list)) else min_train,
         max_size=cfg.INPUT.MAX_SIZE_TRAIN, transform=bool(cfg.INPUT.TRANSFORM),
@@ -114,12 +138,27 @@ def train_sample_config(cfg) -> SampleConfig:
 def build_model(cfg, args, logger):
     """The model with random weights from ``args.seed``, then
     ``--pretrained`` (or ``MODEL.WEIGHT``) over them, ``class_logits`` and
-    ``cls_score`` kept fresh.  Returns (model, tensors loaded)."""
-    model = DiffusionDetArch.from_config(cfg, device=args.device, seed=args.seed)
+    ``cls_score`` kept fresh.  A file that matches no tensor raises: for
+    DFF, FGFA, RDN and MEGA a trunk file is such a file, as the JAX
+    package's loader copies none of it (ROADMAP.md §C 5).  Returns (model,
+    tensors loaded)."""
+    if is_diffusion(cfg):
+        model = DiffusionDetArch.from_config(cfg, device=args.device, seed=args.seed)
+    else:
+        model = build_detection_model(cfg, device=args.device, seed=args.seed)
     pretrained = args.pretrained or weight_path(cfg.MODEL.WEIGHT)
     if not pretrained:
         return model, 0
-    loaded = load_weights_into(model, pretrained, skip_keys=("class_logits", "cls_score"))
+    method = video_method(cfg)
+    try:
+        loaded = load_weights_into(model, pretrained, skip_keys=("class_logits", "cls_score"))
+    except ValueError as e:
+        if method not in NESTED_TRUNK:
+            raise
+        raise ValueError(
+            f"{e}: VID.METHOD {method} nests its trunk under 'detector', so a trunk file "
+            f"copies nothing into it, in the JAX package's loader too (ROADMAP.md §C 5); "
+            f"train from random weights (MODEL.WEIGHT \"''\")") from e
     logger.info(f"pretrained load from {pretrained}: {loaded} tensors copied (class head fresh)")
     return model, loaded
 
@@ -131,16 +170,17 @@ def sample_seed(it: int, rank: int = 0) -> int:
 
 
 def sample_batches(ds: ConcatDataset, batch_iter, cfg: SampleConfig, start_iter: int,
-                   reuse_steps: int, rank: int = 0, world: int = 1):
+                   reuse_steps: int, rank: int = 0, world: int = 1, spec=None):
     """The batches loaded from ``start_iter`` on, one every ``reuse_steps``
     iterations: the samples of ``batch_iter``'s next indices (with W ranks,
     the rank's one of each W), drawn from a RandomState seeded from the
-    iteration that loads them and the rank."""
+    iteration that loads them and the rank, in ``spec``'s layout (None:
+    DiffusionVID's)."""
     it = start_iter
     while True:
         rng = np.random.RandomState(sample_seed(it, rank))
         indices = next(batch_iter)
-        yield [ds.sample(i, rng, cfg) for i in indices[rank::world]]
+        yield [ds.sample(i, rng, cfg, spec) for i in indices[rank::world]]
         it = (it // reuse_steps + 1) * reuse_steps
 
 
@@ -190,11 +230,7 @@ def main(argv=None) -> dict:
     checkpoint's path."""
     args = parse_args(argv)
     cfg = load_config(args.config_file, args.opts)
-    method = cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
-    if not (method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"):
-        raise NotImplementedError(
-            f"VID.METHOD {method} (META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}): only "
-            "DiffusionVID trains in the port; the MEGA family's train half is ROADMAP.md A7.5")
+    check_supported(cfg)
     started = not dist.is_initialized() and dist.initialize(args.device)
     try:
         return _main(cfg, args)
@@ -239,7 +275,7 @@ def _train(cfg, args, device, logger) -> dict:
             f.write(cfg.dump())
     logger.info(f"environment:\n{collect_env_info()}")
 
-    sample_cfg = train_sample_config(cfg)
+    sample_cfg, spec = train_sample_config(cfg), method_spec(cfg)
     datasets = [get_dataset(n, is_train=True, data_dir=args.data_dir) for n in cfg.DATASETS.TRAIN]
     model, loaded = build_model(cfg, args, logger)
     opt = optimizer_from_config(model, cfg)
@@ -258,15 +294,19 @@ def _train(cfg, args, device, logger) -> dict:
                        f"schedule")
 
     # aspect-ratio-grouped batches: every batch has one padding bucket.
-    # Batches load at iterations that are multiples of BATCH_REUSE_STEPS;
+    # Batches load at iterations that are multiples of BATCH_REUSE_STEPS
+    # (the MEGA family reuses a batch only with global frames to swap in);
     # a resumed run skips the ones the earlier run used.
     train_ds = ConcatDataset(datasets)
     batch_iter = grouped_batches(aspect_ratio_group_ids(train_ds), world, seed=0)
-    reuse_steps = max(1, int(sol.BATCH_REUSE_STEPS))
+    can_reuse = spec is None or spec.num_global > 0
+    reuse_steps = max(1, int(sol.BATCH_REUSE_STEPS)) if can_reuse else 1
+    first_global = (1 + sample_cfg.num_local if spec is None
+                    else 1 + spec.num_local + spec.num_mem)
     for _ in range((start_iter + reuse_steps - 1) // reuse_steps):
         next(batch_iter)
     batches = sample_batches(train_ds, batch_iter, sample_cfg, start_iter, reuse_steps,
-                             rank, world)
+                             rank, world, spec)
     if not args.no_prefetch:
         batches = PrefetchIterator(batches, depth=2)
 
@@ -279,7 +319,7 @@ def _train(cfg, args, device, logger) -> dict:
 
     def device_batches():
         samples = iteration_samples(batches, start_iter, sol.MAX_ITER, reuse_steps,
-                                    1 + sample_cfg.num_local, rank)
+                                    first_global, rank)
         for it, smp in enumerate(samples, start_iter):
             prof.step(it)
             yield collate(smp, device)
@@ -294,8 +334,15 @@ def _train(cfg, args, device, logger) -> dict:
         error = None
         try:
             val_ds = get_dataset(cfg.DATASETS.TEST[0], is_train=False, data_dir=args.data_dir)
-            _, _, results = run_inference(model, val_ds, sample_config(cfg), **detector_args(cfg),
-                                          max_videos=VAL_MAX_VIDEOS, logger=logger)
+            if spec is None:
+                _, _, results = run_inference(model, val_ds, sample_config(cfg),
+                                              **detector_args(cfg), max_videos=VAL_MAX_VIDEOS,
+                                              logger=logger)
+            else:   # the JAX CLI's settings: the DFF key interval, the rest default
+                _, _, results = run_inference_video_arch(
+                    model, val_ds, sample_config(cfg), method=spec.method,
+                    key_frame_duration=cfg.MODEL.VID.DFF.KEY_FRAME_DURATION,
+                    max_videos=VAL_MAX_VIDEOS_METHODS, logger=logger)
             if results:
                 writer.write(done, **{"Val/mAP": results["ap50"]})
             outcome = "ok"
@@ -328,12 +375,14 @@ def _train(cfg, args, device, logger) -> dict:
         if sol.TEST_PERIOD and done % sol.TEST_PERIOD == 0 and cfg.DATASETS.TEST:
             validate(done)
 
+    net = wrap_data_parallel(model)
+    method_kw = ({} if spec is None else
+                 dict(loss_fn=make_method_loss_fn(net, spec), draw=draw_method_randoms))
     try:
-        metrics = train_loop(wrap_data_parallel(model), opt, device_batches(),
-                             num_global=sample_cfg.num_global,
+        metrics = train_loop(net, opt, device_batches(), num_global=sample_cfg.num_global,
                              max_iter=sol.MAX_ITER, seed=args.seed, start_iter=start_iter,
                              checkpoint_period=sol.CHECKPOINT_PERIOD, output_dir=output_dir,
-                             log_every=0, on_step=on_step)
+                             log_every=0, on_step=on_step, **method_kw)
     finally:
         prof.close()
         writer.close()
