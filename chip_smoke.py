@@ -203,6 +203,22 @@ Phases, one JSON line each:
               ``nccl`` group against one process.  Prints ms per optimizer
               step of each and a rank's time to its start and its first
               step (``phase_flagship_train_ddp``).
+  14. still_image_tiny the still-image detectors at depth 18 on 64x96,
+              card against CPU, fp32, TF32 off: ``GeneralizedRCNN`` with the
+              mask and keypoint heads (32 wide; labels equal, boxes,
+              scores, masks and heatmaps within 1e-3), RetinaNet (the
+              same), ``mask_loss`` / ``keypoint_loss`` through both heads
+              and RetinaNet's ``train_loss`` (values within 1e-4 in fp32,
+              every gradient within 1e-3 of its norm in float64); then
+              ``still_image`` at full width, bf16: the mask config
+              (R-50 C4, 81 classes, 300 detection slots) and with
+              ``KEYPOINT_ON``, ms an image, the heads' card ms, peak
+              memory; ``vid_R_101_C4_1x`` through ``run_inference_still``
+              over rendered COCO-, VOC- and Cityscapes-layout sets of 8
+              images at 600x1000 (two portrait), images/s, the
+              evaluator's ms; RetinaNet (R-50 FPN, 81 classes) over the
+              COCO set; the test CLI on a tiny COCO set, card against CPU.
+              No path launches K1–K7 (``phase_still_image*``).
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
@@ -4119,6 +4135,464 @@ def train_kernels(phase: str, keep: dict, stages: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- still images
+
+STILL_TINY_HW = (64, 96)
+# the still-image sets: 8 images each at 600x1000, two of them portrait
+STILL_IMAGES = [(600, 1000)] * 6 + [(1000, 600)] * 2
+STILL_SETS = {"coco": "coco_val", "voc": "voc_test", "cityscapes": "cityscapes_val"}
+
+
+def still_boxes(rng, hw, n: int):
+    """``n`` boxes inside an image of ``hw``, 10–45% of its sides."""
+    h, w = hw
+    size = rng.uniform(0.1, 0.45, (n, 2)) * (w, h)
+    start = rng.uniform(0, 1, (n, 2)) * ((w, h) - size)
+    return np.concatenate([start, start + size], 1).round()
+
+
+def write_still_sets(root: Path, images, seed: int, write_images: bool = False) -> Path:
+    """The three still-image layouts under ``root``: a COCO instances JSON of 80
+    categories (objects of the first 3), a VOC ``test`` split of its first 3
+    classes and a Cityscapes ``val`` split of person, car and bicycle, each
+    box a polygon's extent; 1 to 3 objects an image.  The images are
+    rendered from the annotations (``render_frame``): by ``rendered_still``
+    when they are read, or with ``write_images`` into image files by
+    ``cv2`` (the CPU commands of the README)."""
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(seed)
+    objs = [(hw, rng.randint(1, 4, rng.randint(1, 4)), still_boxes(rng, hw, 3))
+            for hw in images]
+    files = []
+    coco = root / "coco" / "annotations"
+    coco.mkdir(parents=True)
+    anns = [{"id": 3 * i + j, "image_id": i, "category_id": int(c),
+             "bbox": [b[0], b[1], b[2] - b[0], b[3] - b[1]], "iscrowd": 0}
+            for i, (_, labels, boxes) in enumerate(objs)
+            for j, (c, b) in enumerate(zip(labels, boxes))]
+    files += [root / "coco" / "val" / f"{i:012d}.jpg" for i in range(len(objs))]
+    (coco / "instances_val.json").write_text(json.dumps({
+        "images": [{"id": i, "file_name": f"{i:012d}.jpg", "height": hw[0], "width": hw[1]}
+                   for i, (hw, _, _) in enumerate(objs)],
+        "annotations": anns, "categories": [{"id": c, "name": f"c{c}"} for c in range(1, 81)]}))
+    voc = root / "voc"
+    (voc / "Annotations").mkdir(parents=True)
+    (voc / "ImageSets" / "Main").mkdir(parents=True)
+    from diffusionvid_torch.data.coco_voc import VOC_CLASSES
+    for i, (hw, labels, boxes) in enumerate(objs):
+        ann = ET.Element("annotation")
+        size = ET.SubElement(ann, "size")
+        ET.SubElement(size, "height").text = str(hw[0])
+        ET.SubElement(size, "width").text = str(hw[1])
+        for c, b in zip(labels, boxes):
+            o = ET.SubElement(ann, "object")
+            ET.SubElement(o, "name").text = VOC_CLASSES[c]
+            bb = ET.SubElement(o, "bndbox")
+            for k, v in zip(("xmin", "ymin", "xmax", "ymax"), b + 1):
+                ET.SubElement(bb, k).text = str(int(v))
+        ET.ElementTree(ann).write(voc / "Annotations" / f"{i:06d}.xml")
+    (voc / "ImageSets" / "Main" / "test.txt").write_text(
+        "".join(f"{i:06d}\n" for i in range(len(objs))))
+    files += [voc / "JPEGImages" / f"{i:06d}.jpg" for i in range(len(objs))]
+    city = root / "cityscapes" / "gtFine" / "val" / "city"
+    city.mkdir(parents=True)
+    names = {1: "person", 2: "car", 3: "bicycle"}
+    for i, (hw, labels, boxes) in enumerate(objs):
+        (city / f"city_{i:06d}_000019_gtFine_polygons.json").write_text(json.dumps({
+            "imgHeight": hw[0], "imgWidth": hw[1], "objects": [
+                {"label": names[c], "polygon": [[b[0], b[1]], [b[2], b[1]], [b[2], b[3]],
+                                                [b[0], b[3]]]}
+                for c, b in zip(labels, boxes)]}))
+    files += [root / "cityscapes" / "leftImg8bit" / "val" / "city" /
+              f"city_{i:06d}_000019_leftImg8bit.png" for i in range(len(objs))]
+    if write_images:
+        import cv2
+
+        from diffusionvid_torch.data.vid_dataset import FrameAnno
+        for k, path in enumerate(files):
+            hw, labels, boxes = objs[k % len(objs)]
+            anno = FrameAnno(boxes[:len(labels)].astype(np.float32), labels, *hw)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(path), render_frame(anno)[:, :, ::-1])
+    return root
+
+
+@contextlib.contextmanager
+def rendered_still():
+    """The still-image datasets' ``load_image`` replaced by a frame rendered
+    from the image's annotation (the card's machine has no image decoder)."""
+    from diffusionvid_torch.data.coco_voc import StillDataset
+
+    def load_image(self, path):
+        index = {self.image_path(i): i for i in range(len(self))}
+        return render_frame(self.annos[index[path]]).astype(np.float32)
+
+    orig, StillDataset.load_image = StillDataset.load_image, load_image
+    try:
+        yield
+    finally:
+        StillDataset.load_image = orig
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-12))
+
+
+def _tiny_heads_model(gen):
+    """The depth-18 ``GeneralizedRCNN`` of 5 classes with both heads, 32
+    channels wide, conditioned (``condition_mega_family``, the heads' convs
+    x2 so that the masks spread over (0, 1))."""
+    from diffusionvid_torch.models.mask_keypoint import KeypointHead, MaskHead
+    from diffusionvid_torch.models.rcnn import GeneralizedRCNN
+    model = GeneralizedRCNN(depth=18, num_classes=5, pre_nms_test=100, post_nms_test=8,
+                            mask_on=True, keypoint_on=True)
+    model.mask_head = MaskHead(1024, 5, (32, 32))
+    model.kp_head = KeypointHead(1024, 17, (32, 32))
+    model.reset_parameters(gen)
+    condition_mega_family(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("mask_head.", "kp_head.")) and p.dim() == 4:
+                p.mul_(2.0)
+    return model.eval()
+
+
+def _tiny_retinanet(gen):
+    """The depth-18 RetinaNet of 4 classes, conditioned, its class logits'
+    bias raised by 2.5 so that scores above 0.05 spread over the anchors."""
+    from diffusionvid_torch.models.retinanet import RetinaNet
+    model = RetinaNet(depth=18, num_classes=4)
+    model.reset_parameters(gen)
+    condition_mega_family(model, gen)
+    with torch.no_grad():
+        model.head.cls_logits.bias.add_(2.5)
+    return model.eval()
+
+
+def _grads_err(card, cpu, floor: float = 1e-4) -> tuple[float, str]:
+    """The largest |card - CPU| / |CPU| over the parameters' gradients, the
+    denominator at least ``floor`` x the largest gradient norm: a gradient
+    that is 0 in exact arithmetic (the keypoint logits' bias, which the
+    log-softmax over positions does not see) holds rounding alone."""
+    grads = [(n, pc.grad.cpu(), pp.grad)
+             for (n, pc), (_, pp) in zip(card.named_parameters(), cpu.named_parameters())
+             if pp.grad is not None]
+    top = max(float(torch.linalg.vector_norm(g)) for _, _, g in grads)
+    worst, name = 0.0, ""
+    for n, gc, gp in grads:
+        e = float(torch.linalg.vector_norm(gc - gp)) / max(float(torch.linalg.vector_norm(gp)),
+                                                           floor * top, 1e-30)
+        if e > worst:
+            worst, name = e, n
+    return worst, name
+
+
+def phase_still_image_tiny(seed: int) -> dict:
+    """The still-image path at depth 18 on 64x96, card against CPU, same
+    weights and inputs, fp32, TF32 off: ``GeneralizedRCNN`` with both heads
+    (labels and valid masks equal; boxes, scores, masks and heatmaps within
+    1e-3), RetinaNet (its detections as those), then ``mask_loss`` and
+    ``keypoint_loss`` through both heads and RetinaNet's ``train_loss``:
+    values within 1e-4 in fp32, and in float64 every gradient within 1e-3
+    of its norm, or of 1e-4 of the largest gradient norm where that is more
+    (``_grads_err``; fp32's gradient errors are printed beside).  No launch
+    of K1–K7."""
+    import copy
+
+    from diffusionvid_torch.models.mask_keypoint import keypoint_loss, mask_loss
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    h, w = STILL_TINY_HW
+    hw = (float(h), float(w))
+    images = torch.rand(2, h, w, 3, generator=gen) * 255
+    res = {"hw": [h, w], "rtol": 1e-3, "loss_rtol": 1e-4, "grad_rtol": 1e-3,
+           "grad_floor": 1e-4}
+    reset_launches()
+
+    cpu = _tiny_heads_model(gen)
+    card = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        c_out, p_out = card(images.cuda(), hw), cpu(images, hw)
+    cd, pd = c_out["dets"], p_out["dets"]
+    for k in ("valid", "labels"):
+        require(torch.equal(getattr(cd, k).cpu(), getattr(pd, k)),
+                f"still_image_tiny rcnn: {k} differ")
+    require(int(pd.valid.sum()) > 0, "still_image_tiny rcnn: no detection")
+    errs = {k: _rel(getattr(cd, k), getattr(pd, k)) for k in ("boxes", "scores")}
+    errs.update({k: _rel(c_out[k], p_out[k]) for k in ("masks", "keypoints")})
+    require(max(errs.values()) < 1e-3, f"still_image_tiny rcnn: card vs CPU {errs}")
+    res["rcnn"] = {"detections": int(pd.valid.sum()), "slots": int(pd.valid.numel()),
+                   **{f"max_rel_err_{k}": v for k, v in errs.items()}}
+
+    # the heads' losses: GT boxes jittered into proposals, random masks and keypoints
+    boxes = torch.tensor([[[4, 6, 40, 50], [30, 10, 90, 60], [0, 0, 95, 63], [50, 5, 70, 20]]] * 2,
+                         dtype=torch.float32) + torch.rand(2, 4, 4, generator=gen) * 4
+    labels = torch.tensor([[1, 2, 0, 4], [3, 0, 2, 1]])
+    valid = torch.tensor([[True, True, True, False], [True, True, True, True]])
+    gt_boxes = boxes[:, :3] + torch.rand(2, 3, 4, generator=gen) * 3
+    gt_masks = (torch.rand(2, 3, h, w, generator=gen) > 0.5).float()
+    gt_valid = torch.tensor([[True, True, False], [True, True, True]])
+    gt_labels = torch.tensor([[1, 2, 3], [4, 1, 2]])
+    kps = torch.cat([boxes[:, :, None, :2] + torch.rand(2, 4, 17, 2, generator=gen) * 40,
+                     torch.randint(0, 3, (2, 4, 17, 1), generator=gen).float()], -1)
+
+    def heads_loss(model, dev):
+        dt = next(model.parameters()).dtype
+        feat = model.features(images.to(dev, dt)).permute(0, 2, 3, 1)
+        b = boxes.to(dev, dt)
+        lm = mask_loss(model.mask_head(feat, 1 / 16, b), b, labels.to(dev), valid.to(dev),
+                       gt_masks.to(dev, dt), gt_boxes.to(dev, dt), None, gt_valid.to(dev))
+        lk = keypoint_loss(model.kp_head(feat, 1 / 16, b), b, kps.to(dev, dt), valid.to(dev))
+        (lm + lk).backward()
+        return {"mask_loss": lm.item(), "keypoint_loss": lk.item()}
+
+    def retina_loss(model, dev):
+        dt = next(model.parameters()).dtype
+        out = model.train_loss(images.to(dev, dt), gt_boxes.to(dev, dt), gt_labels.to(dev),
+                               gt_valid.to(dev))
+        sum(out.values()).backward()
+        return {k: v.item() for k, v in out.items()}
+
+    cpu_r = _tiny_retinanet(gen)
+    card_r = copy.deepcopy(cpu_r).cuda()
+    with torch.no_grad():
+        cr, pr = card_r(images.cuda(), hw), cpu_r(images, hw)
+    for k in ("valid", "labels"):
+        require(torch.equal(getattr(cr, k).cpu(), getattr(pr, k)),
+                f"still_image_tiny retinanet: {k} differ")
+    require(int(pr.valid.sum()) > 0, "still_image_tiny retinanet: no detection")
+    errs = {k: _rel(getattr(cr, k), getattr(pr, k)) for k in ("boxes", "scores")}
+    require(max(errs.values()) < 1e-3, f"still_image_tiny retinanet: card vs CPU {errs}")
+    res["retinanet"] = {"detections": int(pr.valid.sum()),
+                        **{f"max_rel_err_{k}": v for k, v in errs.items()}}
+
+    def to64(model):
+        model = copy.deepcopy(model).double()
+        model.zero_grad(set_to_none=True)
+        model.compute_dtype = torch.float64
+        return model
+
+    # in fp32 the trunk's gradients differ by rounding alone (RetinaNet's by
+    # 2.5e-3 of their norm at res2, the heads' by 7.8e-4 at res3, where
+    # float64 on both sides agrees to 4e-8): the losses are held in fp32,
+    # the gradients in float64
+    cases = (("heads_losses", heads_loss, card, cpu, False),
+             ("heads_losses_float64", heads_loss, to64(cpu), to64(cpu), True),
+             ("retinanet_losses", retina_loss, card_r, cpu_r, False),
+             ("retinanet_losses_float64", retina_loss, to64(cpu_r), to64(cpu_r), True))
+    for name, fn, c_model, p_model, gate_grads in cases:
+        c_l, p_l = fn(c_model.cuda(), "cuda"), fn(p_model, "cpu")
+        loss_err = max(abs(c_l[k] - v) / max(abs(v), 1e-12) for k, v in p_l.items())
+        grad_err, worst = _grads_err(c_model, p_model)
+        require(all(np.isfinite(list(c_l.values()))) and loss_err < 1e-4
+                and (grad_err < 1e-3 or not gate_grads),
+                f"still_image_tiny {name}: loss {loss_err}, grad {grad_err} ({worst})")
+        res[name] = {"losses": p_l, "max_rel_err_loss": loss_err, "max_rel_err_grad": grad_err,
+                     "worst_grad": worst, "grads_held": gate_grads}
+    torch.cuda.synchronize()
+    res["launches"] = read_launches()
+    require(not any(res["launches"].values()), f"still_image_tiny: launched {res['launches']}")
+    emit("still_image_tiny", **res)
+    return res
+
+
+def _still_frames(images, seed: int):
+    """Rendered frames of ``images`` (h, w) padded into their buckets, on
+    the card, with their content (h, w)."""
+    from diffusionvid_torch.data.transforms import frame_bucket, pad_to
+    from diffusionvid_torch.data.vid_dataset import FrameAnno
+    rng = np.random.RandomState(seed)
+    out = []
+    for hw in images:
+        anno = FrameAnno(still_boxes(rng, hw, 3).astype(np.float32),
+                         rng.randint(1, 81, 3).astype(np.int32), *hw)
+        frame = pad_to(render_frame(anno).astype(np.float32), frame_bucket(*hw))
+        out.append((torch.from_numpy(frame[None]).cuda(), (float(hw[0]), float(hw[1]))))
+    return out
+
+
+def still_heads_run(seed: int, name: str, opts) -> dict:
+    """(a) of ``phase_still_image``: a config's model forward, image by
+    image, on the rendered frames: ms an image (a warm-up pass, then two
+    timed), the mask and keypoint heads' card ms on the last image's 300
+    detection slots, peak memory, no launch of K1–K7."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.models.detectors import build_detection_model
+
+    cfg = load_config(str(ROOT / "configs" / "e2e_mask_rcnn_R_50_C4_1x.yaml"), opts)
+    model = build_detection_model(cfg, seed=seed)
+    frames = _still_frames(STILL_IMAGES[:2] + STILL_IMAGES[-2:], seed)
+    with torch.no_grad():
+        for x, hw in frames:
+            model(x, hw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            outs = [model(x, hw) for x, hw in frames]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = outs[-1]
+        d = out["dets"].boxes.shape[1]
+        require(tuple(out["masks"].shape) == (1, d, 28, 28)
+                and bool(torch.isfinite(out["masks"]).all())
+                and float(out["masks"].min()) >= 0 and float(out["masks"].max()) <= 1,
+                f"still_image {name}: masks {tuple(out['masks'].shape)}")
+        feat = model.features(frames[-1][0]).permute(0, 2, 3, 1)
+        boxes = out["dets"].boxes
+        row = {"config": "configs/e2e_mask_rcnn_R_50_C4_1x.yaml", "overrides": opts,
+               "dtype": str(model.compute_dtype).split(".")[1], "images": len(frames),
+               "ms_per_image": wall * 1e3 / (2 * len(frames)), "peak_mem_gib": peak,
+               "detection_slots": d, "detections_per_image": float(
+                   sum(int(o["dets"].valid.sum()) for o in outs) / len(outs)),
+               "mask_head_ms": cuda_time_ms(lambda: model.mask_head(feat, 1 / 16, boxes),
+                                            iters=5, warmup=1),
+               "launches": launches}
+        if model.kp_head is not None:
+            require(tuple(out["keypoints"].shape) == (1, d, 56, 56, 17)
+                    and bool(torch.isfinite(out["keypoints"]).all()),
+                    f"still_image {name}: keypoints {tuple(out['keypoints'].shape)}")
+            row["keypoint_head_ms"] = cuda_time_ms(
+                lambda: model.kp_head(feat, 1 / 16, boxes), iters=5, warmup=1)
+    require(not any(launches.values()), f"still_image {name}: launched {launches}")
+    del model, frames, outs, out, feat
+    torch.cuda.empty_cache()
+    return row
+
+
+def still_dataset_run(seed: int, name: str, config: str, opts, root: Path, kinds,
+                      classes_key: str | None = None) -> dict:
+    """(b) and (c) of ``phase_still_image``: ``run_inference_still`` with
+    the config's model over each rendered set of ``kinds`` (a warm-up pass
+    of 2 images, then the set timed), the model's classes set to the set's
+    through ``classes_key`` (the VOC evaluator takes no label past the
+    dataset's classes, in the JAX package neither): images/s, the
+    evaluator's ms, peak memory, AP50 of random weights, no launch of
+    K1–K7."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.data.catalog import get_dataset
+    from diffusionvid_torch.data.coco_voc import evaluate_still
+    from diffusionvid_torch.engine.inference_still import run_inference_still
+    from diffusionvid_torch.evaluation.coco_eval import evaluate_coco
+    from diffusionvid_torch.models.detectors import build_detection_model
+
+    rows = {}
+    with rendered_still():
+        for kind in kinds:
+            ds = get_dataset(STILL_SETS[kind], is_train=False, data_dir=str(root))
+            extra = [classes_key, str(len(ds.classes))] if classes_key else []
+            cfg = load_config(str(ROOT / "configs" / config), opts + extra)
+            t0 = time.perf_counter()
+            model = build_detection_model(cfg, seed=seed)
+            build_s = time.perf_counter() - t0
+            run_inference_still(model, ds, evaluator=kind, max_images=2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            preds, gts, results = run_inference_still(model, ds, evaluator=kind)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            require(not any(launches.values()), f"still_image {name} {kind}: launched {launches}")
+            require(len(preds) == len(gts) == len(ds) and all(
+                np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all() for p in preds),
+                f"still_image {name} {kind}: predictions")
+            t1 = time.perf_counter()
+            if kind == "voc":
+                evaluate_still(ds, preds)
+            else:
+                evaluate_coco(gts, preds, len(ds.classes) - 1)
+            rows[kind] = {"overrides": opts + extra, "dtype": cfg.TPU.COMPUTE_DTYPE,
+                          "model_build_s": build_s, "images": len(ds),
+                          "images_per_s": len(ds) / wall, "run_s": wall,
+                          "evaluator_ms": (time.perf_counter() - t1) * 1e3,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "detections_per_image": sum(len(p["scores"]) for p in preds) / len(ds),
+                          "ap50_random_weights": results["ap50"], "launches": launches}
+            del model
+            torch.cuda.empty_cache()
+    return {"config": f"configs/{config}", "sets": rows}
+
+
+def still_cli_card_vs_cpu(seed: int, work: Path) -> dict:
+    """(d) of ``phase_still_image``: ``tools/test_net.main`` on a rendered
+    COCO-layout set of 3 images at 64x96 with a depth-18 ``base`` model by
+    ``--checkpoint`` (conditioned), on the card and on the CPU: labels
+    equal, scores and boxes within 1e-3, the same AP50."""
+    from diffusionvid_torch.config import load_config
+    from diffusionvid_torch.models.detectors import build_detection_model
+    from diffusionvid_torch.tools import test_net
+    from diffusionvid_torch.utils.checkpoint import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    write_still_sets(work / "data", [STILL_TINY_HW] * 3, seed)
+    config = str(ROOT / "configs" / "vid_R_101_C4_1x.yaml")
+    opts = ["MODEL.RESNETS.DEPTH", "18", "TPU.COMPUTE_DTYPE", "float32",
+            "MODEL.ROI_BOX_HEAD.NUM_CLASSES", "5", "MODEL.RPN.PRE_NMS_TOP_N_TEST", "100",
+            "MODEL.RPN.POST_NMS_TOP_N_TEST", "8", "INPUT.MIN_SIZE_TEST", "64",
+            "INPUT.MAX_SIZE_TEST", "96", "DATASETS.TEST", "('coco_val',)"]
+    model = build_detection_model(load_config(config, opts), device="cpu", seed=seed)
+    condition_mega_family(model, torch.Generator().manual_seed(seed))
+    ckpt = save_checkpoint(str(work / "ckpt"), 0, model.state_dict())
+    out = {}
+    with rendered_still():
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            results = test_net.main(["--config-file", config, "--checkpoint", ckpt,
+                                     "--data-dir", str(work / "data"), "--output-dir",
+                                     str(work / dev), "--device", dev, *opts])
+            with open(work / dev / "predictions.pkl", "rb") as f:
+                out[dev] = (pickle.load(f), results["ap50"], read_launches())
+    (card, card_ap, card_launches), (cpu, cpu_ap, _) = out["cuda"], out["cpu"]
+    require(not any(card_launches.values()), f"still_image cli: launched {card_launches}")
+    agree = predictions_agree(card, cpu, 1e-3, "still_image cli: card against CPU")
+    require(card_ap == cpu_ap or (np.isnan(card_ap) and np.isnan(cpu_ap)),
+            f"still_image cli: AP50 {card_ap} on the card, {cpu_ap} on the CPU")
+    return {"images": len(card), "hw": list(STILL_TINY_HW), "launches": card_launches, **agree,
+            "rtol": 1e-3, "ap50": card_ap, "ap50_cpu": cpu_ap}
+
+
+def phase_still_image(seed: int) -> dict:
+    """Phase 14 at full width, bf16, random weights from ``seed``:
+    (a) ``configs/e2e_mask_rcnn_R_50_C4_1x.yaml`` (R-50 C4, 81 classes, the
+    mask head on its 300 detection slots), and with ``KEYPOINT_ON``, through
+    the model's forward on rendered 600x1000 frames (two portrait); (b)
+    ``configs/vid_R_101_C4_1x.yaml`` (``base``) through
+    ``run_inference_still`` over rendered COCO-, VOC- and Cityscapes-layout
+    sets of 8 images; (c) RetinaNet (``vid_R_50_C4_1x`` with
+    ``MODEL.RETINANET_ON``: R-50 FPN, 81 classes) over the COCO set; (d)
+    the test CLI on a tiny COCO set, card against CPU.  No path launches
+    K1–K7."""
+    work = ROOT / "build" / "chip_smoke" / "still_image"
+    card = {"card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line()}
+    res = {}
+    for name, opts in (("mask", []), ("mask_keypoint", ["MODEL.KEYPOINT_ON", "True"])):
+        res[name] = still_heads_run(seed, name, opts)
+        emit("still_image", path=name, **res[name], **card)
+    root = write_still_sets(work / "data", STILL_IMAGES, seed)
+    res["base"] = still_dataset_run(seed, "base", "vid_R_101_C4_1x.yaml", [], root,
+                                    ("coco", "voc", "cityscapes"),
+                                    "MODEL.ROI_BOX_HEAD.NUM_CLASSES")
+    emit("still_image", path="base", **res["base"], **card)
+    res["retinanet"] = still_dataset_run(seed, "retinanet", "vid_R_50_C4_1x.yaml",
+                                         ["MODEL.RETINANET_ON", "True"], root, ("coco",))
+    emit("still_image", path="retinanet", **res["retinanet"], **card)
+    res["cli"] = still_cli_card_vs_cpu(seed, work / "cli")
+    emit("still_image", path="cli_card_vs_cpu", **res["cli"], **card)
+    return res
+
+
 # ---------------------------------------------------------------- data parallelism
 
 DDP_WORLD, DDP_STEPS = 2, 2
@@ -4476,6 +4950,8 @@ def main(argv=None) -> int:
     train_cli = phase_flagship_train_cli(args.seed)
     local_attn = phase_flagship_local_attn(args.seed)
     ddp = phase_flagship_train_ddp(args.seed)
+    phase_still_image_tiny(args.seed)
+    phase_still_image(args.seed)
 
     line = []
     for name, spec in KERNELS.items():

@@ -25,6 +25,43 @@ def get_default_cfg() -> CfgNode:
     _C.MODEL.PIXEL_MEAN = (123.675, 116.280, 103.530)
     _C.MODEL.PIXEL_STD = (58.395, 57.120, 57.375)
 
+    # the mask and keypoint ROI heads (reference defaults.py:240-270): of
+    # these ``build_detection_model`` reads only ROI_KEYPOINT_HEAD.NUM_CLASSES, as the JAX
+    # package's does; the heads keep their modules' defaults
+    _C.MODEL.ROI_MASK_HEAD = CfgNode()
+    _C.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 2
+    _C.MODEL.ROI_MASK_HEAD.CONV_LAYERS = (256, 256, 256, 256)
+    _C.MODEL.ROI_MASK_HEAD.RESOLUTION = 14
+    _C.MODEL.ROI_MASK_HEAD.DILATION = 1
+    _C.MODEL.ROI_MASK_HEAD.POSTPROCESS_MASKS_THRESHOLD = 0.5
+    _C.MODEL.ROI_KEYPOINT_HEAD = CfgNode()
+    _C.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION = 14
+    _C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 2
+    _C.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS = tuple(512 for _ in range(8))
+    _C.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES = 17
+
+    # RetinaNet (reference defaults.py:307-362); NUM_CONVS and PRIOR_PROB
+    # are not read, as in the JAX package (the head keeps 4 and 0.01)
+    _C.MODEL.RETINANET = CfgNode()
+    _C.MODEL.RETINANET.NUM_CLASSES = 81
+    _C.MODEL.RETINANET.ANCHOR_SIZES = (32, 64, 128, 256, 512)
+    _C.MODEL.RETINANET.ASPECT_RATIOS = (0.5, 1.0, 2.0)
+    _C.MODEL.RETINANET.ANCHOR_STRIDES = (8, 16, 32, 64, 128)
+    _C.MODEL.RETINANET.OCTAVE = 2.0
+    _C.MODEL.RETINANET.SCALES_PER_OCTAVE = 3
+    _C.MODEL.RETINANET.NUM_CONVS = 4
+    _C.MODEL.RETINANET.FG_IOU_THRESHOLD = 0.5
+    _C.MODEL.RETINANET.BG_IOU_THRESHOLD = 0.4
+    _C.MODEL.RETINANET.LOSS_ALPHA = 0.25
+    _C.MODEL.RETINANET.LOSS_GAMMA = 2.0
+    _C.MODEL.RETINANET.PRIOR_PROB = 0.01
+    _C.MODEL.RETINANET.PRE_NMS_TOP_N = 1000
+    _C.MODEL.RETINANET.INFERENCE_TH = 0.05
+    _C.MODEL.RETINANET.NMS_TH = 0.4
+    _C.MODEL.RETINANET.BBOX_REG_WEIGHT = 4.0
+    _C.MODEL.RETINANET.BBOX_REG_BETA = 0.11
+
     _C.MODEL.BACKBONE = CfgNode()
     _C.MODEL.BACKBONE.NAME = "build_resnet_fpn_backbone"
     _C.MODEL.BACKBONE.CONV_BODY = "R-101-torchvision"

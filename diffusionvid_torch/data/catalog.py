@@ -3,7 +3,9 @@
 Port of ``diffusionvid_tpu/data/catalog.py`` (the reference's
 ``DatasetCatalog``, ``mega_core/config/paths_catalog.py:152-255``): the
 standard ILSVRC layout under a data root, ``DIFFUSIONVID_DATA_DIR`` or
-``datasets`` unless a ``data_dir`` is given.
+``datasets`` unless a ``data_dir`` is given; and the still-image names
+(``coco_<split>``, ``voc_<split>``, ``cityscapes_<split>``) under
+``coco/``, ``voc/`` and ``cityscapes/`` of the same root.
 """
 
 from __future__ import annotations
@@ -34,17 +36,28 @@ DATASETS = {
     "YouTube_Objects_train": ("YTO/Data", "YTO/Annotations", "YTO/ImageSets/yto_train.txt"),
 }
 
-STILL_PREFIXES = ("coco_", "voc_", "cityscapes_")
 
 
-def get_dataset(name: str, is_train: bool, data_dir: str | None = None) -> VIDDataset:
-    if name.startswith(STILL_PREFIXES):
-        raise NotImplementedError(
-            f"{name}: the still-image datasets (COCO, VOC, Cityscapes) are not "
-            "ported yet (ROADMAP.md A11)")
+def get_dataset(name: str, is_train: bool, data_dir: str | None = None):
+    """``name`` → its dataset: a ``VIDDataset``, or for the still-image
+    names a ``COCODataset`` (``coco/annotations/instances_<split>.json``,
+    images in ``coco/<split>``), ``VOCDataset`` (``voc``) or
+    ``CityscapesDataset`` (``cityscapes``)."""
+    root = data_dir or DATA_DIR
+    if name.startswith("coco_"):
+        from .coco_voc import COCODataset
+        split = name[len("coco_"):]
+        return COCODataset(os.path.join(root, "coco", "annotations", f"instances_{split}.json"),
+                           os.path.join(root, "coco", split))
+    if name.startswith("voc_"):
+        from .coco_voc import VOCDataset
+        return VOCDataset(os.path.join(root, "voc"), split=name[len("voc_"):])
+    if name.startswith("cityscapes_"):
+        from .cityscapes import CityscapesDataset
+        return CityscapesDataset(os.path.join(root, "cityscapes"),
+                                 split=name[len("cityscapes_"):])
     if name not in DATASETS:
         raise KeyError(f"unknown dataset {name}; known: {sorted(DATASETS)}")
-    root = data_dir or DATA_DIR
     img_dir, anno_dir, index = DATASETS[name]
     return VIDDataset(
         image_set=name,

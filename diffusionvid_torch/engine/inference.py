@@ -56,6 +56,13 @@ def _detections_to_numpy(dets, i, scale, score_thresh: float = 0.0):
     }
 
 
+def _to_numpy(dets, scale: float, score_thresh: float = 0.05) -> dict:
+    """Image 0 of ``dets`` on the host, scores above ``score_thresh``, boxes
+    in the original image's coordinates (the single-frame runners')."""
+    host = BoxArray(*(t.cpu() for t in dets))
+    return _detections_to_numpy(host, 0, scale, score_thresh=score_thresh)
+
+
 def _chunk_to_numpy(dets, n_valid: int, scale):
     """The first ``n_valid`` frames of a chunk's detections as numpy
     dicts: one copy to the host (which waits for the card), then per frame."""

@@ -55,7 +55,8 @@ from ..models.video_archs import MegaState, PixelState, local_pixel_frame_offset
 from ..parallel import dist
 from ..structures.boxes import BoxArray
 from .bbox_aug import flip_boxes_back, merge_augmented
-from .inference import _detections_to_numpy, save_predictions
+from .inference import _to_numpy, save_predictions
+from .inference_still import refuse_roi_heads
 from .postprocess import postprocess_frame
 from .seq_nms import seq_nms_video
 
@@ -75,13 +76,6 @@ class PixelVideoState(NamedTuple):
 
     box: MegaState
     pixel: PixelState
-
-
-def _to_numpy(dets: BoxArray, scale: float) -> dict:
-    """Frame 0 of ``dets`` on the host, scores above 0.05, boxes in the
-    original image's coordinates."""
-    host = BoxArray(*(t.cpu() for t in dets))
-    return _detections_to_numpy(host, 0, scale, score_thresh=0.05)
 
 
 def prime_state(model, method: str, global_frames, whwh, image_hw):
@@ -214,10 +208,12 @@ def run_inference_video_arch(model, dataset, sample_cfg: SampleConfig, *, method
     results.  ``use_bbox_aug`` (``TEST.BBOX_AUG``, with its ``H_FLIP``,
     ``SCALES``, ``MAX_SIZE`` and ``SCALE_H_FLIP``) applies to ``base``
     only: the temporal methods' state would not survive a second pass.
-    ``all_frame_interval`` and ``key_frame_location`` place the pixel
-    path's frame selector."""
+    A ``base`` model with a mask or keypoint head raises before the first
+    frame (``inference_still.refuse_roi_heads``).  ``all_frame_interval``
+    and ``key_frame_location`` place the pixel path's frame selector."""
     if method not in METHODS:
         raise ValueError(f"unknown VID.METHOD {method!r}")
+    refuse_roi_heads(model)
     if shuffled_cur and method != "mega":
         raise ValueError(f"MODEL.VID.MEGA.SHUFFLED_CUR_TEST only applies to METHOD "
                          f"'mega' (got {method!r})")

@@ -1,12 +1,17 @@
 """Meta-architecture dispatch: config → the port's model.
 
-Port of ``diffusionvid_tpu/models/detectors.py:15-115`` for the methods the
-port runs: ``diffusion`` (``DiffusionDetArch``) and the MEGA family's
-``base``, ``dff``, ``fgfa``, ``rdn``, ``mega`` and ``dafa``, with ResNeXt
-(``RESNETS.NUM_GROUPS`` / ``WIDTH_PER_GROUP``) on the C4 ones and MEGA's
-pixel flags, and the RPN's train and test selection sizes
-(``MODEL.RPN.*_NMS_TOP_N_TRAIN`` / ``_TEST``).  RetinaNet and the mask and
-keypoint heads raise and name their ROADMAP.md item (A8).  The model is
+Port of ``diffusionvid_tpu/models/detectors.py:15-115``, in its order:
+``diffusion`` (``DiffusionDetArch``); then RetinaNet under
+``MODEL.RETINANET_ON`` (or ``META_ARCHITECTURE`` RetinaNet), whatever
+``VID.METHOD`` says; then the MEGA family's ``base`` (with the mask and
+keypoint heads under ``MASK_ON`` / ``KEYPOINT_ON``), ``dff``, ``fgfa``,
+``rdn``, ``mega`` and ``dafa``, with ResNeXt (``RESNETS.NUM_GROUPS`` /
+``WIDTH_PER_GROUP``) on the C4 ones and MEGA's pixel flags, and the RPN's
+train and test selection sizes (``MODEL.RPN.*_NMS_TOP_N_TRAIN`` /
+``_TEST``).  As in the JAX package, ``MASK_ON`` and ``KEYPOINT_ON`` reach
+``base`` alone (the other methods ignore them), and RetinaNet reads
+neither ``RETINANET.NUM_CONVS`` nor ``PRIOR_PROB`` (its head keeps 4 and
+0.01) nor ``RESNETS.NUM_GROUPS``.  The model is
 placed on the card unless ``device`` says otherwise, with random weights
 drawn from ``seed``.  As in the JAX package, the MEGA family keeps its
 modules' pixel mean and std whatever ``MODEL.PIXEL_MEAN`` says (the
@@ -25,19 +30,38 @@ def video_method(cfg) -> str:
     return cfg.MODEL.VID.METHOD if cfg.MODEL.VID.ENABLE else "base"
 
 
+def is_diffusion(cfg) -> bool:
+    return video_method(cfg) == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"
+
+
+def is_retinanet(cfg) -> bool:
+    """The JAX package's test: RetinaNet before any VID method (not for
+    DiffusionDet, which it builds first)."""
+    return not is_diffusion(cfg) and (cfg.MODEL.RETINANET_ON
+                                      or cfg.MODEL.META_ARCHITECTURE == "RetinaNet")
+
+
 def check_supported(cfg):
-    """Raise, naming the ROADMAP.md item, for what the port does not run."""
+    """Raise for a configuration that no ``build_detection_model`` makes (the JAX one's
+    ``ValueError``)."""
     method = video_method(cfg)
-    arch = cfg.MODEL.META_ARCHITECTURE
-    if method == "diffusion" or arch == "DiffusionDet":
+    if is_diffusion(cfg) or is_retinanet(cfg):
         return
-    if cfg.MODEL.RETINANET_ON or arch == "RetinaNet":
-        raise NotImplementedError("RetinaNet is not ported: ROADMAP.md A8")
     if method not in ("base", "dff", "fgfa", "rdn", "mega", "dafa"):
-        raise ValueError(f"unknown META_ARCHITECTURE={arch} / VID.METHOD={method}")
-    if cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError("MODEL.MASK_ON / KEYPOINT_ON (the mask and keypoint "
-                                  "heads) are not ported: ROADMAP.md A8")
+        raise ValueError(f"unknown META_ARCHITECTURE={cfg.MODEL.META_ARCHITECTURE} / "
+                         f"VID.METHOD={method}")
+
+
+def check_trainable(cfg):
+    """``check_supported``, and raise, naming ROADMAP.md A8.6, for the
+    still-image detectors, whose training the port's train CLI does not run:
+    RetinaNet and the mask and keypoint heads.  The JAX train CLI would train
+    RetinaNet through ``base`` and ignore the heads' flags."""
+    check_supported(cfg)
+    if is_retinanet(cfg) or cfg.MODEL.MASK_ON or cfg.MODEL.KEYPOINT_ON:
+        raise NotImplementedError(
+            "training RetinaNet or a model with MODEL.MASK_ON / KEYPOINT_ON (the still-image "
+            "detectors' training) is not ported: ROADMAP.md A8.6")
 
 
 def compute_dtype(cfg):
@@ -50,12 +74,25 @@ def build_detection_model(cfg, device=None, dtype=None, seed: int = 0, **kw):
     ``DiffusionDetArch.from_config`` (``swin_kernel``)."""
     check_supported(cfg)
     method = video_method(cfg)
-    if method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet":
+    if is_diffusion(cfg):
         from .diffusion_det import DiffusionDetArch
         return DiffusionDetArch.from_config(cfg, device=device, dtype=dtype, seed=seed, **kw)
     device = resolve_device(device)
     dt = dtype if dtype is not None else compute_dtype(cfg)
     depth = cfg.MODEL.RESNETS.DEPTH
+    if is_retinanet(cfg):
+        from .retinanet import RetinaNet
+        r = cfg.MODEL.RETINANET
+        model = RetinaNet(depth=depth, num_classes=r.NUM_CLASSES,
+                          anchor_sizes=tuple(r.ANCHOR_SIZES), aspect_ratios=tuple(r.ASPECT_RATIOS),
+                          strides=tuple(r.ANCHOR_STRIDES), scales_per_octave=r.SCALES_PER_OCTAVE,
+                          octave=r.OCTAVE, fg_iou=r.FG_IOU_THRESHOLD, bg_iou=r.BG_IOU_THRESHOLD,
+                          loss_alpha=r.LOSS_ALPHA, loss_gamma=r.LOSS_GAMMA,
+                          reg_beta=r.BBOX_REG_BETA, reg_weight=r.BBOX_REG_WEIGHT,
+                          pre_nms_top_n=r.PRE_NMS_TOP_N, score_thresh=r.INFERENCE_TH,
+                          nms_thresh=r.NMS_TH, compute_dtype=dt)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        return model.to(device).eval()
     ncls = cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
     dil = cfg.MODEL.RESNETS.RES5_DILATION
     rpn = cfg.MODEL.RPN
@@ -73,6 +110,9 @@ def build_detection_model(cfg, device=None, dtype=None, seed: int = 0, **kw):
                                 post_nms_test=rpn.POST_NMS_TOP_N_TEST,
                                 pre_nms_train=rpn.PRE_NMS_TOP_N_TRAIN,
                                 post_nms_train=rpn.POST_NMS_TOP_N_TRAIN, res5_dilation=dil,
+                                mask_on=bool(cfg.MODEL.MASK_ON),
+                                keypoint_on=bool(cfg.MODEL.KEYPOINT_ON),
+                                num_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES,
                                 compute_dtype=dt, **trunk)
     elif method == "dff":
         from .video_archs import DFFArch

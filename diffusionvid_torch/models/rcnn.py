@@ -3,17 +3,24 @@
 Port of ``diffusionvid_tpu/models/rcnn.py:29-159``: ResNet-C4 trunk (res4
 at 1/16) → RPN → C4 box head → Fast R-CNN predictor → classic
 post-processing, one fixed-size ``BoxArray`` an image; with ``num_groups``
-above 1 the trunk and the res5 head are ResNeXt.  The train forward
+above 1 the trunk and the res5 head are ResNeXt.  With ``mask_on`` /
+``keypoint_on`` (``MODEL.MASK_ON`` / ``KEYPOINT_ON``) the test forward also
+runs the mask and keypoint heads (``models/mask_keypoint.py``) on every
+detection slot, pooling the res4 map at 1/16, and returns JAX's
+``CombinedROIHeads`` dict (``rcnn.py:141-159``): ``dets``, ``masks`` (the
+detected class's sigmoid ``[B, D, 28, 28]``) and ``keypoints`` (``[B, D,
+56, 56, K]`` logits).  The train forward
 (``train_loss``, ``losses_from_features``) selects ``post_nms_train``
 proposals without gradient, puts the GT boxes in their last slots, and
 returns the RPN's and the Fast R-CNN head's losses; their samplers take
 their keys from ``draw`` (``draw(shape)`` gives uniforms in [0, 1) on the
 model's device).  The MEGA family (``video_archs.py``) builds on the same
-pieces.  ``MASK_ON`` / ``KEYPOINT_ON`` are not ported (A8).
+pieces.  The train forward runs no mask or keypoint head (the JAX
+package's neither).
 
 Module names follow the JAX package's tree: ``backbone.bottom_up`` the
 trunk (detectron2 names, as in the DiffusionVID model), ``rpn``,
-``roi_head.head.res5`` and ``predictor``.
+``roi_head.head.res5``, ``predictor``, ``mask_head`` and ``kp_head``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from ..structures.boxes import BoxArray
 from .box_head import (C4BoxFeatureExtractor, FastRCNNPredictor, fast_rcnn_loss,
                        postprocess_classic)
 from .heads import reset_head_parameters
+from .mask_keypoint import KeypointHead, MaskHead
 from .resnet import ResNet, he_init_
 from .rpn import Proposals, RPNHead, generate_anchors, rpn_loss, select_proposals, shift_anchors
 
@@ -65,7 +73,8 @@ class GeneralizedRCNN(nn.Module):
                  pre_nms_test: int = 2000, post_nms_test: int = 300, ref_post_nms: int = 75,
                  res5_dilation: int = 1, num_groups: int = 1, width_per_group: int = 64,
                  pixel_mean=(123.675, 116.280, 103.530), pixel_std=(58.395, 57.120, 57.375),
-                 compute_dtype=torch.float32, with_predictor: bool = True):
+                 compute_dtype=torch.float32, with_predictor: bool = True,
+                 mask_on: bool = False, keypoint_on: bool = False, num_keypoints: int = 17):
         super().__init__()
         self.num_classes = num_classes
         self.anchor_sizes, self.anchor_ratios = tuple(anchor_sizes), tuple(anchor_ratios)
@@ -80,6 +89,8 @@ class GeneralizedRCNN(nn.Module):
         self.rpn = RPNHead(1024, len(self.anchor_sizes) * len(self.anchor_ratios))
         self.roi_head = C4BoxFeatureExtractor(depth, res5_dilation, num_groups, width_per_group)
         self.predictor = FastRCNNPredictor(2048, num_classes) if with_predictor else None
+        self.mask_head = MaskHead(1024, num_classes) if mask_on else None
+        self.kp_head = KeypointHead(1024, num_keypoints) if keypoint_on else None
         self._anchor_cache = {}
 
     def reset_parameters(self, gen: torch.Generator):
@@ -88,6 +99,9 @@ class GeneralizedRCNN(nn.Module):
             with torch.no_grad():
                 conv.bias.zero_()
         reset_head_parameters(self, gen)
+        for head in (self.mask_head, self.kp_head):
+            if head is not None:
+                head.reset_parameters(gen)
 
     def anchors(self, feat_hw, device) -> torch.Tensor:
         key = (tuple(feat_hw), str(device))
@@ -146,10 +160,30 @@ class GeneralizedRCNN(nn.Module):
         return self.losses_from_features(self.features(images), image_hw, gt_boxes,
                                          gt_labels, gt_valid, draw)
 
-    def forward(self, images, image_hw) -> BoxArray:
+    def forward(self, images, image_hw):
         """images ``[B, H, W, 3]``; ``image_hw`` the true (h, w) of the
-        content → one ``BoxArray`` of 300 detections an image."""
-        return self.detect(self.features(images), image_hw)
+        content → one ``BoxArray`` of 300 detections an image, or with a
+        mask or keypoint head the dict of ``roi_heads``."""
+        feat = self.features(images)
+        dets = self.detect(feat, image_hw)
+        return dets if self.mask_head is None and self.kp_head is None else (
+            self.roi_heads(feat, dets))
+
+    def roi_heads(self, feat, dets: BoxArray) -> dict:
+        """CombinedROIHeads at test time (roi_heads.py:23-58): the mask and
+        keypoint heads on the detected boxes, every slot, pooled from the
+        res4 map ``[B, 1024, h, w]`` → {"dets", "masks", "keypoints"}."""
+        nhwc = feat.permute(0, 2, 3, 1)
+        scale = 1.0 / self.anchor_stride
+        out = {"dets": dets}
+        if self.mask_head is not None:
+            logits = self.mask_head(nhwc, scale, dets.boxes).float()     # [B, D, M, M, K]
+            m = logits.shape[2]
+            idx = dets.labels.long()[:, :, None, None, None].expand(-1, -1, m, m, 1)
+            out["masks"] = torch.sigmoid(logits.gather(-1, idx)[..., 0])
+        if self.kp_head is not None:
+            out["keypoints"] = self.kp_head(nhwc, scale, dets.boxes)
+        return out
 
     def detect(self, feat, image_hw) -> BoxArray:
         """The res4 map ``[B, 1024, h, w]`` → RPN, box head, predictor and

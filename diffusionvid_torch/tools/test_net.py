@@ -6,7 +6,13 @@ checkpoint over them; per-video inference sharded at video boundaries
 (DiffusionVID streaming, or the MEGA family's ``base`` (with
 ``TEST.BBOX_AUG``), ``dff``, ``fgfa``, ``rdn``, ``mega`` (ResNeXt, the pixel
 paths) and ``dafa`` through ``engine/inference_mega.py``); ``predictions.pkl``;
-the AP50 (and motion buckets) report.
+the AP50 (and motion buckets) report.  A still-image dataset (``coco_*``,
+``voc_*``, ``cityscapes_*``) runs image by image through
+``engine/inference_still.py`` with the ``base`` detector or RetinaNet
+(``MODEL.RETINANET_ON``), ``--max-videos`` bounding the images, and its
+evaluator by name (COCO's mAP for COCO and Cityscapes, the VOC AP for
+VOC); another detector exits with the JAX CLI's ``SystemExit``.  The JAX
+CLI writes no file there; this one writes ``predictions.pkl`` too.
 
     python -m diffusionvid_torch.tools.test_net \\
         --config-file configs/vid_R_101_DiffusionVID.yaml \\
@@ -30,10 +36,12 @@ import pickle
 
 from ..config import load_config
 from ..data import SampleConfig, get_dataset
-from ..engine.inference import run_inference
+from ..engine.inference import run_inference, save_predictions
 from ..engine.inference_mega import run_inference_video_arch
+from ..engine.inference_still import evaluator_for, run_inference_still
 from ..evaluation.vid_eval import eval_proposals, evaluate_vid, load_motion_iou_mat
-from ..models.detectors import build_detection_model, check_supported, video_method
+from ..models.detectors import (build_detection_model, check_supported, is_diffusion,
+                                is_retinanet, video_method)
 from ..parallel import dist
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import load_jax_checkpoint, load_weights_into
@@ -183,13 +191,17 @@ def _main(cfg, args, output_dir):
 
 def _evaluate(cfg, args, output_dir, logger):
     method = video_method(cfg)
-    is_diffusion = method == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"
+    diffusion = is_diffusion(cfg)
     check_supported(cfg)
+    if is_retinanet(cfg) and method != "base":
+        # the JAX ``build_detection_model`` makes RetinaNet whatever the method, and its CLI
+        # then fails calling it as that method's model
+        raise ValueError(f"RetinaNet (MODEL.RETINANET_ON) runs as VID.METHOD 'base' only; "
+                         f"got {method!r}")
     dataset_name = cfg.DATASETS.TEST[0]
     ds = get_dataset(dataset_name, is_train=False, data_dir=args.data_dir)
     if not ds.is_video:
-        raise NotImplementedError(f"{dataset_name} is not a video dataset: the still-image "
-                                  "evaluation is ROADMAP.md A11")
+        return _evaluate_still(cfg, args, output_dir, logger, ds, dataset_name)
     model = build_detection_model(cfg, device=args.device)
     load_weights(model, args, logger)
 
@@ -204,7 +216,7 @@ def _evaluate(cfg, args, output_dir, logger):
                   motion_specific=args.motion_specific, shard=args.shard,
                   num_shards=args.num_shards, logger=logger, max_videos=args.max_videos)
     with trace(args.profile_dir):
-        if is_diffusion:
+        if diffusion:
             predictions, gt_list, results = run_inference(
                 model, ds, sample_config(cfg), **detector_args(cfg), **common)
         else:
@@ -249,6 +261,28 @@ def _evaluate(cfg, args, output_dir, logger):
             check_expected_results({"ap50": results["ap50"]}, cfg.TEST.EXPECTED_RESULTS,
                                    cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL)
             logger.info("EXPECTED_RESULTS check passed")
+    return results
+
+
+def _evaluate_still(cfg, args, output_dir, logger, ds, dataset_name):
+    """The JAX CLI's still-image branch (``tools/test_net.py:168-184``)."""
+    method = video_method(cfg)
+    if is_diffusion(cfg) or method != "base":
+        raise SystemExit(
+            f"still-image dataset {dataset_name} needs a single-frame "
+            f"detector (VID.METHOD base / META_ARCHITECTURE "
+            f"GeneralizedRCNN); got method={method}")
+    if dist.world_size() > 1:
+        raise ValueError("a still-image dataset is evaluated in one process, not under torchrun")
+    model = build_detection_model(cfg, device=args.device)
+    load_weights(model, args, logger)
+    with trace(args.profile_dir):
+        predictions, _, results = run_inference_still(
+            model, ds, min_size=cfg.INPUT.MIN_SIZE_TEST, max_size=cfg.INPUT.MAX_SIZE_TEST,
+            logger=logger, max_images=args.max_videos, evaluator=evaluator_for(dataset_name))
+    os.makedirs(output_dir, exist_ok=True)
+    save_predictions(output_dir, predictions, None, 0, 1)
+    logger.info(f"FINAL AP50 = {results['ap50']:.4f}")
     return results
 
 

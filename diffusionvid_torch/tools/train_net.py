@@ -16,7 +16,7 @@ swap, a log line and a ``metrics.jsonl`` record every 20 iterations,
 periodic validation through ``run_inference`` (the MEGA family:
 ``run_inference_video_arch`` over 5 videos) and checkpoints; ``--resume``
 from the last checkpoint.  RetinaNet and ``MASK_ON`` / ``KEYPOINT_ON``
-raise, naming ROADMAP.md A8.
+raise, naming ROADMAP.md A8.6 (``models/detectors.py: check_trainable``).
 
     python -m diffusionvid_torch.tools.train_net \\
         --config-file configs/vid_R_101_DiffusionVID.yaml --data-dir DATA \\
@@ -68,7 +68,8 @@ from ..engine.inference_mega import run_inference_video_arch
 from ..engine.train import (
     TrainBatch, optimizer_from_config, resume, train_loop, wrap_data_parallel)
 from ..engine.train_methods import draw_method_randoms, make_method_loss_fn
-from ..models.detectors import build_detection_model, check_supported, video_method
+from ..models.detectors import (build_detection_model, check_trainable, is_diffusion,
+                                video_method)
 from ..models.diffusion_det import DiffusionDetArch, local_stages
 from ..parallel import dist
 from ..utils.checkpoint import last_checkpoint
@@ -108,10 +109,6 @@ def parse_args(argv=None):
                         help="the random weights' and the step draws' seed")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
-
-
-def is_diffusion(cfg) -> bool:
-    return video_method(cfg) == "diffusion" or cfg.MODEL.META_ARCHITECTURE == "DiffusionDet"
 
 
 def method_spec(cfg):
@@ -230,7 +227,7 @@ def main(argv=None) -> dict:
     checkpoint's path."""
     args = parse_args(argv)
     cfg = load_config(args.config_file, args.opts)
-    check_supported(cfg)
+    check_trainable(cfg)
     started = not dist.is_initialized() and dist.initialize(args.device)
     try:
         return _main(cfg, args)

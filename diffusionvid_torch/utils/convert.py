@@ -5,8 +5,12 @@ The port's modules carry the reference's detectron2/DiffusionDet names
 MEGA family's follow the JAX package's tree (``detector.rpn.conv.weight``,
 ``detector.roi_head.head.res5.0.conv1.weight``, ``relation.attn0.Wq.weight``,
 ``flownet.deconv5.weight``, ``embednet.embed_conv1.weight``,
-``pixel_attn.attn.Wq.weight``, DAFA's ``heads.{i}``), its trunks again
-detectron2's names.  A ResNeXt convolution keeps torch's ``[out, in /
+``pixel_attn.attn.Wq.weight``, DAFA's ``heads.{i}``), as do the mask and
+keypoint heads' (``mask_head.mask_fcn1.weight``, ``kp_head.conv_fcn1.weight``)
+and RetinaNet's (``p6.weight``, ``head.cls_tower0.weight``), its trunks
+again detectron2's names.  The JAX loader has no rule for those heads'
+reference names, so a reference file copies nothing into them, in the port
+too.  A ResNeXt convolution keeps torch's ``[out, in /
 groups, k, k]`` on both sides.
 
 ``state_dict_from_jax``: the JAX package stores every parameter in torch
@@ -125,7 +129,7 @@ def _resnet_name(path) -> str | None:
 # MEGA-family modules whose port names join the JAX path as it is
 _JOINED = ("rpn", "predictor", "reduce", "relation", "global_lm", "temporal_attn",
            "init_proposal_boxes", "init_proposal_features", "flownet", "embednet",
-           "pixel_attn")
+           "pixel_attn", "mask_head", "kp_head", "p6", "p7")
 
 
 def _torch_name(path, fpn_levels) -> str:
@@ -150,6 +154,8 @@ def _torch_name(path, fpn_levels) -> str:
             return f"backbone.fpn_{m.group(1)}{fpn_levels[int(m.group(2))]}.{path[3]}"
     elif top == "head":
         mod = path[1]
+        if re.fullmatch(r"(cls|bbox)_tower\d+|cls_logits|bbox_pred", mod):   # RetinaNet's
+            return ".".join(path)
         if mod in ("time_fc1", "time_fc2"):
             return f"head.time_mlp.{1 if mod == 'time_fc1' else 3}.{path[2]}"
         m = re.fullmatch(r"head(_cond)?(\d+)", mod)
@@ -168,8 +174,9 @@ def _torch_name(path, fpn_levels) -> str:
 
 def state_dict_from_jax(params, fpn_levels=(3, 4, 5)) -> Dict[str, torch.Tensor]:
     """A JAX parameter tree (``{"params": ...}`` or the bare tree, leaves
-    array-like) of ``DiffusionDetArch``, ``GeneralizedRCNN``, ``DFFArch``,
-    ``FGFAArch``, ``RDNArch``, ``MEGAArch`` or ``SparseRCNNDAFA`` → the port's
+    array-like) of ``DiffusionDetArch``, ``GeneralizedRCNN`` (with its mask
+    and keypoint heads), ``RetinaNet``, ``DFFArch``, ``FGFAArch``,
+    ``RDNArch``, ``MEGAArch`` or ``SparseRCNNDAFA`` → the port's
     state dict (float32 tensors, and each Swin block's int64
     ``relative_position_index``)."""
     tree = params.get("params", params)

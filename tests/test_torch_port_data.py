@@ -162,10 +162,31 @@ def test_get_dataset_paths_vs_jax(name, tmp_path):
     assert built["kw"][0]["img_index"] == os.path.join(str(tmp_path), index)
 
 
-def test_get_dataset_refuses_still_images():
+def test_get_dataset_refuses_still_images(monkeypatch):
+    """The still-image names, refused until ROADMAP.md A8.1 was ported, now
+    build the JAX catalog's datasets from the same paths and split (each
+    class replaced by a spy); only an unknown name raises.  The datasets
+    themselves are held against JAX in ``test_torch_port_still.py``."""
+    from diffusionvid_torch.data import cityscapes, coco_voc
+    from diffusionvid_tpu.data import cityscapes as jax_cityscapes
+    from diffusionvid_tpu.data import coco_voc as jax_coco_voc
+
+    calls = []
+
+    def spy(kind):
+        return lambda *a, **kw: calls.append((kind, a, kw))
+
+    for mod in (coco_voc, jax_coco_voc):
+        monkeypatch.setattr(mod, "COCODataset", spy("coco"))
+        monkeypatch.setattr(mod, "VOCDataset", spy("voc"))
+    for mod in (cityscapes, jax_cityscapes):
+        monkeypatch.setattr(mod, "CityscapesDataset", spy("cityscapes"))
     for name in ("coco_2017_val", "voc_2007_test", "cityscapes_val"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            catalog.get_dataset(name, is_train=False, data_dir="/nonexistent")
+        for mod in (catalog, jax_catalog):
+            mod.get_dataset(name, is_train=False, data_dir="/nonexistent")
+        assert calls[-1] == calls[-2] and calls[-1][0] == name.split("_")[0], calls[-2:]
+    assert calls[0][1] == ("/nonexistent/coco/annotations/instances_2017_val.json",
+                           "/nonexistent/coco/2017_val")
     with pytest.raises(KeyError, match="unknown dataset"):
         catalog.get_dataset("VID_nothing", is_train=False)
 

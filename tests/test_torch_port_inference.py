@@ -362,12 +362,23 @@ def test_cli_without_a_card_raises(catalog_vid, monkeypatch, tmp_path):
 
 
 def test_cli_refuses_unported_methods(catalog_vid, tmp_path):
-    """RetinaNet (A8) and a still-image dataset (A11) raise before any
-    model runs; DFF, which this test refused before, runs in
-    ``test_torch_port_flow.py``."""
-    with pytest.raises(NotImplementedError, match="A8"):
+    """What the CLI refuses before any model runs: RetinaNet under a method
+    other than ``base`` (the JAX ``build_detection_model`` makes RetinaNet whatever the method,
+    and the JAX CLI then fails calling it as that method's model), and a
+    still-image dataset with the diffusion detector (the JAX CLI's
+    ``SystemExit``).  RetinaNet and the still-image datasets themselves run
+    in ``test_torch_port_still.py``."""
+    import json
+    with pytest.raises(ValueError, match="RetinaNet .* 'base' only; got 'dff'"):
         cli(catalog_vid, tmp_path, "MODEL.META_ARCHITECTURE", "GeneralizedRCNN",
             "MODEL.VID.ENABLE", "True", "MODEL.VID.METHOD", "dff", "MODEL.RETINANET_ON", "True")
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli(catalog_vid, tmp_path, "DATASETS.TEST", "('coco_2017_val',)")
+    anno = tmp_path / "data" / "coco" / "annotations" / "instances_2017_val.json"
+    anno.parent.mkdir(parents=True)
+    anno.write_text(json.dumps({
+        "images": [{"id": 1, "file_name": "a.png", "height": 64, "width": 96}],
+        "annotations": [{"image_id": 1, "bbox": [1, 2, 10, 10], "category_id": 3}],
+        "categories": [{"id": 3, "name": "thing"}]}))
+    with pytest.raises(SystemExit,
+                       match=r"needs a single-frame detector \(VID.METHOD base .*got method=base"):
+        cli(tmp_path / "data", tmp_path, "DATASETS.TEST", "('coco_2017_val',)")
     assert not (tmp_path / "predictions.pkl").exists()

@@ -23,7 +23,8 @@ CONFIGS = ["configs/vid_R_101_DiffusionVID.yaml", "configs/vid_R_50_tiny_synthet
            "configs/vid_Swin_B_DiffusionVID.yaml", "configs/vid_R_101_C4_1x.yaml",
            "configs/RDN/vid_R_101_C4_RDN_base_1x.yaml", "configs/MEGA/vid_R_101_C4_MEGA_1x.yaml",
            "configs/MEGA/vid_R_101_C4_DAFA_1x.yaml", "configs/DFF/vid_R_101_C4_DFF_1x.yaml",
-           "configs/FGFA/vid_R_101_C4_FGFA_1x.yaml", "configs/MEGA/vid_X_101_C4_MEGA_1x.yaml"]
+           "configs/FGFA/vid_R_101_C4_FGFA_1x.yaml", "configs/MEGA/vid_X_101_C4_MEGA_1x.yaml",
+           "configs/e2e_mask_rcnn_R_50_C4_1x.yaml"]
 # the keys the MEGA family's builder, engine and CLI read
 MEGA_KEYS = {"MODEL.RPN.ANCHOR_SIZES", "MODEL.RPN.PRE_NMS_TOP_N_TEST",
              "MODEL.RPN.POST_NMS_TOP_N_TEST", "MODEL.ROI_BOX_HEAD.NUM_CLASSES",
@@ -69,7 +70,9 @@ def test_imports_with_jax_blocked():
                 "tools.train_net", "utils.collect_env", "utils.convert", "models.rpn",
                 "models.box_head", "models.rcnn", "models.relation", "models.video_archs",
                 "models.dafa", "models.detectors", "engine.inference_mega", "models.flownet",
-                "models.pixel_attention", "engine.bbox_aug"):
+                "models.pixel_attention", "engine.bbox_aug", "structures.masks",
+                "evaluation.coco_eval", "data.coco_voc", "data.cityscapes",
+                "engine.inference_still", "models.mask_keypoint", "models.retinanet"):
         assert "diffusionvid_torch." + new in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"

@@ -574,14 +574,32 @@ def test_builder_reads_the_config(method):
 
 
 @pytest.mark.parametrize("opts, item", [
-    (["MODEL.MASK_ON", "True"], "A8"),
-    (["MODEL.KEYPOINT_ON", "True"], "A8"),
-    (["MODEL.RETINANET_ON", "True"], "A8"),
+    (["MODEL.MASK_ON", "True"], "MEGAArch"),
+    (["MODEL.KEYPOINT_ON", "True"], "MEGAArch"),
+    (["MODEL.RETINANET_ON", "True"], "RetinaNet"),
 ], ids=["mask", "keypoint", "retinanet"])
 def test_unported_parts_raise_naming_their_item(opts, item):
-    cfg = load_config(str(ROOT / C4_CONFIGS["mega"]), TINY + opts)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md {item}"):
-        build_detection_model(cfg, device="cpu")
+    """The three flags on the MEGA config, refused (ROADMAP.md A8) until the
+    still-image slice: now built as the JAX ``build_detection_model`` builds them.  MEGA
+    ignores the mask and keypoint flags (the heads reach ``base`` alone):
+    the same tensors as without; ``RETINANET_ON`` builds RetinaNet whatever
+    the method, its classes and anchors from ``MODEL.RETINANET``."""
+    from diffusionvid_tpu.config import load_config as jax_load_config
+    from diffusionvid_tpu.models.detectors import build_detection_model as jax_build
+    path = str(ROOT / C4_CONFIGS["mega"])
+    ref = jax_build(jax_load_config(path, TINY + opts))
+    model = build_detection_model(load_config(path, TINY + opts), device="cpu")
+    assert type(model).__name__ == type(ref).__name__ == item
+    if item == "RetinaNet":
+        assert (model.num_classes, model.anchor_sizes, model.strides, model.detections,
+                model.pre_nms_top_n) == (ref.num_classes, tuple(ref.anchor_sizes),
+                                         tuple(ref.strides), ref.detections,
+                                         ref.pre_nms_top_n) == (81, (32, 64, 128, 256, 512),
+                                                                (8, 16, 32, 64, 128), 100, 1000)
+        return
+    assert ref == jax_build(jax_load_config(path, TINY))
+    plain = build_detection_model(load_config(path, TINY), device="cpu")
+    assert model.state_dict().keys() == plain.state_dict().keys()
 
 
 # the MEGA config with each option, and what both builders make of it: the

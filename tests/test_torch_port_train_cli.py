@@ -359,12 +359,15 @@ def test_no_card_without_device_raises(tree, tmp_path, monkeypatch):
 
 
 def test_other_methods_are_refused(tmp_path):
-    """What is still ROADMAP.md A8: RetinaNet and the mask head (the MEGA
-    family's six methods train: ``test_torch_port_train_cli_methods.py``)."""
+    """What the train CLI does not run, ROADMAP.md A8.6: the still-image
+    detectors' training, RetinaNet and the mask and keypoint heads (the MEGA
+    family's six methods train: ``test_torch_port_train_cli_methods.py``; the
+    test CLI runs the three: ``test_torch_port_still.py``)."""
     c4 = ["MODEL.META_ARCHITECTURE", "GeneralizedRCNN", "MODEL.VID.ENABLE", "True",
           "MODEL.VID.METHOD", "base"]
-    for extra in (["MODEL.RETINANET_ON", "True"], ["MODEL.MASK_ON", "True"]):
-        with pytest.raises(NotImplementedError, match="A8"):
+    for extra in (["MODEL.RETINANET_ON", "True"], ["MODEL.MASK_ON", "True"],
+                  ["MODEL.KEYPOINT_ON", "True"]):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A8\.6"):
             train_net.main(["--config-file", CONFIG, "--device", "cpu", *c4, *extra,
                             "OUTPUT_DIR", str(tmp_path)])
     assert not (tmp_path / "config.yml").exists()
