@@ -38,7 +38,13 @@ Phases, one JSON line each:
               shift 0 and 3 (masked) and the true valid sizes, then at
               Swin-T's widths; their line holds the per-stage numbers, and
               their ``ms`` and ``bound_ms`` are means per launch over one
-              backbone pass (stage depths 2, 2, 18, 2).  K6 and K7 also
+              backbone pass (stage depths 2, 2, 18, 2).  K4 and K5 also run
+              at the four Swin-L-22k-384 stage maps (window 12, C 192 to
+              1536; K4 with shift 0 and 6) and at L-22k's stage 3 (C = 1536
+              at window 7), bf16 and fp32, where K4 takes its staged design
+              (its qkv and o maps held against their plain versions too);
+              their ``swin_l`` holds the means over one Swin-L-22k-384
+              pass, and K4's staged rows its card time ``kernel_ms``.  K6 and K7 also
               time ``F.scaled_dot_product_attention`` over the partitioned
               windows as ``library_ms``; K6 also ``library_full_ms`` (one
               ``F.linear`` for q, k, v plus that call, with the relayouts:
@@ -64,7 +70,9 @@ Phases, one JSON line each:
               noise, float32, TF32 off; then the depth-18 model and Swin-T
               in mode v3 through the x4 DDIM ensemble the same way, at a
               renewal threshold that renews some slots and keeps others:
-              the renewal masks equal, no best score within 1e-4 of it;
+              the renewal masks equal, no best score within 1e-4 of it; then
+              a window-12 Swin (``TINY_W12``, C 128 to 1024) in mode v3 at
+              x1 the same way (K4's staged design, K5);
   5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
@@ -81,7 +89,13 @@ Phases, one JSON line each:
               ``flagship_x4`` and ``flagship_swin_x4``, both flagships with
               SAMPLE_STEP 4 (the x4 DDIM ensemble, 1,200 detections a frame
               into one NMS): R-101 3 chunks of 8 (66 launches of K1/K2),
-              Swin-B 2 chunks of 4 (56 of K1/K2, 192 of K4/K5);
+              Swin-B 2 chunks of 4 (56 of K1/K2, 192 of K4/K5); then
+              ``flagship_swin_l``, the Swin-B config with ``MODEL.SWIN.SIZE
+              L-22k-384`` (window 12, C up to 1536), 3 chunks of 4 (216
+              launches of K4/K5), and ``flagship_swin_l_cli``, the port's
+              test CLI with that override on one rendered video of 16
+              frames at 600x1000 (192 launches of K4/K5)
+              (``phase_flagship_swin_l``);
   7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
               (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
               and on the CPU through the plain versions, same weights, batch
@@ -222,7 +236,10 @@ Phases, one JSON line each:
 Then the ``kernels`` line (every kernel with its launches on its flagship
 path, error against its plain version, times and bound; K1's with its card
 time, host time and card time on the stream's inputs; K1's, K2's, K4's and
-K5's with ``x4_launches`` on the x4 streams; K1's and K2's with
+K5's with ``x4_launches`` on the x4 streams, K4's and K5's with
+``swin_l_launches`` on the Swin-L-22k-384 stream and ``swin_l_ms``,
+``swin_l_kernel_ms``, ``swin_l_plain_ms``, ``swin_l_bound_ms`` and
+``swin_l_bound_by`` over one Swin-L-22k-384 pass; K1's and K2's with
 ``eval_launches`` in phase 10's x1 run and ``dafa_launches`` in phase
 10b's DAFA run; K1's, K2's and K3's with
 ``train_cli_launches`` in phase 11's first run; K1's and K2's with
@@ -271,6 +288,17 @@ SWIN_FRAMES = 4
 # are built for, checked but not timed
 SWIN_T_STAGES = [dict(hw=(16, 24), c=96, heads=3), dict(hw=(8, 12), c=192, heads=6),
                  dict(hw=(4, 6), c=384, heads=12), dict(hw=(2, 3), c=768, heads=24)]
+# Swin-L-22k-384 (window 12) at 608x1024 over a 4-frame chunk, the stage
+# maps of phase 6's flagship_swin_l, and L-22k's stage 3 (C = 1536 at
+# window 7): K4's staged design and K5 at C = 1536
+SWIN_L_STAGES = [dict(hw=(152, 256), c=192, heads=6, depth=2, window=12),
+                 dict(hw=(76, 128), c=384, heads=12, depth=2, window=12),
+                 dict(hw=(38, 64), c=768, heads=24, depth=18, window=12),
+                 dict(hw=(19, 32), c=1536, heads=48, depth=2, window=12)]
+SWIN_L7_STAGE3 = dict(hw=(19, 32), c=1536, heads=48, depth=2, window=7)
+# a window-12 Swin for phase 4 (the tiny phases): widths K5 is built for,
+# multiples of 64 for K4's staged design
+TINY_W12 = dict(embed_dim=128, depths=(2, 2, 2, 2), num_heads=(4, 8, 16, 32), window=12)
 
 
 class SmokeFailure(RuntimeError):
@@ -371,6 +399,9 @@ K6_KERNELS = ("attn_qkv_bf16_kernel",)
 K7_KERNELS = ("attn_bf16_kernel",)
 # K5's bf16 kernels: the fused kernel, or the LN pass and the two products
 K5_KERNELS = ("mlp_bf16_kernel", "mlp_ln_kernel", "mlp_gemm_kernel")
+# K4's bf16 kernels: the fused design's (the name K7's bf16 kernel has too),
+# or the staged design's LN pass, products and window attention
+K4_STAGED_KERNELS = ("attn_ln_kernel", "attn_gemm_kernel", "attn_win_kernel")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -936,18 +967,20 @@ def phase_k3_train(captured) -> dict:
 
 
 def _swin_inputs(gen, dev, dtype, st, frames):
-    """One stage's residual map (random over the pad region too) and
-    half-block weights; the matrices already in ``dtype``."""
+    """One stage's residual map (random over the pad region too), padded
+    to its window's (7 unless ``st["window"]``) multiples, and half-block
+    weights; the matrices already in ``dtype``."""
     h, w = st["hw"]
-    c, heads = st["c"], st["heads"]
-    hp, wp = -(-h // 7) * 7, -(-w // 7) * 7
+    c, heads, win = st["c"], st["heads"], st.get("window", 7)
+    hp, wp = -(-h // win) * win, -(-w // win) * win
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen) * scale
 
     x = rn(frames, hp, wp, c).to(dev, dtype)
     attn = [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(3 * c, c, scale=c ** -0.5),
-            rn(3 * c, scale=0.1), rn(heads, 49, 49, scale=0.5), rn(c, c, scale=c ** -0.5),
+            rn(3 * c, scale=0.1), rn(heads, win * win, win * win, scale=0.5),
+            rn(c, c, scale=c ** -0.5),
             rn(c, scale=0.1)]
     mlp = [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(4 * c, c, scale=c ** -0.5),
            rn(4 * c, scale=0.1), rn(c, 4 * c, scale=(4 * c) ** -0.5), rn(c, scale=0.1)]
@@ -995,15 +1028,38 @@ def k5_hidden_check(x, mlp, tol, what: str) -> dict:
     ln_g, ln_b, w1, b1, w2, b2 = mlp
     y, h = launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, torch.empty_like(x))
     torch.cuda.synchronize()
+    return _maps_agree((("y", y, swin_mlp_ln_ref(x, ln_g, ln_b).reshape(y.shape)),
+                        ("h", h, swin_mlp_fc1_ref(y, w1, b1))), tol, what)
+
+
+def _maps_agree(maps, tol, what: str) -> dict:
+    """``compare`` of each (key, kernel's map, plain map), and its mean
+    error under ``MEAN_ERR``."""
     res = {}
-    for key, got, want in (("y", y, swin_mlp_ln_ref(x, ln_g, ln_b).reshape(y.shape)),
-                           ("h", h, swin_mlp_fc1_ref(y, w1, b1))):
+    for key, got, want in maps:
         r = compare(got, want, *tol, f"{what} {key}")
         r["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
-        require(r["mean_abs_err"] < MEAN_ERR[x.dtype],
-                f"{what} {key}: mean abs err {r['mean_abs_err']} over {MEAN_ERR[x.dtype]}")
+        require(r["mean_abs_err"] < MEAN_ERR[got.dtype],
+                f"{what} {key}: mean abs err {r['mean_abs_err']} over {MEAN_ERR[got.dtype]}")
         res[key] = r
     return res
+
+
+def k4_staged_check(x, attn, mask, heads: int, hw, shift: int, window: int, tol,
+                    what: str) -> dict:
+    """The staged design's launches on their own: its qkv map against the
+    plain qkv product of the plain LN pass, and its o map against the plain
+    attention over the kernel's own qkv, so that a fault shows in the
+    launch where it happens."""
+    from diffusionvid_torch.ops.swin_attention import (
+        _mm, launch_attn_staged, swin_attn_core_ref, swin_attn_ln_ref)
+    ln_g, ln_b, wqkv, bqkv, bias, wproj, bproj = attn
+    o, qkv = launch_attn_staged(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
+                                torch.empty_like(x), window, heads, hw, shift)
+    torch.cuda.synchronize()
+    return _maps_agree(
+        (("qkv", qkv, _mm(swin_attn_ln_ref(x, ln_g, ln_b, hw, shift), wqkv, bqkv)),
+         ("o", o, swin_attn_core_ref(qkv, bias, mask, window, heads))), tol, what)
 
 
 def _pass_means(rows, keys):
@@ -1014,39 +1070,47 @@ def _pass_means(rows, keys):
 
 
 def _swin_check(name, gen, dev, dtype, timing: bool):
-    """K4 or K5 at the four Swin-B stage maps, then at Swin-T's, against
-    the plain version; K4 with shift 0 and 3.  Returns the worst error, the
-    per-stage rows and, with ``timing``, the means of ms, plain ms and
-    bound over one Swin-B pass."""
+    """K4 or K5 at the four Swin-B stage maps, at Swin-T's, at the four
+    Swin-L-22k-384 stage maps (window 12) and at L-22k's stage 3 (C = 1536,
+    window 7), against the plain version; K4 with shift 0 and half its
+    window.  Returns the worst error, the per-stage rows and, with
+    ``timing``, the means of ms, plain ms and bound over one Swin-B pass,
+    and under ``swin_l`` over one Swin-L-22k-384 pass."""
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops.swin_attention import (
-        attn_plan, mlp_plan, swin_block_attn, swin_block_attn_ref, swin_block_mlp,
-        swin_block_mlp_ref)
+        attn_plan, launch_attn_staged, mlp_plan, swin_block_attn, swin_block_attn_ref,
+        swin_block_mlp, swin_block_mlp_ref)
     mlp_k = name == "swin_block_mlp"
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # fp32: the same fp32 sums in another order, over up to 4096 terms.
+    # fp32: the same fp32 sums in another order, over up to 6144 terms.
     # bf16: TOLERANCE_BF16 below.
     tol = (1e-4, 1e-4) if dtype == torch.float32 else TOLERANCE_BF16[name]
     elt = torch.tensor([], dtype=dtype).element_size()
     rows, worst = [], 0.0
-    stages = [(st, SWIN_FRAMES) for st in SWIN_B_STAGES] + [(st, 2) for st in SWIN_T_STAGES]
-    for s, (st, frames) in enumerate(stages):
-        timed = timing and s < len(SWIN_B_STAGES)
+    stages = ([(st, SWIN_FRAMES, "B") for st in SWIN_B_STAGES]
+              + [(st, 2, "T") for st in SWIN_T_STAGES]
+              + [(st, SWIN_FRAMES, "L-22k-384") for st in SWIN_L_STAGES]
+              + [(SWIN_L7_STAGE3, SWIN_FRAMES, "L-22k")])
+    for s, (st, frames, size) in enumerate(stages):
+        timed = timing and size != "T"
         x, attn, mlp, (hp, wp) = _swin_inputs(gen, dev, dtype, st, frames)
-        c, heads = st["c"], st["heads"]
+        c, heads, win = st["c"], st["heads"], st.get("window", 7)
+        n = win * win
         m = x.numel() // c
-        shifts = (0, 3) if name == "swin_block_attn" else (0,)
+        shifts = (0, win // 2) if name == "swin_block_attn" else (0,)
         for shift in shifts:
+            plan = None
             if name == "swin_block_attn":
                 mask = None
                 if shift:
-                    mask = torch.from_numpy(shift_attn_mask(hp, wp, 7, shift)).to(dev).reshape(
-                        hp // 7, wp // 7, 49, 49)
-                args = (x, *attn[:5], mask, *attn[5:], 7, heads, st["hw"], shift)
+                    mask = torch.from_numpy(shift_attn_mask(hp, wp, win, shift)).to(dev).reshape(
+                        hp // win, wp // win, n, n)
+                args = (x, *attn[:5], mask, *attn[5:], win, heads, st["hw"], shift)
                 fn, ref = swin_block_attn, swin_block_attn_ref
-                flops = 2 * m * c * 4 * c + 4 * m * 49 * c
-                nbytes = (2 * x.numel() + 4 * c * c) * elt + (6 * c + heads * 2401) * 4 \
+                flops = 2 * m * c * 4 * c + 4 * m * n * c
+                nbytes = (2 * x.numel() + 4 * c * c) * elt + (6 * c + heads * n * n) * 4 \
                     + (0 if mask is None else mask.numel() * 4)
+                plan = attn_plan(c, frames, hp, wp, win, sms)
             else:
                 args = (x, *mlp)
                 fn, ref = swin_block_mlp, swin_block_mlp_ref
@@ -1055,15 +1119,27 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
             got = fn(*args)
             want = ref(*args)
             torch.cuda.synchronize()
-            what = f"{name} {dtype} stage {s} shift {shift}"
+            what = f"{name} {dtype} stage {s} ({size}) shift {shift}"
             res = compare(got, want, *tol, what)
             res["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
             require(res["mean_abs_err"] < MEAN_ERR[dtype],
                     f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
-            res.update(stage=s, shape=list(x.shape), shift=shift)
+            res.update(stage=s, size=size, window=win, shape=list(x.shape), shift=shift)
+            staged = plan is not None and plan["path"] == "staged"
+            # at Swin-B's maps the staged design also runs beside the fused
+            # one (launch_attn_staged, no launch counted), to weigh the two
+            beside = name == "swin_block_attn" and dtype == torch.bfloat16 and size == "B"
             if name == "swin_block_attn" and dtype == torch.bfloat16:
-                res["plan"] = attn_plan(c, frames, hp, wp)   # blocks, ring, shared bytes
-            plan = None
+                res["plan"] = plan   # blocks, ring, shared bytes; or the products' plans
+                if staged or beside:
+                    res["hidden"] = k4_staged_check(x, attn, mask, heads, st["hw"], shift, win,
+                                                    tol, what)
+                if beside:
+                    staged_out = torch.empty_like(x)
+                    run_staged = functools.partial(
+                        launch_attn_staged, *args[:9], staged_out, win, heads, st["hw"], shift)
+                    run_staged()
+                    res["staged"] = compare(staged_out, want, *tol, f"{what} staged design")
             if mlp_k:
                 require(torch.equal(fn(*args), got), f"{what}: two launches differ")
                 res["deterministic"] = True
@@ -1082,9 +1158,17 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
                 res["gflop"] = flops / 1e9
                 res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
                 res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
-                if name == "swin_block_attn":
+                if name == "swin_block_attn" and size == "B":
                     res["unfused_ms"] = cuda_time_ms(
                         lambda: _unfused_attn_half(x, attn, mask, heads, st["hw"]), iters=10)
+                if staged:
+                    res["kernel_ms"] = device_ms(lambda: fn(*args), K4_STAGED_KERNELS, 10, 4)
+                if beside:
+                    res["staged_ms"] = cuda_time_ms(run_staged, iters=10)
+                    res["staged_kernel_ms"] = device_ms(run_staged, K4_STAGED_KERNELS, 10, 4)
+                    # the design's own floor: y, qkv and o written and read, x read twice
+                    res["design_bound_ms_bytes"] = (
+                        nbytes + 22 * m * c) / HBM_BYTES_PER_S * 1e3
                 if mlp_k:
                     res["kernel_ms"] = device_ms(lambda: fn(*args), K5_KERNELS, 10,
                                                  3 if plan["path"] == "wgmma" else 1)
@@ -1099,10 +1183,14 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
     out = {"max_abs_err": worst, "atol": tol[0], "rtol": tol[1], "stages": rows}
     if timing:
         keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "unfused_ms") + (
-            ("kernel_ms",) if mlp_k else ())
-        out.update(_pass_means([r for r in rows if "blocks" in r], keys))
+            ("kernel_ms",) if mlp_k else ("staged_ms", "staged_kernel_ms"))
+        out.update(_pass_means([r for r in rows if r["size"] == "B"], keys))
         out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
                            else "operations")
+        keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "kernel_ms")
+        out["swin_l"] = _pass_means([r for r in rows if r["size"] == "L-22k-384"], keys)
+        out["swin_l"]["bound_by"] = ("bytes" if out["swin_l"]["bound_ms_bytes"]
+                                     >= out["swin_l"]["bound_ms"] else "operations")
     return out
 
 
@@ -1426,12 +1514,14 @@ def _run_stream(det, noise, gframes, chunks, whwh):
 
 def _tiny_model(kind: str, gen, props: int, **arch):
     """A small fp32 model: depth-18 ResNet or Swin-T, 5 classes; ``arch``
-    over the other settings (the local attention's stages, GLOBAL.ENABLE)."""
+    over the other settings (the local attention's stages, GLOBAL.ENABLE,
+    another ``swin_size``)."""
     from diffusionvid_torch.models.diffusion_det import DiffusionDetArch
     kw = dict(num_classes=5, num_proposals=props, num_heads=1, num_heads_local=1,
-              compute_dtype=torch.float32, **arch)
+              compute_dtype=torch.float32)
     if kind == "swin":
         kw.update(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
+    kw.update(arch)
     model = DiffusionDetArch(depth=18, **kw)
     model.reset_parameters(gen)
     with torch.no_grad():   # varied LayerNorm affines and biases: proposal
@@ -1510,7 +1600,8 @@ def _renewal_check(c_best, p_best, steps: int, thresh: float, what: str) -> dict
 
 def phase_tiny(seed: int, kind: str, swin_kernel: str = "v3", sample_step: int = 1,
                **arch):
-    """A depth-18 (``kind`` "resnet") or Swin-T ("swin") model, its trunk in
+    """A depth-18 (``kind`` "resnet") or Swin-T ("swin"; ``swin_size`` in
+    ``arch`` for another size) model, its trunk in
     mode ``swin_kernel``, 16 proposals, 64x96 frames, float32, TF32 off: the
     card (kernels) against the CPU (plain versions), same weights and
     noise.  With ``sample_step`` > 1 the xN ensemble at a renewal
@@ -1750,11 +1841,74 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
     return res
 
 
+def register_tiny_w12():
+    """Register ``TINY_W12`` as the port's Swin size ``w12-tiny``."""
+    from diffusionvid_torch.models import swin
+    swin.SWIN_SIZES.setdefault("w12-tiny", TINY_W12)
+
+
+SWIN_L_OPTS = ("MODEL.SWIN.SIZE", "L-22k-384")
+SWIN_L_CLI_FRAMES = 16
+
+
+def phase_flagship_swin_l(seed: int) -> dict:
+    """DiffusionVID with the Swin-L-22k-384 trunk (window 12, C up to 1536:
+    K4's staged design, K5 at C = 1536), ``configs/vid_Swin_B_DiffusionVID.yaml``
+    with ``MODEL.SWIN.SIZE L-22k-384``: the stream as ``phase_flagship``
+    runs it (24 global frames, 3 chunks of 4 at 608x1024, bf16; 216
+    launches each of K4 and K5); then the port's test CLI
+    (``tools/test_net.main``) with the same override on the card over one
+    rendered video of ``SWIN_L_CLI_FRAMES`` frames at 600x1000: predictions
+    for every frame, finite, and 24 launches of K4 and K5 a backbone pass."""
+    import shutil
+
+    from diffusionvid_torch.data.vid_dataset import VIDDataset
+    from diffusionvid_torch.tools import test_net
+
+    res = phase_flagship(seed, "vid_Swin_B_DiffusionVID.yaml", 3, "flagship_swin_l",
+                         opts=SWIN_L_OPTS)
+    work = ROOT / "build" / "chip_smoke" / "swin_l_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    f = SWIN_L_CLI_FRAMES
+    write_eval_dataset(work / "data", 1, f, EVAL_HW, seed)
+    load_image, VIDDataset.load_image = VIDDataset.load_image, rendered_vid().load_image
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = test_net.main([
+            "--config-file", str(ROOT / "configs" / "vid_Swin_B_DiffusionVID.yaml"),
+            "--data-dir", str(work / "data"), "--output-dir", str(work / "out"),
+            *SWIN_L_OPTS])
+    finally:
+        VIDDataset.load_image = load_image
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with open(work / "out" / "predictions.pkl", "rb") as fh:
+        preds = pickle.load(fh)
+    # 24 blocks a pass: the global frames' chunks of 4, then the video's
+    passes = -(-min(24, f) // 4) + -(-f // 4)
+    want = {"swin_block_attn": 24 * passes, "swin_block_mlp": 24 * passes}
+    require(all(launches[k] == want.get(k, 0) for k in launches if k not in
+                ("roi_align_fwd", "dynamic_conv")) and launches["roi_align_fwd"] > 0,
+            f"flagship_swin_l cli: launches {launches}, expected K4/K5 {want}")
+    require(len(preds) == f and all(np.isfinite(np.asarray(p[k], np.float64)).all()
+                                    for p in preds for k in ("scores", "boxes")),
+            "flagship_swin_l cli: predictions")
+    cli = {"frames": f, "hw": list(EVAL_HW), "launches": launches, "expected": want,
+           "run_s": wall, "ap50_random_weights": results["ap50"],
+           "detections_per_frame": sum(len(p["scores"]) for p in preds) / f,
+           "card": torch.cuda.get_device_name(0)}
+    emit("flagship_swin_l_cli", **cli)
+    shutil.rmtree(work, ignore_errors=True)
+    res["cli"] = cli
+    return res
+
+
 # the device kernels of each wrapper on the streaming path, by name; K4's
 # and K7's bf16 kernels share a name, so the Swin entries go by trunk mode
 CHUNK_KERNELS = {"roi_align_fwd": ("roi_footprint_kernel", "roi_align_fwd_kernel"),
                  "dynamic_conv": ("dynamic_conv_kernel", "dynconv_ring_kernel")}
-SWIN_CHUNK_KERNELS = {"v3": {"swin_block_attn": ("attn_bf16_kernel",),
+SWIN_CHUNK_KERNELS = {"v3": {"swin_block_attn": ("attn_bf16_kernel",) + K4_STAGED_KERNELS,
                              "swin_block_mlp": K5_KERNELS},
                       "v2": {"window_attn_qkv": K6_KERNELS}, "v1": {"window_attn": K7_KERNELS}}
 
@@ -4909,6 +5063,8 @@ def main(argv=None) -> int:
         phase_tiny(args.seed, "swin", mode)
     phase_tiny(args.seed, "resnet", sample_step=4)
     phase_tiny(args.seed, "swin", "v3", sample_step=4)
+    register_tiny_w12()
+    phase_tiny(args.seed, "swin", "v3", swin_size="w12-tiny")
     k1_inputs = []
     launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship",
                               keep_k1=k1_inputs)["launches"]
@@ -4925,6 +5081,7 @@ def main(argv=None) -> int:
                              sample_step=4)["launches"]
     x4_launches = {k: x4[k] for k in ("roi_align_fwd", "dynamic_conv")}
     x4_launches.update({k: swin_x4[k] for k in ("swin_block_attn", "swin_block_mlp")})
+    swin_l = phase_flagship_swin_l(args.seed)["launches"]
     eval_counts = phase_flagship_eval(args.seed)["launches"]
     phase_mega_family_tiny(args.seed)
     dafa_counts = phase_mega_family(args.seed)["launches"]
@@ -4975,6 +5132,10 @@ def main(argv=None) -> int:
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
         if name in x4_launches:   # on the R-101 (K1, K2) and Swin-B (K4, K5) x4 streams
             line[-1]["x4_launches"] = x4_launches[name]
+        if name in ("swin_block_attn", "swin_block_mlp"):   # the Swin-L-22k-384 stream
+            line[-1]["swin_l_launches"] = swin_l[name]
+            line[-1].update({f"swin_l_{k}": bf["swin_l"][k]
+                             for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
         if name in ("roi_align_fwd", "dynamic_conv"):   # run_inference, R-101 x1
             line[-1]["eval_launches"] = eval_counts[name]
             line[-1]["dafa_launches"] = dafa_counts[name]   # DAFA, run_inference_video_arch

@@ -3,8 +3,9 @@
 // Replaces: diffusionvid_tpu/ops/swin_attention_pallas.py: fused_swin_block_attn
 //   (the Pallas kernels _kernel_block_attn / _kernel_block_attn_masked).
 //
-// Contract, per 7x7 window of the (pre-rolled, window-padded) map
-// x [B, Hp, Wp, C], C = 32 * heads, in the compute dtype T:
+// Contract, per w x w window (w = 7 or 12) of the (pre-rolled,
+// window-padded) map x [B, Hp, Wp, C], C = 32 * heads, in the compute
+// dtype T:
 //   y   = LN1(x) in fp32 (eps, two-pass variance), times the 0/1 pad mask
 //         ((row + shift) % Hp < hv) & ((col + shift) % Wp < wv), rounded to T
 //   qkv = y @ wqkv^T + bqkv             fp32 sum, fp32 bias, rounded
@@ -12,7 +13,7 @@
 //   p   = softmax(s) in fp32 (max, exp, divide), rounded
 //   o   = p v                            fp32 sum, rounded
 //   out = x + round(o @ wproj^T + bproj) in T
-// bias [heads, 49, 49] and mask [Hp/7, Wp/7, 49, 49] (0 or -100) are fp32;
+// bias [heads, w^2, w^2] and mask [Hp/w, Wp/w, w^2, w^2] (0 or -100) are fp32;
 // the LayerNorm weights and the biases are fp32.  These are the rounding
 // points of the Pallas kernel; the pad region of x keeps its values.
 //
@@ -25,6 +26,9 @@
 //   the kernel moves besides: every window's products need all 4C^2
 //   weights, from L2, so the weights' L2 traffic per launch is windows x
 //   8C^2 bytes (427-503 MB at the four stages) unless a block shares them.
+//   Swin-L-22k-384 (window 12) at the same frames: maps [4,156,264,192],
+//   [4,84,132,384], [4,48,72,768], [4,24,36,1536], 8 M C^2 + 4 M 144 C
+//   FLOP, about 1.68 TFLOP per backbone pass (24 launches), 1.70 ms.
 //
 // What held the first bf16 design back (one block of 8 warps a window),
 //   numbered as the parts below that answer it: (1) every weight fragment
@@ -34,7 +38,8 @@
 //   bias and mask gathered from L2 per head; (5) too few blocks: 60 on 132
 //   SMs at Swin-B's stage 3, one block an SM from C = 512 on.
 //
-// Design (bf16).  A block is two consumer warpgroups and one producer warp
+// Design (bf16, window 7 and C <= 1024: Swin-T/S/B, L-22k's stages 0-2).
+//   A block is two consumer warpgroups and one producer warp
 //   (288 threads); its plan comes from ops/swin_attention.py: attn_plan,
 //   which mirrors SmemBf16 below.
 //   - The modes (5).  C <= 512, pair mode: a block takes two windows,
@@ -94,16 +99,49 @@
 //   The ring, its producer and prologue, the products and the attention
 //   live in swin_hopper.cuh, shared with K6 (window_attn_qkv.cu).
 //
+// Design (bf16, staged: window 12 at every width, and C = 1536 at window
+//   7), which the design above cannot take: at window 12 a window's LN
+//   tile [144, C + 8] is 57-444 KB at C = 192-1536, a head's fp32 bias
+//   [144, 144] 82,944 B, and a window is three wgmma M-tiles; at C = 1536
+//   and window 7 the sum is 236,736 B with the smallest ring.  attn_plan
+//   takes it where the sum above does not fit a block.  Four launches on
+//   the caller's stream, each stored map a rounding point of the contract:
+//   1. attn_ln_kernel: y = round(LN1(x)), zero in the padding (rolled
+//      coordinates), into a bf16 map [M, C], M = B Hp Wp, in map order;
+//   2. attn_gemm_kernel<BN, QKV>: qkv = round(y wqkv^T + bqkv) [M, 3C];
+//   3. attn_win_kernel<w>: a block a (window, head), its q, k, v rows
+//      gathered into shared memory, the attention core of the design above
+//      (swin_hopper.cuh: attend_head<w>, mma.sync in registers, query rows
+//      16 a warp, all keys; at window 12 nine warps, 72 score registers a
+//      thread), the bias and the
+//      mask read from device memory (L2) instead of staged, o into the map
+//      of step 1, whose y the product has read;
+//   4. attn_gemm_kernel<BN, FC2>: out = x + round(o wproj^T + bproj).
+//   The products are K5's TMA-fed wgmma product (swin_gemm.cuh), with its
+//   plan (ops/swin_attention.py: mlp_gemm_plans).  Every token's row is in
+//   one window, so the LN, the products and the residual are per token in
+//   map order; only step 3 needs the windows.  What it costs over the
+//   design above: y, qkv and o written and read, x read twice, 22 C bytes
+//   a token more (at Swin-L's stage 0, 696 MB, 208 us at 3.35 TB/s).
+//   Known limit: each (window, head) block reads its head's bias and, when
+//   shifted, its window's mask from L2 (82,944 B each at window 12), and
+//   attn_win_kernel is about half of the design's time at Swin-L's maps.
+//   ptxas (sm_90a): attn_win_kernel<12> 102 registers, 34,816 B static
+//   shared, <7> 63; attn_ln_kernel 40-106 registers (106 at C = 1536; 6
+//   bytes spilled at C = 384); attn_gemm_kernel 58-168, no spill; the fp32
+//   kernel 79-80.  Source: chip_smoke.py (the ptxas phase, the K4 rows).
+//
 // Design (fp32, for the checks): the same phases on the CUDA cores, one
 //   block per window; the LN'd tile and the head outputs live in a device
-//   scratch buffer [2, windows, 49, C] that the wrapper allocates (an fp32
+//   scratch buffer [2, windows, w^2, C] that the wrapper allocates (an fp32
 //   [49 x C] tile at C = 1024 takes 200 KB), q/k/v and the scores in shared
-//   memory (29,204 B).  Each dot product over C is one warp with coalesced
-//   loads and a shuffle sum.
+//   memory (29,204 B at window 7, 140,544 B at 12).  Each dot product over C
+//   is one warp with coalesced loads and a shuffle sum.
 
 #include <cooperative_groups.h>
 
 #include "swin_hopper.cuh"
+#include "swin_gemm.cuh"
 
 namespace {
 
@@ -127,30 +165,31 @@ struct Params {
   int kc, stages;     // bf16 path: the ring of the launch plan
 };
 
-// LN1 and the pad mask over the window's 49 tokens -> y [49, ld] in T;
-// one warp per token, lane owns channels lane + 32k
-template <typename T>
-__device__ void ln_window(const Params& p, const Window& w, T* y, int ld) {
+// LN1 and the pad mask over the W x W window's tokens -> y [W^2, ld] in
+// T; one warp per token, lane owns channels lane + 32k (C <= 32 MAXK)
+constexpr int MAXK = 48;
+template <typename T, int W>
+__device__ void ln_window(const Params& p, const WindowOf<W>& w, T* y, int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int C = p.C, nk = C / 32;
   const T* x = static_cast<const T*>(p.x);
-  for (int i = warp; i < N; i += WARPS) {
+  for (int i = warp; i < W * W; i += WARPS) {
     const T* src = x + w.offset(p.Hp, p.Wp, C, i);
-    float v[32], s = 0.f;
+    float v[MAXK], s = 0.f;
 #pragma unroll
-    for (int k = 0; k < 32; ++k)
+    for (int k = 0; k < MAXK; ++k)
       if (k < nk) { v[k] = to_f(src[lane + 32 * k]); s += v[k]; }
     const float mu = warp_sum(s) / C;
     float q = 0.f;
 #pragma unroll
-    for (int k = 0; k < 32; ++k)
+    for (int k = 0; k < MAXK; ++k)
       if (k < nk) { v[k] -= mu; q += v[k] * v[k]; }
     const float inv = 1.f / sqrtf(warp_sum(q) / C + p.eps);
-    const int row = w.wr * WIN + i / WIN, col = w.wc * WIN + i % WIN;
+    const int row = w.wr * W + i / W, col = w.wc * W + i % W;
     const float keep = ((row + p.shift) % p.Hp < p.hv && (col + p.shift) % p.Wp < p.wv)
                            ? 1.f : 0.f;
 #pragma unroll
-    for (int k = 0; k < 32; ++k)
+    for (int k = 0; k < MAXK; ++k)
       if (k < nk) {
         const int c = lane + 32 * k;
         y[i * ld + c] = from_f<T>((v[k] * inv * p.ln_g[c] + p.ln_b[c]) * keep);
@@ -426,32 +465,42 @@ cudaError_t run_bf16(const Params& p, int windows, int wpb, int cluster, int sme
 
 // ------------------------------------------------------------------ fp32
 
+// shared bytes of the fp32 kernel at window W: q, k, v [W^2 x FLD] and the
+// scores [W^2 x (W^2 + 1)], fp32
+constexpr int f32_smem(int w) { return 4 * (3 * w * w * FLD + w * w * (w * w + 1)); }
+
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 attn_f32_kernel(Params p) {
-  __shared__ float s_q[N * FLD], s_k[N * FLD], s_v[N * FLD], s_s[N * SLD];
+  constexpr int NN = W * W;
+  extern __shared__ __align__(16) float s_f32[];
+  float* s_q = s_f32;
+  float* s_k = s_q + NN * FLD;
+  float* s_v = s_k + NN * FLD;
+  float* s_s = s_v + NN * FLD;
   const int C = p.C;
-  const int nwin = p.B * (p.Hp / WIN) * (p.Wp / WIN);
-  const Window w(p.Hp, p.Wp);
+  const int nwin = p.B * (p.Hp / W) * (p.Wp / W);
+  const WindowOf<W> w(blockIdx.x, p.Hp, p.Wp);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* wqkv = static_cast<const float*>(p.wqkv);
   const float* wproj = static_cast<const float*>(p.wproj);
   float* scratch = static_cast<float*>(p.scratch);
-  float* xn = scratch + static_cast<size_t>(blockIdx.x) * N * C;
-  float* o = scratch + static_cast<size_t>(nwin + blockIdx.x) * N * C;
+  float* xn = scratch + static_cast<size_t>(blockIdx.x) * NN * C;
+  float* o = scratch + static_cast<size_t>(nwin + blockIdx.x) * NN * C;
 
-  ln_window<float>(p, w, xn, C);
+  ln_window<float, W>(p, w, xn, C);
   __syncthreads();  // also orders the block's device-memory writes
 
   for (int j = 0; j < p.heads; ++j) {
-    project_head_f32([&](int r) { return xn + r * C; }, wqkv, p.bqkv, C, j, s_q, s_k, s_v);
-    attend_head_f32(s_q, s_k, s_v, s_s, p.bias + static_cast<size_t>(j) * N * N,
-                    p.mask ? p.mask + static_cast<size_t>(w.wmap) * N * N : nullptr,
-                    [&](int r, int d, float v) { o[r * C + j * DH + d] = v; });
+    project_head_f32<W>([&](int r) { return xn + r * C; }, wqkv, p.bqkv, C, j, s_q, s_k, s_v);
+    attend_head_f32<W>(s_q, s_k, s_v, s_s, p.bias + static_cast<size_t>(j) * NN * NN,
+                       p.mask ? p.mask + static_cast<size_t>(w.wmap) * NN * NN : nullptr,
+                       [&](int r, int d, float v) { o[r * C + j * DH + d] = v; });
   }
 
   const float* x = static_cast<const float*>(p.x);
   float* out = static_cast<float*>(p.out);
-  for (int e = warp; e < N * C; e += WARPS) {
+  for (int e = warp; e < NN * C; e += WARPS) {
     const int r = e / C, c = e % C;
     const float* a = o + r * C;
     const float* wt = wproj + static_cast<size_t>(c) * C;
@@ -465,33 +514,142 @@ attn_f32_kernel(Params p) {
   }
 }
 
+template <int W>
+cudaError_t launch_f32(const Params& p, cudaStream_t st) {
+  constexpr int bytes = f32_smem(W);
+  cudaError_t err = cudaFuncSetAttribute(attn_f32_kernel<W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  attn_f32_kernel<W><<<p.B * (p.Hp / W) * (p.Wp / W), THREADS, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ bf16, staged
+
+// LN1 and the pad mask: y[m] = round(LN1(x[m])), or 0 where token m, rolled
+// back by the shift, lies in the window padding (swin::ln_rows_pass)
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+attn_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
+               const float* __restrict__ ln_b, bf16* __restrict__ y, int M, int Hp, int Wp,
+               int hv, int wv, int shift, float eps) {
+  ln_rows_pass<C>(x, ln_g, ln_b, y, M, eps, [=](int m) {
+    const int q = m % (Hp * Wp), row = q / Wp, col = q % Wp;
+    return (row + shift) % Hp < hv && (col + shift) % Wp < wv;
+  });
+}
+
+// the products (swin::gemm_tile): QKV for qkv = round(y wqkv^T + bqkv), FC2
+// for out = x + round(o wproj^T + bproj)
+template <int BN, int EPI>
+__global__ void __launch_bounds__(RING_THREADS, BN <= 128 ? 2 : 1)
+attn_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bias,
+                 const bf16* __restrict__ res, const bf16* __restrict__ gelu_tbl,
+                 bf16* __restrict__ out, int M, int N, int K, int stages) {
+  gemm_tile<BN, EPI>(&tm_a, &tm_w, bias, res, gelu_tbl, out, M, N, K, stages);
+}
+
+// The window attention: block (window, head) copies the head's q, k and v
+// rows of its W^2 tokens from the qkv map [M, 3C] into shared memory (rows
+// past W^2 zero), and warp i takes query rows 16i .. 16i + 15 against every
+// key (attend_head), the bias and the mask read from device memory (L2);
+// the head's o goes to the o map [M, C].
+template <int W>
+__global__ void __launch_bounds__(32 * ((W * W + 15) / 16))
+attn_win_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                const float* __restrict__ mask, bf16* __restrict__ o, int Hp, int Wp, int C) {
+  constexpr int NN = W * W, MT = (NN + 15) / 16, NP = 16 * MT;
+  __shared__ __align__(16) bf16 s_qkv[3][NP * LDQ];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, head = blockIdx.y;
+  const WindowOf<W> w(blockIdx.x, Hp, Wp);
+  for (int i = tid; i < NP * 12; i += 32 * MT) {
+    const int r = i / 12, part = i % 12 / 4, piece = i % 4;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < NN)
+      v = __ldg(reinterpret_cast<const uint4*>(qkv + w.offset(Hp, Wp, 3 * C, r) + part * C +
+                                               head * DH) + piece);
+    *reinterpret_cast<uint4*>(s_qkv[part] + r * LDQ + 8 * piece) = v;
+  }
+  __syncthreads();
+
+  uint32_t a[2][4];  // q's rows, the A fragments of the score product's two k-steps
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(a[ks], s_qkv[0] + (16 * warp + (lane & 15)) * LDQ + 8 * (lane >> 4) + 16 * ks);
+  attend_head<W, true>(a, RowKV{s_qkv[1], s_qkv[2]}, warp,
+                       bias + static_cast<size_t>(head) * NN * NN,
+                       mask ? mask + static_cast<size_t>(w.wmap) * NN * NN : nullptr,
+                       [&](const float (&acc)[4][4], int qa, int qb) {
+                         const int t = lane & 3;
+#pragma unroll
+                         for (int n = 0; n < 4; ++n) {
+                           const int c = head * DH + 8 * n + 2 * t;
+                           if (qa < NN) st2(o + w.offset(Hp, Wp, C, qa) + c, acc[n][0], acc[n][1]);
+                           if (qb < NN) st2(o + w.offset(Hp, Wp, C, qb) + c, acc[n][2], acc[n][3]);
+                         }
+                       });
+}
+
+template <int C>
+cudaError_t launch_ln(const void* x, const void* g, const void* b, void* y, int M, int Hp,
+                      int Wp, int hv, int wv, int shift, float eps, cudaStream_t st) {
+  attn_ln_kernel<C><<<(M + LN_ROWS - 1) / LN_ROWS, THREADS, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+      static_cast<bf16*>(y), M, Hp, Wp, hv, wv, shift, eps);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_gemm(const void* a, const void* w, const void* bias, const void* res,
+                        void* out, int M, int N, int K, int bn, int stages, int smem_bytes,
+                        cudaStream_t st) {
+  auto kernel = bn == 256 ? attn_gemm_kernel<256, EPI>
+                : bn == 128 ? attn_gemm_kernel<128, EPI> : attn_gemm_kernel<64, EPI>;
+  return launch_gemm_kernel(kernel, a, w, static_cast<const float*>(bias),
+                            static_cast<const bf16*>(res), nullptr, static_cast<bf16*>(out), M,
+                            N, K, bn, smem_bytes, stages, st);
+}
+
+template <int W>
+cudaError_t launch_win(const void* qkv, const void* bias, const void* mask, void* o, int B,
+                       int Hp, int Wp, int C, int heads, cudaStream_t st) {
+  const dim3 grid(B * (Hp / W) * (Wp / W), heads);
+  attn_win_kernel<W><<<grid, 32 * ((W * W + 15) / 16), 0, st>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<bf16*>(o), Hp, Wp, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32 (scratch: 2 * windows * 49 * C floats; the plan is not
-// read), 1 = bfloat16 (scratch: the o map, windows * 49 * C bf16) with the
-// launch plan of ops/swin_attention.py: attn_plan (wpb windows a block and
-// cluster blocks a window, which must be C's mode; ring chunk kc of 32 or
-// 64 channels; 3 to 5 ring slots; smem_bytes its shared memory, which must
-// equal SmemBf16's sum: cudaErrorInvalidValue otherwise).  Launches on
-// `stream`; returns the launch's error.
+// dtype: 0 = float32 at window 7 or 12 (scratch: 2 * windows * window^2 * C
+// floats, C <= 1536; the plan is not read), 1 = bfloat16 at window 7, C <=
+// 1024 (scratch: the o map, windows * 49 * C bf16) with the launch plan of
+// ops/swin_attention.py: attn_plan (wpb windows a block and cluster blocks
+// a window, which must be C's mode; ring chunk kc of 32 or 64 channels; 3
+// to 5 ring slots; smem_bytes its shared memory, which must equal
+// SmemBf16's sum: cudaErrorInvalidValue otherwise).  Launches on `stream`;
+// returns the launch's error.
 extern "C" int swin_block_attn_fwd(const void* x, const void* ln_g, const void* ln_b,
                                    const void* wqkv, const void* bqkv, const void* bias,
                                    const void* mask, const void* wproj, const void* bproj,
                                    void* out, void* scratch, int B, int Hp, int Wp, int C,
-                                   int heads, int hv, int wv, int shift, float eps, int dtype,
-                                   int wpb, int cluster, int kc, int stages, int smem_bytes,
-                                   void* stream) {
+                                   int heads, int hv, int wv, int shift, int window, float eps,
+                                   int dtype, int wpb, int cluster, int kc, int stages,
+                                   int smem_bytes, void* stream) {
   Params p{x, static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), wqkv,
            static_cast<const float*>(bqkv), static_cast<const float*>(bias),
            static_cast<const float*>(mask), wproj, static_cast<const float*>(bproj), out,
            scratch, B, Hp, Wp, C, heads, hv, wv, shift, eps, kc, stages};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int windows = B * (Hp / WIN) * (Wp / WIN);
   if (dtype == 1) {
+    if (window != WIN) return static_cast<int>(cudaErrorInvalidValue);
+    const int windows = B * (Hp / WIN) * (Wp / WIN);
     cudaError_t err;
     switch (C) {
       case 96: err = run_bf16<96>(p, windows, wpb, cluster, smem_bytes, st); break;
@@ -506,6 +664,52 @@ extern "C" int swin_block_attn_fwd(const void* x, const void* ln_g, const void* 
     }
     return static_cast<int>(err);
   }
-  attn_f32_kernel<<<windows, THREADS, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (C % DH || C > 32 * MAXK) return static_cast<int>(cudaErrorInvalidValue);
+  if (window == 12) return static_cast<int>(launch_f32<12>(p, st));
+  if (window == WIN) return static_cast<int>(launch_f32<WIN>(p, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The staged bf16 design, at window 7 or 12 and C = 32 heads, a multiple of
+// 64 up to 1536: y [M, C] (the LN map, then the o map) and qkv [M, 3C],
+// M = B Hp Wp, are bf16 scratch; (bn1, stages1, smem1) and (bn2, stages2,
+// smem2) are the plans of the qkv and out-projection products
+// (ops/swin_attention.py: attn_plan), checked against the layout
+// (cudaErrorInvalidValue otherwise).  Four launches on `stream`; returns
+// the first error.
+extern "C" int swin_block_attn_staged(const void* x, const void* ln_g, const void* ln_b,
+                                      const void* wqkv, const void* bqkv, const void* bias,
+                                      const void* mask, const void* wproj, const void* bproj,
+                                      void* out, void* y, void* qkv, int B, int Hp, int Wp,
+                                      int C, int heads, int hv, int wv, int shift, int window,
+                                      float eps, int bn1, int stages1, int smem1, int bn2,
+                                      int stages2, int smem2, void* stream) {
+  if (C != heads * DH || (window != WIN && window != 12) || Hp % window || Wp % window ||
+      !gemm_plan_ok<QKV>(3 * C, C, bn1, stages1, smem1) ||
+      !gemm_plan_ok<FC2>(C, C, bn2, stages2, smem2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * Hp * Wp;
+  cudaError_t err;
+  switch (C) {
+    case 64: err = launch_ln<64>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 128: err = launch_ln<128>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 192: err = launch_ln<192>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 256: err = launch_ln<256>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 384: err = launch_ln<384>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 512: err = launch_ln<512>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 768: err = launch_ln<768>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 1024: err = launch_ln<1024>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    case 1536: err = launch_ln<1536>(x, ln_g, ln_b, y, M, Hp, Wp, hv, wv, shift, eps, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_gemm<QKV>(y, wqkv, bqkv, nullptr, qkv, M, 3 * C, C, bn1, stages1, smem1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the o map overwrites the LN map, which the qkv product has read
+  err = window == 12 ? launch_win<12>(qkv, bias, mask, y, B, Hp, Wp, C, heads, st)
+                     : launch_win<WIN>(qkv, bias, mask, y, B, Hp, Wp, C, heads, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_gemm<FC2>(y, wproj, bproj, x, out, M, C, C, bn2, stages2, smem2, st));
 }

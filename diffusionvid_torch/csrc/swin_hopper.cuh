@@ -27,21 +27,25 @@ constexpr int NN_FLOATS = NN_BYTES / 4;
 // a warpgroup's k [64 x LDQ] and v^T [DH x LDV], bf16
 constexpr int KV_BYTES = 2 * (64 * LDQ + DH * LDV);
 
-// The window of index `idx` over B maps of Hp x Wp.
-struct WindowAt {
+// The W x W window of index `idx` over B maps of Hp x Wp: its map b, its
+// row and column of windows, its index wmap in its map (the mask's), and
+// token i's element offset in a [B, Hp, Wp, C] map.
+template <int W>
+struct WindowOf {
   int b, wr, wc, wmap;
-  __device__ WindowAt(int idx, int Hp, int Wp) {
-    const int nww = Wp / WIN, nwin_map = (Hp / WIN) * nww;
+  __device__ WindowOf(int idx, int Hp, int Wp) {
+    const int nww = Wp / W, nwin_map = (Hp / W) * nww;
     b = idx / nwin_map;
     wmap = idx % nwin_map;
     wr = wmap / nww;
     wc = wmap % nww;
   }
   __device__ __forceinline__ size_t offset(int Hp, int Wp, int C, int i) const {
-    const int row = wr * WIN + i / WIN, col = wc * WIN + i % WIN;
+    const int row = wr * W + i / W, col = wc * W + i % W;
     return ((static_cast<size_t>(b) * Hp + row) * Wp + col) * C;
   }
 };
+using WindowAt = WindowOf<WIN>;
 
 // Shared memory of the ring kernels (byte offsets) for wpb windows a block;
 // attn_plan in ops/swin_attention.py (K4) and qkv_plan in
@@ -348,45 +352,92 @@ struct SwizzledKV {
   }
 };
 
-// One head's attention on the 4 warps of a warpgroup, from q in registers
-// (the A fragments of the score product's two k-steps) and the k and v
-// tiles of `kv` (PaddedKV or SwizzledKV): warp l owns query rows 16l ..
-// 16l + 15 and all 64 keys (keys past 48 get -inf); the scores stay in
-// registers, softmax with quad shuffles, and the probabilities become the
-// A fragments of P.V directly.  bh and mk (or null) are the head's bias and
-// the window's mask, [49, 49] fp32.  out(acc, qa, qb) gets the fp32 sums of
-// the thread's rows qa and qb (qa + 8): acc[n][0..1] of row qa and
-// acc[n][2..3] of row qb at columns 8n + 2t, + 1 (t = lane & 3).
-template <class KV, class Out>
-__device__ __forceinline__ void attend_head(const uint32_t (&a)[2][4], const KV& kv,
+// K4's staged tiles (swin_block_attn.cu: attn_win_kernel): k and v
+// row-major [16 ceil(W^2 / 16) x LDQ] in shared memory, rows past W^2 zero.
+struct RowKV {
+  const bf16* k;
+  const bf16* v;
+  __device__ __forceinline__ void k_frag(uint32_t (&b)[4], int n, int lane) const {
+    ldsm_x4(b, k + (8 * n + (lane & 7)) * LDQ + 8 * (lane >> 3));
+  }
+  __device__ __forceinline__ void v_frag(uint32_t (&b)[4], int np, int kk, int lane) const {
+    ldsm_x4_t(b, v + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDQ +
+                     8 * (2 * np + (lane >> 4)));
+  }
+};
+
+// the score n-tiles of a window of W x W keys (m16n8 tiles, keys in steps
+// of 16)
+template <int W>
+constexpr int SCORE_TILES = 2 * ((W * W + 15) / 16);
+
+// s[n][e] += m[row][col] for the m16n8 accumulator layout (rows r0 and r1,
+// columns 8n + 2t + (e & 1)), m [W^2, W^2] fp32 in shared or device memory
+// (LDG: read through the read-only cache); columns past W^2 are left as
+// they are.  Where every column is a key (window 12) the loads carry no
+// per-element branch and go by pairs, so that they issue together.
+template <int W, bool LDG>
+__device__ __forceinline__ void add_rows(float (&s)[SCORE_TILES<W>][4], const float* m,
+                                         int r0, int r1, int t) {
+  constexpr int NN = W * W, NT = SCORE_TILES<W>;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* row = m + (h ? r1 : r0) * NN + 8 * n + 2 * t;
+      if constexpr (8 * NT == NN) {
+        const float2 v = LDG ? __ldg(reinterpret_cast<const float2*>(row))
+                             : *reinterpret_cast<const float2*>(row);
+        s[n][2 * h] += v.x;
+        s[n][2 * h + 1] += v.y;
+      } else {
+        const int col = 8 * n + 2 * t;
+        if (col < NN) s[n][2 * h] += LDG ? __ldg(row) : row[0];
+        if (col + 1 < NN) s[n][2 * h + 1] += LDG ? __ldg(row + 1) : row[1];
+      }
+    }
+}
+
+// One head's attention over a W x W window on the tensor cores (mma.sync
+// m16n8k16), from q in registers (the A fragments of the score product's
+// two k-steps) and the k and v tiles of `kv` (PaddedKV, SwizzledKV or
+// RowKV): warp lw owns query rows 16lw .. 16lw + 15 and every key (keys
+// past W^2 get -inf); the scores stay in registers, softmax with quad
+// shuffles, and the probabilities become the A fragments of P.V directly.
+// bh and mk (or null) are the head's bias and the window's mask, [W^2, W^2]
+// fp32 (add_rows).  out(acc, qa, qb) gets the fp32 sums of the thread's
+// rows qa and qb (qa + 8): acc[n][0..1] of row qa and acc[n][2..3] of row
+// qb at columns 8n + 2t, + 1 (t = lane & 3).
+template <int W = WIN, bool LDG = false, class KV, class Out>
+__device__ __forceinline__ void attend_head(const uint32_t (&a)[2][4], const KV& kv, int lw,
                                             const float* bh, const float* mk, Out out) {
-  const int lane = threadIdx.x & 31, lw = (threadIdx.x >> 5) & 3;
+  constexpr int NN = W * W, NT = SCORE_TILES<W>;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int qa = 16 * lw + g, qb = qa + 8;
-  const int r0 = min(qa, N - 1), r1 = min(qb, N - 1);
-  float s[8][4] = {};
+  const int r0 = min(qa, NN - 1), r1 = min(qb, NN - 1);
+  float s[NT][4] = {};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < NT; ++n) {
     uint32_t b[4];
     kv.k_frag(b, n, lane);
     mma16816(s[n], a[0], b[0], b[1]);
     mma16816(s[n], a[1], b[2], b[3]);
   }
+  // s = round(q k^T * scale) + bias (+ mask), in that order
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = round_bf16(s[n][e] * SCALE);
+  add_rows<W, LDG>(s, bh, r0, r1, t);
+  if (mk) add_rows<W, LDG>(s, mk, r0, r1, t);
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = 8 * n + 2 * t + (e & 1), r = e < 2 ? r0 : r1;
-      float v = round_bf16(s[n][e] * SCALE);
-      if (col < N) {
-        v += bh[r * N + col];
-        if (mk) v += mk[r * N + col];
-      } else {
-        v = -INFINITY;
-      }
-      s[n][e] = v;
-      if (e < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
+      if (8 * NT > NN && 8 * n + 2 * t + (e & 1) >= NN) s[n][e] = -INFINITY;
+      if (e < 2) mx0 = fmaxf(mx0, s[n][e]); else mx1 = fmaxf(mx1, s[n][e]);
     }
 #pragma unroll
   for (int sh = 1; sh < 4; sh <<= 1) {
@@ -395,7 +446,7 @@ __device__ __forceinline__ void attend_head(const uint32_t (&a)[2][4], const KV&
   }
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float v = expf(s[n][e] - (e < 2 ? mx0 : mx1));
@@ -419,7 +470,7 @@ __device__ __forceinline__ void attend_head(const uint32_t (&a)[2][4], const KV&
   // keys 16kk .. 16kk + 15
   float acc[4][4] = {};
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t pa[4];
     pa[0] = pack2(div(s[2 * kk][0], sum0, i0), div(s[2 * kk][1], sum0, i0));
     pa[1] = pack2(div(s[2 * kk][2], sum1, i1), div(s[2 * kk][3], sum1, i1));
@@ -444,7 +495,7 @@ __device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const 
                                                const bf16* s_vt,
                                                const float* bh, const float* mk, Row row,
                                                bool store) {
-  attend_head(a, PaddedKV{s_k, s_vt}, bh, mk,
+  attend_head(a, PaddedKV{s_k, s_vt}, (threadIdx.x >> 5) & 3, bh, mk,
               [&](const float (&acc)[4][4], int qa, int qb) {
                 if (!store) return;
                 const int t = threadIdx.x & 3;

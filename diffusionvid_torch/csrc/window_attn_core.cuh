@@ -1,7 +1,8 @@
 // The Swin window-attention core shared by K4 (swin_block_attn.cu) and by
 // K6 and K7 (window_attn_qkv.cu): the fp32 qkv projection of one head of
-// one 7x7 window (the fp32 paths of K4 and K6), then its fp32 attention (the
-// fp32 paths of all three; their bf16 paths attend in swin_hopper.cuh),
+// one window, 7x7 (the fp32 paths of K4 and K6) or 12x12 (K4's), then its
+// fp32 attention (the fp32 paths of all three; their bf16 paths attend in
+// swin_hopper.cuh, K4's staged design in swin_block_attn.cu),
 //   s = round(q k^T * 32^-0.5) + bias[head] (+ mask[window])   fp32
 //   p = softmax(s) in fp32 (max, exp, divide), rounded
 //   o = p v                                                  fp32 sum
@@ -89,14 +90,15 @@ struct Window {
   }
 };
 
-// fp32 on the CUDA cores: q | k | v of head j into s_q, s_k, s_v [49 x
-// FLD]; row(r) points at token r's C channels.  Each dot product over C is
-// one warp, coalesced, with a shuffle sum.  Ends in a barrier.
-template <class Row>
+// fp32 on the CUDA cores: q | k | v of head j of a W x W window into s_q,
+// s_k, s_v [W^2 x FLD]; row(r) points at token r's C channels.  Each dot
+// product over C is one warp, coalesced, with a shuffle sum.  Ends in a
+// barrier.
+template <int W = WIN, class Row>
 __device__ void project_head_f32(Row row, const float* wqkv, const float* bqkv, int C, int j,
                                  float* s_q, float* s_k, float* s_v) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int e = warp; e < N * 3 * DH; e += WARPS) {
+  for (int e = warp; e < W * W * 3 * DH; e += WARPS) {
     const int r = e / (3 * DH), cc = e % (3 * DH), part = cc / DH, d = cc % DH;
     const int wr_row = part * C + j * DH + d;
     const float* a = row(r);
@@ -112,39 +114,45 @@ __device__ void project_head_f32(Row row, const float* wqkv, const float* bqkv, 
   __syncthreads();
 }
 
-// fp32 on the CUDA cores, one head, from q/k/v [49 x FLD] in shared memory,
-// the scores in s_s [49 x SLD]; store(row, col, o) gets each output
-// element.  Every thread of the block calls it; it ends in a barrier.
-template <class Store>
+// fp32 on the CUDA cores, one head of a W x W window (NN = W^2 tokens),
+// from q/k/v [NN x FLD] in shared memory, the scores in s_s [NN x (NN +
+// 1)]; store(row, col, o) gets each output element.  A warp takes a row's
+// softmax, lane l its columns l, l + 32, ...  Every thread of the block
+// calls it; it ends in a barrier.
+template <int W = WIN, class Store>
 __device__ void attend_head_f32(const float* s_q, const float* s_k, const float* s_v,
                                 float* s_s, const float* bh, const float* mk, Store store) {
+  constexpr int NN = W * W, LDS = NN + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
-  for (int e = tid; e < N * N; e += THREADS) {
-    const int r = e / N, c = e % N;
+  for (int e = tid; e < NN * NN; e += THREADS) {
+    const int r = e / NN, c = e % NN;
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < DH; ++d) acc = fmaf(s_q[r * FLD + d], s_k[c * FLD + d], acc);
     float v = __fmul_rn(acc, SCALE) + bh[e];
     if (mk) v += mk[e];
-    s_s[r * SLD + c] = v;
+    s_s[r * LDS + c] = v;
   }
   __syncthreads();
-  for (int r = warp; r < N; r += WARPS) {
-    float* row = s_s + r * SLD;
-    const float v0 = row[lane], v1 = lane + 32 < N ? row[lane + 32] : -INFINITY;
-    float mx = fmaxf(v0, v1);
+  for (int r = warp; r < NN; r += WARPS) {
+    float* row = s_s + r * LDS;
+    float mx = -INFINITY, sum = 0.f;
+    for (int c = lane; c < NN; c += 32) mx = fmaxf(mx, row[c]);
 #pragma unroll
     for (int o2 = 16; o2 > 0; o2 >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
-    const float e0 = expf(v0 - mx), e1 = lane + 32 < N ? expf(v1 - mx) : 0.f;
-    const float sum = warp_sum(e0 + e1);
-    row[lane] = e0 / sum;
-    if (lane + 32 < N) row[lane + 32] = e1 / sum;
+    for (int c = lane; c < NN; c += 32) {
+      const float e = expf(row[c] - mx);
+      row[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int c = lane; c < NN; c += 32) row[c] /= sum;
   }
   __syncthreads();
-  for (int e = tid; e < N * DH; e += THREADS) {
+  for (int e = tid; e < NN * DH; e += THREADS) {
     const int r = e / DH, d = e % DH;
     float acc = 0.f;
-    for (int c = 0; c < N; ++c) acc = fmaf(s_s[r * SLD + c], s_v[c * FLD + d], acc);
+    for (int c = 0; c < NN; ++c) acc = fmaf(s_s[r * LDS + c], s_v[c * FLD + d], acc);
     store(r, d, acc);
   }
   __syncthreads();

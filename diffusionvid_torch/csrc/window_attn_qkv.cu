@@ -399,7 +399,7 @@ attn_bf16_kernel(WinParams p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) ldsm_x4(qa[ks], s_q + swz64(r, 2 * ks + (lane >> 4)));
     }
-    attend_head(qa, SwizzledKV{s_q + TILE7_ELEMS, s_q + 2 * TILE7_ELEMS},
+    attend_head(qa, SwizzledKV{s_q + TILE7_ELEMS, s_q + 2 * TILE7_ELEMS}, lw,
                 s_bias + (i % group) * NN_FLOATS,
                 p.mask ? p.mask + static_cast<size_t>(w.wmap) * N * N : nullptr,
                 [&](const float (&acc)[4][4], int ra, int rb) {

@@ -29,10 +29,12 @@ from . import _build
 
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-WINDOW = 7          # the window every Swin size of the kernels uses
+WINDOW = 7          # the window of K4's fused design and of K6 and K7
+ATTN_WINDOWS = (7, 12)   # K4's windows: every Swin size's
 HEAD_DIM = 32       # channels per head, shared by Swin-T/S/B/L
-MAX_ATTN_C = 1024   # K4 keeps a window's [49, C] bf16 tile in shared memory
-MLP_C = (96, 128, 192, 256, 384, 512, 768, 1024)   # K5 is compiled per width
+MAX_ATTN_C = 1024   # K4's fused design, K6, K7: a window's [49, C] bf16 tile in shared memory
+MAX_C = 1536        # K4 and K5: Swin-L's stage 3
+MLP_C = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)   # K5 is compiled per width
 
 
 def _ln_f32(x, g, b, eps):
@@ -81,23 +83,38 @@ def _attend(q, k, v, bias, mask):
     return torch.matmul(p.float(), v.float()).to(dt).permute(0, 2, 1, 3).reshape(nb, n, h * dh)
 
 
-def swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
-                        window: int, num_heads: int, valid_hw, shift: int = 0,
-                        eps: float = _EPS):
-    """The plain version of K4 (``swin_attention_pallas.py: _kernel_block_attn``)."""
-    b, hp, wp, c = x.shape
-    dt, w, h = x.dtype, window, num_heads
+def swin_attn_ln_ref(x, ln_g, ln_b, valid_hw, shift: int = 0, eps: float = _EPS):
+    """K4's first rounding point, ``y = round(LN1(x) * keep)``, zero over the
+    window padding in the coordinates of the rolled map: the plain version
+    of the staged design's LN pass."""
+    _, hp, wp, _ = x.shape
     y = _ln_f32(x, ln_g, ln_b, eps)
     hv, wv = valid_hw
     if (hp, wp) != (hv, wv):
-        # zero the window padding, in the coordinates of the rolled map
         rows = (torch.arange(hp, device=x.device) + shift) % hp < hv
         cols = (torch.arange(wp, device=x.device) + shift) % wp < wv
         y = y * (rows[:, None] & cols[None, :]).float()[:, :, None]
-    xw = _partition(y.to(dt), w)
-    q, k, v = _mm(xw, wqkv, bqkv).view(-1, w * w, 3, h, c // h).permute(2, 0, 3, 1, 4)
-    o = _attend(q, k, v, bias, mask)
-    return x + _reverse(_mm(o, wproj, bproj), w, b, hp, wp)
+    return y.to(x.dtype)
+
+
+def swin_attn_core_ref(qkv, bias, mask, window: int, num_heads: int):
+    """The window attention over the qkv map ``[B, Hp, Wp, 3C]`` (q | k | v,
+    heads of 32) → o ``[B, Hp, Wp, C]`` in map order: the plain version of
+    the staged design's attention launch."""
+    b, hp, wp, c3 = qkv.shape
+    w, h = window, num_heads
+    q, k, v = _partition(qkv, w).view(-1, w * w, 3, h, c3 // (3 * h)).permute(2, 0, 3, 1, 4)
+    return _reverse(_attend(q, k, v, bias, mask), w, b, hp, wp)
+
+
+def swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
+                        window: int, num_heads: int, valid_hw, shift: int = 0,
+                        eps: float = _EPS):
+    """The plain version of K4 (``swin_attention_pallas.py: _kernel_block_attn``):
+    its rounding points in turn, the products row by row in map order."""
+    y = swin_attn_ln_ref(x, ln_g, ln_b, valid_hw, shift, eps)
+    o = swin_attn_core_ref(_mm(y, wqkv, bqkv), bias, mask, window, num_heads)
+    return x + _mm(o, wproj, bproj)
 
 
 def swin_mlp_ln_ref(x, ln_g, ln_b, eps: float = _EPS):
@@ -143,21 +160,25 @@ def _f32_a16(t):
 # block in an SM also holds 1 KB for the system.
 SMEM_BLOCK_LIMIT = 232_448
 SMEM_SM = 233_472
+H100_SMS = 132
 
 
-def _attn_smem(c: int, wpb: int, kc: int, stages: int) -> int:
-    """K4's shared bytes (``SmemBf16`` in the source): the weight ring of
-    ``stages`` slots of 96 rows (192 in split mode) of ``kc`` channels;
-    ``wpb`` LN tiles [49, C] in bf16, each row padded by 8 elements; per
-    warpgroup k [64, 40] and v^T [32, 72] in bf16; a mask per window and
-    two attention biases (fp32 [49, 49], 9,616 bytes each); 256 bytes of
-    barriers."""
-    n, spl = WINDOW * WINDOW, 3 - wpb
+def _attn_smem(c: int, wpb: int, kc: int, stages: int, window: int = WINDOW) -> int:
+    """K4's fused shared bytes (``SmemBf16`` in the source, at window 7):
+    the weight ring of ``stages`` slots of 96 rows (192 in split mode) of
+    ``kc`` channels; ``wpb`` LN tiles [w², C] in bf16, each row padded by 8
+    elements; per warpgroup k [R, 40] and v^T [32, R + 8] in bf16, R the
+    window's rows in wgmma tiles of 64; a mask per window and two attention
+    biases (fp32 [w², w²], padded to 16 bytes: 9,616 at window 7); 256
+    bytes of barriers."""
+    n, spl = window * window, 3 - wpb
+    rows = -(-n // 64) * 64
+    nn = -(-4 * n * n // 16) * 16
     return (stages * 2 * 96 * spl * kc + 2 * n * (c + 8) * wpb
-            + 2 * 2 * (64 * 40 + 32 * 72) + (wpb + 2) * 9616 + 256)
+            + 2 * 2 * (rows * 40 + 32 * (rows + 8)) + (wpb + 2) * nn + 256)
 
 
-def ring_plan(c: int, wpb: int, per_sm_max: int = 2):
+def ring_plan(c: int, wpb: int, per_sm_max: int = 2, window: int = WINDOW):
     """The weight ring of a ring kernel (K4, K6) at C channels with ``wpb``
     windows a block: ``kc`` (32 or 64 channels) a chunk and ``stages`` (3
     to 5) slots, the most bytes in flight (stages - 1 slots) at which
@@ -165,7 +186,7 @@ def ring_plan(c: int, wpb: int, per_sm_max: int = 2):
     chunk on a tie.  Returns (kc, stages, shared bytes, blocks an SM), or
     None where not even one block fits."""
     options = [(kc, st) for kc in (64, 32) for st in range(5, 2, -1) if c % kc == 0]
-    size = {o: _attn_smem(c, wpb, *o) for o in options}
+    size = {o: _attn_smem(c, wpb, *o, window=window) for o in options}
     for per_sm in range(per_sm_max, 0, -1):
         fit = [o for o in options
                if size[o] <= SMEM_BLOCK_LIMIT and per_sm * (size[o] + 1024) <= SMEM_SM]
@@ -175,20 +196,55 @@ def ring_plan(c: int, wpb: int, per_sm_max: int = 2):
     return None
 
 
-def attn_plan(c: int, b: int, hp: int, wp: int) -> dict:
-    """K4's launch for C channels over ``b`` maps of hp x wp.  The mode is
-    C's: up to C = 512 a block takes two windows (``wpb`` 2), one to each
-    warpgroup, so that each weight tile it streams serves both; from C =
-    768 on, whose two LN tiles would not fit, a ``cluster`` of two blocks
-    takes one window, each block half of the heads and of the
-    out-projection's columns, so that Swin-B's stage 3 (60 windows) runs
-    120 blocks.  Then the ring (``ring_plan``) and ``smem_bytes``."""
+@functools.lru_cache(maxsize=None)
+def attn_path(c: int, window: int = WINDOW) -> str:
+    """K4's design for C channels at ``window``: ``"fused"`` where its
+    shared-memory sum (``_attn_smem``) fits a block with the smallest ring
+    (window 7 up to C = 1024), else ``"staged"`` (window 12 at every width;
+    C = 1536 at window 7, whose sum is 236,736 bytes).  By fit, not by
+    cost: at Swin-B's C = 256 to 1024 the staged design times faster
+    (PERF.md, section 6)."""
+    return "fused" if ring_plan(c, 2 if c <= 512 else 1, window=window) else "staged"
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan(c: int, b: int, hp: int, wp: int, window: int = WINDOW,
+              sms: int = H100_SMS) -> dict:
+    """K4's launch for C channels over ``b`` maps of hp x wp at ``window``.
+
+    ``path`` "fused" (``attn_path``): the mode is C's: up to C = 512 a
+    block takes two windows (``wpb`` 2), one to each warpgroup, so that each
+    weight tile it streams serves both; from C = 768 on, whose two LN tiles
+    would not fit, a ``cluster`` of two blocks takes one window, each block
+    half of the heads and of the out-projection's columns, so that Swin-B's
+    stage 3 (60 windows) runs 120 blocks.  Then the ring (``ring_plan``)
+    and ``smem_bytes``.  ``path`` "staged": ``staged_plan``.  Cached (the
+    wrapper asks at every launch): do not modify the dict."""
+    if attn_path(c, window) == "staged":
+        return staged_plan(c, b, hp, wp, window, sms)
+    windows = b * (hp // window) * (wp // window)
     wpb = 2 if c <= 512 else 1
     cluster = 3 - wpb
-    kc, stages, smem, per_sm = ring_plan(c, wpb)
-    windows = b * (hp // WINDOW) * (wp // WINDOW)
-    return dict(wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=smem,
+    kc, stages, smem, per_sm = ring_plan(c, wpb, window=window)
+    return dict(path="fused", wpb=wpb, cluster=cluster, kc=kc, stages=stages, smem_bytes=smem,
                 blocks=-(-windows // wpb) * cluster, blocks_per_sm=per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def staged_plan(c: int, b: int, hp: int, wp: int, window: int = WINDOW,
+                sms: int = H100_SMS) -> dict:
+    """K4's staged design over ``b`` maps of hp x wp at ``window``: the
+    plans of the ``qkv`` ([M, 3C] by C) and ``proj`` ([M, C] by C) products
+    on ``sms`` SMs, each the one of least cost of ``mlp_gemm_plans`` (on a
+    tie the one of fewer tiles), M = b hp wp; the attention launch's
+    ``attn_blocks``, one a (window, head).  Cached: do not modify the dict."""
+    m = b * hp * wp
+
+    def pick(n):
+        return min(mlp_gemm_plans(m, n, c, False, sms), key=lambda p: (p["cost"], p["tiles"]))
+
+    return dict(path="staged", window=window, qkv=pick(3 * c), proj=pick(c),
+                attn_blocks=b * (hp // window) * (wp // window) * (c // HEAD_DIM))
 
 
 # K5's launch plan (csrc/swin_block_mlp.cu, bf16).  Up to C = 384 the fused
@@ -206,7 +262,6 @@ MLP_GELU_TABLE = 11_776      # fc1's GELU table (5,888 bf16 entries), bytes
 # part of each other's fixed cost.
 MLP_CHUNK = {(256, 1): 1.0, (128, 1): 0.63, (128, 2): 1.1, (64, 1): 0.47, (64, 2): 0.92}
 MLP_FIXED, MLP_EPILOGUE = 4.5, 9.0
-H100_SMS = 132
 
 
 def _mlp_fused_smem(c: int) -> tuple[int, int]:
@@ -307,63 +362,99 @@ def swin_block_attn(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj,
 
     x ``[B, Hp, Wp, C]`` residual stream, pre-rolled by ``shift`` when
     ``shift > 0``; ln_g/ln_b ``[C]``; wqkv ``[3C, C]``, bqkv ``[3C]``; bias
-    ``[h, 49, 49]`` fp32; mask ``[Hp/7, Wp/7, 49, 49]`` fp32 or None; wproj
-    ``[C, C]``, bproj ``[C]``; valid_hw the true (H, W) before the window
-    padding.  CPU tensors: the plain version.  CUDA tensors: kernel K4."""
+    ``[h, w², w²]`` fp32; mask ``[Hp/w, Wp/w, w², w²]`` fp32 or None; wproj
+    ``[C, C]``, bproj ``[C]``; ``window`` w 7 or 12; valid_hw the true (H, W)
+    before the window padding.  CPU tensors: the plain version.  CUDA
+    tensors: kernel K4, in the design of ``attn_plan``."""
     if x.device.type == "cpu":
         return swin_block_attn_ref(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj,
                                    bproj, window, num_heads, valid_hw, shift, eps)
     _check_x(x, "Swin attention")
     b, hp, wp, c = x.shape
-    n = WINDOW * WINDOW
-    if window != WINDOW or hp % WINDOW or wp % WINDOW:
-        raise ValueError(f"the Swin attention kernel takes window {WINDOW} over a map "
-                         f"padded to its multiples, got window {window}, map {hp}x{wp}")
-    if num_heads * HEAD_DIM != c or c > MAX_ATTN_C:
+    if window not in ATTN_WINDOWS or hp % window or wp % window:
+        raise ValueError(f"the Swin attention kernel takes a window in {ATTN_WINDOWS} over a "
+                         f"map padded to its multiples, got window {window}, map {hp}x{wp}")
+    if num_heads * HEAD_DIM != c or c > MAX_C:
         raise ValueError(f"the Swin attention kernel takes {HEAD_DIM} channels per head "
-                         f"and C <= {MAX_ATTN_C}, got C={c}, {num_heads} heads")
+                         f"and C <= {MAX_C}, got C={c}, {num_heads} heads")
+    staged = attn_path(c, window) == "staged"
+    if staged and c % 64:
+        raise ValueError(f"the Swin attention kernel's staged design (window {window}, C={c}) "
+                         "takes C a multiple of 64, its products' k-chunk")
     hv, wv = valid_hw
-    if not (0 < hv <= hp and 0 < wv <= wp and 0 <= shift < WINDOW):
+    if not (0 < hv <= hp and 0 < wv <= wp and 0 <= shift < window):
         raise ValueError(f"valid_hw {tuple(valid_hw)} / shift {shift} do not fit map {hp}x{wp}")
-    dev = x.device
+    dev, n = x.device, window * window
     for t, shape, name in ((ln_g, (c,), "ln_g"), (ln_b, (c,), "ln_b"),
                            (wqkv, (3 * c, c), "wqkv"), (bqkv, (3 * c,), "bqkv"),
                            (wproj, (c, c), "wproj"), (bproj, (c,), "bproj"),
                            (bias, (num_heads, n, n), "bias")):
         _check_shape(t, shape, name, dev)
     if mask is not None:
-        _check_shape(mask, (hp // WINDOW, wp // WINDOW, n, n), "mask", dev)
+        _check_shape(mask, (hp // window, wp // window, n, n), "mask", dev)
     _check_no_grad((x, ln_g, ln_b, wqkv, bqkv, bias, wproj, bproj), "Swin attention")
     out = torch.empty_like(x)
-    # the attention output of each window in device memory (see the
-    # source); the fp32 instantiation keeps the LN'd window there too
-    windows = b * (hp // WINDOW) * (wp // WINDOW)
-    scratch = torch.empty((2 if x.dtype == torch.float32 else 1, windows, n, c),
-                          dtype=x.dtype, device=dev)
     wqkv, wproj = wqkv.to(x.dtype).contiguous(), wproj.to(x.dtype).contiguous()
     if any(t.data_ptr() % 16 for t in (x, wqkv, wproj)):
         raise ValueError("x, wqkv and wproj must be 16-byte aligned (the kernel reads "
                          "them by TMA and 16-byte copies)")
-    args = [x, _f32(ln_g), _f32(ln_b), wqkv, _f32(bqkv), _f32(bias),
-            None if mask is None else _f32(mask), wproj, _f32(bproj), out, scratch]
     if x.numel() == 0:
         return out
-    plan = attn_plan(c, b, hp, wp)
     lib = _build.load("swin_block_attn")
-    fn = lib.swin_block_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
-        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(*[None if t is None else t.data_ptr() for t in args],
-             b, hp, wp, c, num_heads, hv, wv, shift, float(eps), _DTYPE_CODE[x.dtype],
-             plan["wpb"], plan["cluster"], plan["kc"], plan["stages"], plan["smem_bytes"],
-             _build.stream_ptr(dev))
-    _build.check(lib, err, "swin_block_attn_fwd")
+    if staged and x.dtype == torch.bfloat16:
+        launch_attn_staged(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj, out, window,
+                           num_heads, valid_hw, shift, eps)
+    else:
+        # the attention output of each window in device memory (see the
+        # source); the fp32 instantiation keeps the LN'd window there too
+        plan = attn_plan(c, b, hp, wp, window) if x.dtype == torch.bfloat16 else {}
+        windows = b * (hp // window) * (wp // window)
+        scratch = torch.empty((2 if x.dtype == torch.float32 else 1, windows, n, c),
+                              dtype=x.dtype, device=dev)
+        args = [x, _f32(ln_g), _f32(ln_b), wqkv, _f32(bqkv), _f32(bias),
+                None if mask is None else _f32(mask), wproj, _f32(bproj), out, scratch]
+        fn = lib.swin_block_attn_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+            ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        err = fn(*[None if t is None else t.data_ptr() for t in args],
+                 b, hp, wp, c, num_heads, hv, wv, shift, window, float(eps),
+                 _DTYPE_CODE[x.dtype],
+                 *[plan.get(k, 0) for k in ("wpb", "cluster", "kc", "stages", "smem_bytes")],
+                 _build.stream_ptr(dev))
+        _build.check(lib, err, "swin_block_attn_fwd")
     swin_block_attn.launches += 1
     return out
 
 
 swin_block_attn.launches = 0
+
+
+def launch_attn_staged(x, ln_g, ln_b, wqkv, bqkv, bias, mask, wproj, bproj, out, window: int,
+                       num_heads: int, valid_hw, shift: int = 0, eps: float = _EPS):
+    """Launch K4's staged design on checked bf16 CUDA inputs
+    (``swin_block_attn``; wqkv, wproj already in x's dtype) into ``out``
+    with ``staged_plan`` for this device's SMs, whatever ``attn_path``
+    takes at its shape; counts no launch.  Returns its scratch maps: o
+    ``[B, Hp, Wp, C]`` (the LN pass's map, which the attention overwrites)
+    and qkv ``[B, Hp, Wp, 3C]``."""
+    b, hp, wp, c = x.shape
+    plan = staged_plan(c, b, hp, wp, window, _sm_count(x.device.index))
+    o = torch.empty_like(x)
+    qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
+    args = [x, _f32_a16(ln_g), _f32_a16(ln_b), wqkv, _f32(bqkv), _f32_a16(bias),
+            None if mask is None else _f32_a16(mask), wproj, _f32(bproj), out, o, qkv]
+    lib = _build.load("swin_block_attn")
+    fn = lib.swin_block_attn_staged
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
+        ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args],
+             b, hp, wp, c, num_heads, *valid_hw, shift, window, float(eps),
+             *[plan[p][k] for p in ("qkv", "proj") for k in ("bn", "stages", "smem_bytes")],
+             _build.stream_ptr(x.device))
+    _build.check(lib, err, "swin_block_attn_staged")
+    return o, qkv
 
 
 def swin_block_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = _EPS):

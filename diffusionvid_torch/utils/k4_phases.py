@@ -94,7 +94,7 @@ def main() -> int:
     lib = build()
     fn = lib.swin_block_attn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     dev = torch.device("cuda")
     for s, st in enumerate(cs.SWIN_B_STAGES):
@@ -116,7 +116,7 @@ def main() -> int:
                     for t in (x, *attn[:5], mask, *attn[5:], out, scratch)]
 
             def launch():
-                err = fn(*ptrs, frames, hp, wp, c, heads, *st["hw"], shift, 1e-5, 1,
+                err = fn(*ptrs, frames, hp, wp, c, heads, *st["hw"], shift, 7, 1e-5, 1,
                          plan["wpb"], plan["cluster"], plan["kc"], plan["stages"],
                          plan["smem_bytes"], torch.cuda.current_stream().cuda_stream)
                 if err:

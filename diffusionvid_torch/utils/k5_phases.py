@@ -6,8 +6,9 @@ Run on a machine with the card, from the repository root:
 
     python -m diffusionvid_torch.utils.k5_phases
 
-It copies ``csrc/swin_block_mlp.cu`` with ``clock64`` timers added at fixed
-points of ``mlp_gemm_kernel`` (each anchor must occur once, or it stops),
+It copies ``csrc/swin_block_mlp.cu``, with ``csrc/swin_gemm.cuh`` written
+in place of its include, and adds ``clock64`` timers at fixed points of the
+product's body ``gemm_tile`` (each anchor must occur once, or it stops),
 builds the copy into ``build/diffusionvid_torch/k5_phases/``, and launches
 its wgmma path on random inputs, one product at the candidate plan and the
 other at ``mlp_plan``'s.  Per stage and candidate it prints one JSON line:
@@ -54,6 +55,10 @@ NAMES = ("wait", "main", "epi")
 
 def instrumented_source() -> str:
     src = (_build.CSRC / "swin_block_mlp.cu").read_text()
+    include = '#include "swin_gemm.cuh"\n'
+    if src.count(include) != 1:
+        raise RuntimeError(f"k5_phases: {include!r} not found once in the source")
+    src = src.replace(include, (_build.CSRC / "swin_gemm.cuh").read_text())
     for old, new in _ANCHORS:
         if src.count(old) != 1:
             raise RuntimeError(f"k5_phases: anchor not found once in the source: {old!r}")

@@ -40,13 +40,15 @@ SWIN_T = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "sw
 
 def jax_model_and_params(depth=18, num_classes=5, num_heads=1,
                          num_heads_local=1, res_stage=1, seed=0, swin=False,
-                         global_enable=True):
+                         global_enable=True, swin_size="T"):
     """A small fp32 JAX DiffusionDetArch initialised with ``jax.jit``: a
-    ResNet of ``depth``, or with ``swin`` a Swin-T trunk."""
+    ResNet of ``depth``, or with ``swin`` a Swin trunk of ``swin_size``
+    (Swin-T by default)."""
     model = JaxArch(depth=depth, num_classes=num_classes, num_proposals=PROPS,
                     num_heads=num_heads, num_heads_local=num_heads_local,
                     res_stage=res_stage, compute_dtype=jnp.float32,
-                    global_enable=global_enable, **(SWIN_T if swin else {}))
+                    global_enable=global_enable,
+                    **(dict(SWIN_T, swin_size=swin_size) if swin else {}))
     noisy = jnp.tile(jnp.asarray([8.0, 8.0, 60.0, 40.0]), (2, PROPS, 1))
     init = jax.jit(lambda r: model.init(
         {"params": r, "cfg": jax.random.PRNGKey(1)}, jnp.zeros((2, H, W, 3)),
