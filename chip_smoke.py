@@ -44,7 +44,11 @@ Phases, one JSON line each:
               at window 7), bf16 and fp32, where K4 takes its staged design
               (its qkv and o maps held against their plain versions too);
               their ``swin_l`` holds the means over one Swin-L-22k-384
-              pass, and K4's staged rows its card time ``kernel_ms``.  K6 and K7 also
+              pass, and K4's staged rows its card time ``kernel_ms``.  K6 (5
+              frames) and K7 (4) run at those maps too, with shift 0 and 6,
+              where they take their staged design (K6's qkv map held against
+              its plain version too), with their ``swin_l`` means; K6's fp32
+              gradients are also checked at window 12 (stage 3).  K6 and K7 also
               time ``F.scaled_dot_product_attention`` over the partitioned
               windows as ``library_ms``; K6 also ``library_full_ms`` (one
               ``F.linear`` for q, k, v plus that call, with the relayouts:
@@ -71,8 +75,9 @@ Phases, one JSON line each:
               in mode v3 through the x4 DDIM ensemble the same way, at a
               renewal threshold that renews some slots and keeps others:
               the renewal masks equal, no best score within 1e-4 of it; then
-              a window-12 Swin (``TINY_W12``, C 128 to 1024) in mode v3 at
-              x1 the same way (K4's staged design, K5);
+              a window-12 Swin (``TINY_W12``, C 128 to 1024) in each mode at
+              x1 the same way (v3: K4's staged design, K5; v2: K6's, v1:
+              K7's staged design);
   5. flagship ``configs/vid_R_101_DiffusionVID.yaml`` at full width with
               random weights from ``--seed``, bfloat16: ``start_video`` on
               24 global frames then 3 chunks of 8 frames at 608x1024; checks
@@ -95,12 +100,16 @@ Phases, one JSON line each:
               launches of K4/K5), and ``flagship_swin_l_cli``, the port's
               test CLI with that override on one rendered video of 16
               frames at 600x1000 (192 launches of K4/K5)
-              (``phase_flagship_swin_l``);
+              (``phase_flagship_swin_l``); then ``flagship_swin_l_v2`` and
+              ``flagship_swin_l_v1``, the same config in modes v2 and v1, 2
+              chunks of 4 (192 launches of K6 / K7, none of K4/K5), with
+              K6's / K7's card time in the profiled chunk;
   7. tiny_train one train micro-step of a depth-18 model on 64x96 frames
               (1 + 2 frames, 50 proposals), on the card through K1, K2 and K3
               and on the CPU through the plain versions, same weights, batch
               and draws, float32, TF32 off: losses and every gradient; then
-              ``tiny_train_swin``, the same with a Swin-T trunk (K6);
+              ``tiny_train_swin`` and ``tiny_train_swin_w12``, the same with
+              a Swin-T and a window-12 trunk (``TINY_W12``; K6);
   8. flagship_train the R-101 train step (``engine/train.py``) at full width
               with random weights and random GT from ``--seed``: 5 frames at
               608x1024, bf16, ACCUMULATION_STEPS 2; 2 warm-up optimizer steps,
@@ -110,7 +119,11 @@ Phases, one JSON line each:
               device time by kernel and host time by operator, and the
               time the criterion takes in a micro-step; then
               ``flagship_train_swin``, the Swin-B train step the same way
-              with 3 timed steps and 24 launches of K6 per micro-step;
+              with 3 timed steps and 24 launches of K6 per micro-step, and
+              ``flagship_train_swin_l``, the Swin-B config with
+              ``MODEL.SWIN.SIZE L-22k-384`` (K6's staged design), one
+              warm-up and 2 timed steps; both with K6's backward time in a
+              micro-step;
   9. k3_train K3 on the inputs of the R-101 train step's last micro-step
               (4 launches): checked in bf16 and fp32 as in phase 3, timed,
               with its bound, its ROIs and longest tile list per level and
@@ -198,7 +211,11 @@ Phases, one JSON line each:
               launches (4 a micro-step, plus validation's K1/K2, required),
               the buckets, the checkpoints, ``metrics.jsonl`` purged at the
               resume, and the resumed run against the uninterrupted one
-              (``phase_flagship_train_cli``).
+              (``phase_flagship_train_cli``); then
+              ``flagship_train_swin_l_cli``, the train CLI on the Swin-B
+              config with ``MODEL.SWIN.SIZE L-22k-384`` over the same files,
+              2 iterations: 24 launches of K6 and 4 each of K1/K2/K3 an
+              iteration, finite losses, its checkpoint.
   12. flagship_local_attn the local temporal attention (ATTENTION.ENABLE,
               STAGE 2) on the R-101 config at full width: streaming, 24
               global frames then 2 chunks of 8 (17 launches of K1 and of
@@ -247,7 +264,11 @@ K5's with ``x4_launches`` on the x4 streams, K4's and K5's with
 ``local_attn_train_launches`` (phase 12), ``ddp_rank_launches`` (a
 rank's first optimizer step, phase 13) and ``mega_train_launches`` (DAFA's
 full-width train micro-step, phase 10d); K7's with its card time, host
-time, card time in a v1 chunk and registers), the card's name and
+time, card time in a v1 chunk and registers; K6's and K7's with the
+``swin_l_*`` means over one Swin-L-22k-384 pass and ``swin_l_launches``,
+K6's in the Swin-L train step (also ``swin_l_v2_launches``,
+``swin_l_cli_launches``, ``swin_l_bwd_ms``), K7's in its v1 stream), the
+card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  Needs the repository beside it.
 """
@@ -393,10 +414,13 @@ def device_ms(fn, kernels, iters: int = 20, launches_per_call: int | None = None
 
 # K3's kernels: the prepass and the per-level kernel
 K3_KERNELS = ("roi_prepass_kernel", "roi_align_bwd_kernel")
-# K6's bf16 kernel
+# K6's bf16 kernel, and its staged design's product and window attention
 K6_KERNELS = ("attn_qkv_bf16_kernel",)
-# K7's bf16 kernel (the same name in the first design)
+K6_STAGED_KERNELS = ("qkv_gemm_kernel", "qkv_win_kernel")
+# K7's bf16 kernel (the same name in the first design), and its staged
+# design's window attention
 K7_KERNELS = ("attn_bf16_kernel",)
+K7_STAGED_KERNELS = ("win_attn_kernel",)
 # K5's bf16 kernels: the fused kernel, or the LN pass and the two products
 K5_KERNELS = ("mlp_bf16_kernel", "mlp_ln_kernel", "mlp_gemm_kernel")
 # K4's bf16 kernels: the fused design's (the name K7's bf16 kernel has too),
@@ -1196,14 +1220,15 @@ def _swin_check(name, gen, dev, dtype, timing: bool):
 
 def _sdpa_mask(bias, mask, nw: int, heads: int, dtype):
     """The relative-position bias and the SW-MSA mask as one ``attn_mask``
-    [1, nW·h, 49, 49] for windows laid out [B, nW·h, 49, dh]."""
+    [1, nW·h, w², w²] for windows laid out [B, nW·h, w², dh]."""
+    n = bias.shape[-1]
     am = bias.float()[None].expand(nw, -1, -1, -1)
     if mask is not None:
-        am = am + mask.reshape(nw, 1, 49, 49)
-    return am.reshape(1, nw * heads, 49, 49).to(dtype)
+        am = am + mask.reshape(nw, 1, n, n)
+    return am.reshape(1, nw * heads, n, n).to(dtype)
 
 
-def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
+def _sdpa_ms(q, k, v, bias, mask, heads: int, window: int) -> float:
     """``F.scaled_dot_product_attention`` over the partitioned windows of
     the maps q, k, v, the relative-position bias and the SW-MSA mask as its
     ``attn_mask``: the attention core without the relayouts and without the
@@ -1211,11 +1236,11 @@ def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
     import torch.nn.functional as F
     from diffusionvid_torch.ops.swin_attention import _partition
     b, hp, wp, c = q.shape
-    nw = (hp // 7) * (wp // 7)
+    nw, n = (hp // window) * (wp // window), window * window
 
     def part(t):
-        return (_partition(t, 7).view(b, nw, 49, heads, c // heads).permute(0, 1, 3, 2, 4)
-                .reshape(b, nw * heads, 49, c // heads).contiguous())
+        return (_partition(t, window).view(b, nw, n, heads, c // heads).permute(0, 1, 3, 2, 4)
+                .reshape(b, nw * heads, n, c // heads).contiguous())
 
     qp, kp, vp = part(q), part(k), part(v)
     am = _sdpa_mask(bias, mask, nw, heads, q.dtype)
@@ -1223,7 +1248,7 @@ def _sdpa_ms(q, k, v, bias, mask, heads: int) -> float:
                         iters=10)
 
 
-def k6_library(x, wqkv, bqkv, bias, mask, heads: int):
+def k6_library(x, wqkv, bqkv, bias, mask, heads: int, window: int):
     """K6's whole function by library calls, for ``library_full_ms``: one
     ``F.linear(x, wqkv, bqkv)`` over the map, q, k, v partitioned into
     windows and heads, ``F.scaled_dot_product_attention`` with bias and mask
@@ -1233,55 +1258,81 @@ def k6_library(x, wqkv, bqkv, bias, mask, heads: int):
     import torch.nn.functional as F
     from diffusionvid_torch.ops.swin_attention import _partition, _reverse
     b, hp, wp, c = x.shape
-    nw, dh = (hp // 7) * (wp // 7), c // heads
+    nw, dh, n = (hp // window) * (wp // window), c // heads, window * window
     bq = bqkv.to(x.dtype)
     am = _sdpa_mask(bias, mask, nw, heads, x.dtype)
 
     def run():
-        qkv = _partition(F.linear(x, wqkv, bq), 7).view(b, nw, 49, 3, heads, dh)
-        q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).reshape(3, b, nw * heads, 49, dh)
+        qkv = _partition(F.linear(x, wqkv, bq), window).view(b, nw, n, 3, heads, dh)
+        q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).reshape(3, b, nw * heads, n, dh)
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
-        o = o.view(b, nw, heads, 49, dh).transpose(2, 3).reshape(b * nw, 49, c)
-        return _reverse(o, 7, b, hp, wp)
+        o = o.view(b, nw, heads, n, dh).transpose(2, 3).reshape(b * nw, n, c)
+        return _reverse(o, window, b, hp, wp)
     return run
 
 
-def _k6_grads(x, wqkv, bqkv, bias, mask, heads: int) -> float:
+def _k6_grads(x, wqkv, bqkv, bias, mask, heads: int, window: int) -> float:
     """``WindowAttentionQKVFn``'s gradients for x, wqkv, bqkv and bias on
     the card against ``torch.autograd.grad`` of the twin; the worst relative
     error in norm."""
     from diffusionvid_torch.ops import window_attention as wa
     ins = [t.detach().clone().requires_grad_() for t in (x, wqkv, bqkv, bias)]
-    out = wa.WindowAttentionQKVFn.apply(*ins, mask, 7, heads)
+    out = wa.WindowAttentionQKVFn.apply(*ins, mask, window, heads)
     g = torch.randn_like(out)
     got = torch.autograd.grad(out, ins, g)
     ref = [t.detach().clone().requires_grad_() for t in ins]
-    want = torch.autograd.grad(wa.window_attention_qkv_einsum(*ref, mask, 7, heads), ref, g)
+    want = torch.autograd.grad(wa.window_attention_qkv_einsum(*ref, mask, window, heads), ref, g)
     return max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
                for a, b in zip(got, want))
 
 
-def _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads: int) -> float:
-    """The backward of one ``WindowAttentionQKVFn`` launch: the twin's
-    recompute and its gradients."""
+def _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads: int, window: int) -> tuple[float, float]:
+    """The backward of one ``WindowAttentionQKVFn`` launch, the twin's
+    recompute and its gradients: its ms, and the GiB it allocates at its
+    peak above what the inputs, the output and its cotangent hold."""
     from diffusionvid_torch.ops import window_attention as wa
     ins = [t.detach().clone().requires_grad_() for t in (x, wqkv, bqkv, bias)]
-    out = wa.WindowAttentionQKVFn.apply(*ins, mask, 7, heads)
+    out = wa.WindowAttentionQKVFn.apply(*ins, mask, window, heads)
     g = torch.randn_like(out)
-    return cuda_time_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
-                        iters=3, warmup=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
+                      iters=3, warmup=1)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def k6_staged_check(x, wqkv, bqkv, bias, mask, heads: int, window: int, tol, what: str) -> dict:
+    """K6's staged design's launches on their own: its qkv map against the
+    plain qkv product, and its output against the plain window attention
+    over the kernel's own qkv map, so that a fault shows in the launch where
+    it happens."""
+    from diffusionvid_torch.ops.swin_attention import _mm, swin_attn_core_ref
+    from diffusionvid_torch.ops.window_attention import launch_qkv_staged
+    out = torch.empty_like(x)
+    qkv = launch_qkv_staged(x, wqkv, bqkv, bias, mask, out, window, heads)
+    torch.cuda.synchronize()
+    return _maps_agree((("qkv", qkv, _mm(x, wqkv, bqkv)),
+                        ("o", out, swin_attn_core_ref(qkv, bias, mask, window, heads))),
+                       tol, what)
 
 
 def _window_check(name, gen, dev, dtype, timing: bool):
     """K6 (``window_attn_qkv``, on 5-frame maps, the train step's) or K7
     (``window_attn``, 4-frame maps, the v1 stream's) at the four Swin-B stage
-    maps, then at Swin-T's, with shift 0 and 3, against the plain version,
-    launched twice (bit-equal), with the bf16 launch plan.  With ``timing``,
-    per Swin-B stage also the card time ``kernel_ms``, the plain version's
-    time, the bound, ``library_ms`` (``_sdpa_ms``) and, for K6, ``bwd_ms``
+    maps, at Swin-T's, at the four Swin-L-22k-384 stage maps (window 12)
+    and at L-22k's stage 3 (C = 1536, window 7), with shift 0 and half the
+    window, against the plain version, launched twice (bit-equal), with the
+    bf16 launch plan (at Swin-L's maps the staged design; K6's qkv and
+    output maps also checked on their own, ``k6_staged_check``).  With
+    ``timing``, per Swin-B and Swin-L stage also the card time
+    ``kernel_ms``, the plain version's time, the bound, ``library_ms``
+    (``_sdpa_ms``) and, for K6, ``library_full_ms`` and ``bwd_ms``
     (``_k6_backward_ms``), for K7 ``host_ms``, and their means over one
-    backbone pass.  K6 in fp32 also checks its autograd gradients at stage
-    1, shift 3; K7 in bf16 runs ``k7_every_plan``."""
+    Swin-B backbone pass and, under ``swin_l``, one Swin-L-22k-384 pass.
+    K6 in fp32 also checks its autograd gradients at Swin-B's stage 1,
+    shift 3, and at Swin-L-22k-384's stage 3, shift 6 (window 12, C =
+    1536); K7 in bf16 runs ``k7_every_plan``."""
     from diffusionvid_torch.models.swin import shift_attn_mask
     from diffusionvid_torch.ops import window_attention as wa
     qkv = name == "window_attn_qkv"
@@ -1290,46 +1341,63 @@ def _window_check(name, gen, dev, dtype, timing: bool):
     elt = torch.tensor([], dtype=dtype).element_size()
     rows, worst, extra = [], 0.0, {}
     frames_b = TRAIN["frames"] if qkv else SWIN_FRAMES
-    stages = [(st, frames_b) for st in SWIN_B_STAGES] + [(st, 2) for st in SWIN_T_STAGES]
-    for s, (st, frames) in enumerate(stages):
-        timed = timing and s < len(SWIN_B_STAGES)
+    stages = ([(st, frames_b, "B") for st in SWIN_B_STAGES]
+              + [(st, 2, "T") for st in SWIN_T_STAGES]
+              + [(st, frames_b, "L-22k-384") for st in SWIN_L_STAGES]
+              + [(SWIN_L7_STAGE3, frames_b, "L-22k")])
+    grad_at = {("B", 1), ("L-22k-384", 3)}   # (size, stage): K6's fp32 gradient checks
+    for s, (st, frames, size) in enumerate(stages):
+        timed = timing and size != "T"
         x, attn, _, (hp, wp) = _swin_inputs(gen, dev, dtype, st, frames)
-        c, heads = st["c"], st["heads"]
+        c, heads, win = st["c"], st["heads"], st.get("window", 7)
+        n = win * win
+        stage = s % 4 if size != "L-22k" else 3
+        path = wa.window_path(c, win)
         wqkv, bqkv, bias = attn[2], attn[3], attn[4]
         m = x.numel() // c
         if qkv:
             q, k, v = (torch.nn.functional.linear(x, wqkv[i * c:(i + 1) * c]) for i in range(3))
         else:
             q, k, v = x, *(torch.randn(x.shape, generator=gen).to(dev, dtype) for _ in range(2))
-        for shift in (0, 3):
+        for shift in (0, win // 2):
             mask = None
             if shift:
-                mask = torch.from_numpy(shift_attn_mask(hp, wp, 7, shift)).to(dev).reshape(
-                    hp // 7, wp // 7, 49, 49)
+                mask = torch.from_numpy(shift_attn_mask(hp, wp, win, shift)).to(dev).reshape(
+                    hp // win, wp // win, n, n)
             if qkv:
-                args = (x, wqkv, bqkv, bias, mask, 7, heads)
+                args = (x, wqkv, bqkv, bias, mask, win, heads)
                 fn, ref = wa.window_attention_qkv, wa.window_attention_qkv_ref
-                flops = 6 * m * c * c + 4 * m * 49 * c
-                nbytes = (2 * x.numel() + 3 * c * c) * elt + (3 * c + heads * 2401) * 4
+                flops = 6 * m * c * c + 4 * m * n * c
+                nbytes = (2 * x.numel() + 3 * c * c) * elt + (3 * c + heads * n * n) * 4
             else:
-                args = (q, k, v, bias, mask, 7)
+                args = (q, k, v, bias, mask, win)
                 fn, ref = wa.window_attention, wa.window_attention_ref
-                flops = 4 * m * 49 * c
-                nbytes = 4 * x.numel() * elt + heads * 2401 * 4
+                flops = 4 * m * n * c
+                nbytes = 4 * x.numel() * elt + heads * n * n * 4
             nbytes += 0 if mask is None else mask.numel() * 4
             got = fn(*args)
             want = ref(*args)
             torch.cuda.synchronize()
-            what = f"{name} {dtype} stage {s} shift {shift}"
+            what = f"{name} {dtype} stage {stage} ({size}) shift {shift}"
             res = compare(got, want, *tol, what)
             res["mean_abs_err"] = float((got.float() - want.float()).abs().mean())
             require(res["mean_abs_err"] < MEAN_ERR[dtype],
                     f"{what}: mean abs err {res['mean_abs_err']} over {MEAN_ERR[dtype]}")
-            res.update(stage=s, shape=list(x.shape), shift=shift)
+            res.update(stage=stage, size=size, window=win, path=path, shape=list(x.shape),
+                       shift=shift)
             require(torch.equal(fn(*args), got), f"{what}: two launches differ")
             res["deterministic"] = True
             if dtype == torch.bfloat16:
-                res["plan"] = (wa.qkv_plan if qkv else wa.window_plan)(c, frames, hp, wp, sms)
+                if path == "staged":   # K6: the qkv product's plan; K7: one attention launch
+                    plan = wa.staged_plan(c, frames, hp, wp, win, sms)
+                    res["plan"] = dict(path=path, attn_blocks=plan["attn_blocks"],
+                                       **({"qkv": plan["qkv"]} if qkv else {}))
+                    if qkv:
+                        res["hidden"] = k6_staged_check(x, wqkv, bqkv, bias, mask, heads, win,
+                                                        tol, what)
+                else:
+                    res["plan"] = (wa.qkv_plan if qkv else wa.window_plan)(c, frames, hp, wp,
+                                                                          sms)
             worst = max(worst, res["max_abs_err"])
             del got, want
             if timed:
@@ -1339,20 +1407,24 @@ def _window_check(name, gen, dev, dtype, timing: bool):
                 res["gflop"] = flops / 1e9
                 res["ms"] = cuda_time_ms(lambda: fn(*args), iters=10)
                 res["plain_ms"] = cuda_time_ms(lambda: ref(*args), iters=3, warmup=1)
-                res["library_ms"] = _sdpa_ms(q, k, v, bias, mask, heads)
-                res["kernel_ms"] = device_ms(lambda: fn(*args),
-                                             K6_KERNELS if qkv else K7_KERNELS, 10, 1)
+                res["library_ms"] = _sdpa_ms(q, k, v, bias, mask, heads, win)
+                kernels = (K6_KERNELS if qkv else K7_KERNELS) if path == "fused" else (
+                    K6_STAGED_KERNELS if qkv else K7_STAGED_KERNELS)
+                res["kernel_ms"] = device_ms(lambda: fn(*args), kernels, 10, len(kernels))
                 if qkv:
                     res["library_full_ms"] = cuda_time_ms(
-                        k6_library(x, wqkv, bqkv, bias, mask, heads), iters=10)
-                    res["bwd_ms"] = _k6_backward_ms(x, wqkv, bqkv, bias, mask, heads)
+                        k6_library(x, wqkv, bqkv, bias, mask, heads, win), iters=10)
+                    res["bwd_ms"], res["bwd_peak_gib"] = _k6_backward_ms(
+                        x, wqkv, bqkv, bias, mask, heads, win)
                 else:
                     res["host_ms"] = host_ms(lambda: fn(*args))
-            if qkv and dtype == torch.float32 and s == 1 and shift:
-                extra["grad_max_rel_err"] = _k6_grads(x, wqkv, bqkv, bias, mask, heads)
-                extra["grad_stage"] = s
-                require(extra["grad_max_rel_err"] < 1e-4,
-                        f"K6 backward: rel err {extra['grad_max_rel_err']} over 1e-4")
+            if qkv and dtype == torch.float32 and (size, stage) in grad_at and shift:
+                err = _k6_grads(x, wqkv, bqkv, bias, mask, heads, win)
+                key = "grad_max_rel_err" + ("_w12" if win == 12 else "")
+                extra[key] = err
+                extra["grad_stages"] = extra.get("grad_stages", []) + [f"{size} {stage}"]
+                require(err < 1e-4, f"K6 backward ({size} stage {stage}): rel err {err} "
+                        "over 1e-4")
             rows.append(res)
             torch.cuda.empty_cache()
         del x, attn, q, k, v
@@ -1364,9 +1436,16 @@ def _window_check(name, gen, dev, dtype, timing: bool):
     if timing:
         keys = ("ms", "plain_ms", "bound_ms", "bound_ms_bytes", "library_ms", "kernel_ms") + (
             ("library_full_ms", "bwd_ms") if qkv else ("host_ms",))
-        out.update(_pass_means([r for r in rows if "blocks" in r], keys))
-        out["bound_by"] = ("bytes" if out["bound_ms_bytes"] >= out["bound_ms"]
-                           else "operations")
+        def means(size):
+            res = _pass_means([r for r in rows if r["size"] == size], keys)
+            res["bound_by"] = "bytes" if res["bound_ms_bytes"] >= res["bound_ms"] else "operations"
+            return res
+
+        out.update(means("B"))
+        out["swin_l"] = means("L-22k-384")
+        if qkv:   # the backward's largest allocation at a Swin-L stage (stage 0's scores)
+            out["swin_l"]["bwd_peak_gib"] = max(r["bwd_peak_gib"] for r in rows
+                                                if r["size"] == "L-22k-384" and "blocks" in r)
     return out
 
 
@@ -1830,11 +1909,14 @@ def phase_flagship(seed: int, config: str, n_chunks: int, phase: str,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "kept_per_frame": float(outs[-1].valid.sum(-1).float().mean()),
            "card": torch.cuda.get_device_name(0)}
-    # v1: K7's card time in the profiled chunk (its 24 launches of one pass)
+    # v1 / v2: K7's / K6's card time in the profiled chunk (its 24 launches
+    # of one pass)
+    window_kernels = {"v1": ("k7", K7_KERNELS + K7_STAGED_KERNELS),
+                      "v2": ("k6", K6_KERNELS + K6_STAGED_KERNELS)}.get(swin_kernel)
     res.update(profile_chunk(det, state, chunks[0], whwh, phase,
-                             K7_KERNELS if swin_kernel == "v1" else ()))
-    if swin_kernel == "v1":
-        res["k7_chunk_kernel_ms"] = res.pop("kernels_ms")
+                             window_kernels[1] if window_kernels else ()))
+    if window_kernels:
+        res[f"{window_kernels[0]}_chunk_kernel_ms"] = res.pop("kernels_ms")
     emit(phase, **res)
     del det, model, state, outs
     torch.cuda.empty_cache()
@@ -1910,7 +1992,8 @@ CHUNK_KERNELS = {"roi_align_fwd": ("roi_footprint_kernel", "roi_align_fwd_kernel
                  "dynamic_conv": ("dynamic_conv_kernel", "dynconv_ring_kernel")}
 SWIN_CHUNK_KERNELS = {"v3": {"swin_block_attn": ("attn_bf16_kernel",) + K4_STAGED_KERNELS,
                              "swin_block_mlp": K5_KERNELS},
-                      "v2": {"window_attn_qkv": K6_KERNELS}, "v1": {"window_attn": K7_KERNELS}}
+                      "v2": {"window_attn_qkv": K6_KERNELS + K6_STAGED_KERNELS},
+                      "v1": {"window_attn": K7_KERNELS + K7_STAGED_KERNELS}}
 
 
 @contextlib.contextmanager
@@ -3279,13 +3362,14 @@ def conditioned_method_model(model, gen, run):
 SWIN_T_ARCH = dict(backbone_type="swin", swin_size="T", fpn_in=("swin1", "swin2", "swin3"))
 
 
-def phase_tiny_train(seed: int, kind: str = "resnet"):
-    """One train micro-step of a depth-18 (``kind`` "resnet") or Swin-T
-    ("swin") model, 50 proposals, 1 + 2 frames at 64x96, float32, TF32 off:
-    on the card (K1, K2, K3, and K6 for the Swin trunk) against the CPU
-    (plain versions), same weights, batch and draws.  Losses to 1e-4 and
-    every gradient to 1e-3 relative in norm, the tolerances the CPU tests
-    hold against JAX."""
+def phase_tiny_train(seed: int, kind: str = "resnet", swin_size: str = "T"):
+    """One train micro-step of a depth-18 (``kind`` "resnet") or Swin model
+    ("swin", of size ``swin_size``: Swin-T, or ``w12-tiny``, window 12),
+    50 proposals, 1 + 2 frames at 64x96, float32, TF32 off: on the card
+    (K1, K2, K3, and K6 for the Swin trunk) against the CPU (plain
+    versions), same weights, batch and draws.  Losses to 1e-4 and every
+    gradient to 1e-3 relative in norm, the tolerances the CPU tests hold
+    against JAX."""
     import copy
 
     from diffusionvid_torch.engine.train import TrainBatch, draw_train_randoms, make_loss_fn
@@ -3297,7 +3381,8 @@ def phase_tiny_train(seed: int, kind: str = "resnet"):
     batch = train_batch(gen, 1, frames, 6, h, w, 5, "cpu")
     cpu = conditioned_train_model(gen, batch.images[0], depth=18, num_classes=5,
                                   num_proposals=props, num_heads=1, num_heads_local=1,
-                                  **(SWIN_T_ARCH if kind == "swin" else {}))
+                                  **(dict(SWIN_T_ARCH, swin_size=swin_size) if kind == "swin"
+                                     else {}))
     card = copy.deepcopy(cpu).cuda()
     draws = draw_train_randoms(gen, 1, frames, props)
 
@@ -3315,7 +3400,8 @@ def phase_tiny_train(seed: int, kind: str = "resnet"):
     torch.cuda.synchronize()
     used = read_launches()
     want = train_launches(card, 1)
-    phase = "tiny_train" if kind == "resnet" else f"tiny_train_{kind}"
+    phase = "tiny_train" if kind == "resnet" else f"tiny_train_{kind}" + (
+        "_w12" if swin_size == "w12-tiny" else "")
     require(used == {k: want.get(k, 0) for k in used},
             f"{phase}: launches {used}, expected {want}")
     p_losses, p_grads = step(cpu, "cpu")
@@ -3356,6 +3442,29 @@ def criterion_ms(micro) -> float:
     finally:
         train.set_criterion = inner
     return sum(spent) * 1e3
+
+
+def k6_backward_ms(micro) -> tuple[float, int]:
+    """Wall ms that K6's backward (``WindowAttentionQKVFn.backward``: the
+    twin's recompute and its gradients) takes in one micro-step, each call
+    between two synchronizes, and its calls."""
+    from diffusionvid_torch.ops.window_attention import WindowAttentionQKVFn
+    inner, spent = WindowAttentionQKVFn.backward, []
+
+    def timed(ctx, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = inner(ctx, g)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return grads
+
+    WindowAttentionQKVFn.backward = staticmethod(timed)
+    try:
+        micro()
+    finally:
+        WindowAttentionQKVFn.backward = staticmethod(inner)
+    return sum(spent) * 1e3, len(spent)
 
 
 def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
@@ -3441,6 +3550,10 @@ def phase_flagship_train(seed: int, config: str, phase: str, timed_steps: int,
         for k, into in (keep or {}).items():
             stack.enter_context(CAPTURES[k](into))
         res["criterion_ms_per_micro_step"] = criterion_ms(micro)
+    if model.backbone_type == "swin":
+        res["k6_backward_ms_per_micro_step"], calls = k6_backward_ms(micro)
+        require(calls == want["window_attn_qkv"] // micro_steps,
+                f"{phase}: {calls} K6 backward calls in a micro-step")
     emit(phase, **res)
     del model, opt, step, state, start, batches
     torch.cuda.empty_cache()
@@ -3772,6 +3885,67 @@ def phase_flagship_train_cli(seed: int) -> dict:
     torch.cuda.empty_cache()
     emit("flagship_train_cli", **res)
     return launches[0]
+
+
+SWIN_L_TRAIN_CLI_ITERS = 2
+
+
+def phase_flagship_train_swin_l_cli(seed: int) -> dict:
+    """The port's train CLI (``tools/train_net.main``, on the card) on
+    ``configs/vid_Swin_B_DiffusionVID.yaml`` with ``MODEL.SWIN.SIZE
+    L-22k-384`` (window 12, C up to 1536: K6's staged design under grad),
+    random weights, ``SWIN_L_TRAIN_CLI_ITERS`` iterations over phase 11's
+    rendered files (``write_train_dataset``), no validation: finite losses,
+    its last checkpoint, and the launches of that many micro-steps (24 of
+    K6, 4 each of K1, K2 and K3 a micro-step)."""
+    import shutil
+
+    from diffusionvid_torch.data.vid_dataset import VIDDataset
+    from diffusionvid_torch.tools import train_net
+
+    work = ROOT / "build" / "chip_smoke" / "train_cli"
+    data, out_dir = work / "data", work / "swin_l"
+    if not data.exists():
+        write_train_dataset(data, seed)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    iters = SWIN_L_TRAIN_CLI_ITERS
+    opts = ["SOLVER.MAX_ITER", str(iters), "SOLVER.CHECKPOINT_PERIOD", str(iters),
+            "SOLVER.TEST_PERIOD", "0", "MODEL.WEIGHT", "''", *SWIN_L_OPTS]
+    load_image, VIDDataset.load_image = VIDDataset.load_image, rendered_vid().load_image
+    probe = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        with train_cli_probes(probe):
+            t0 = time.perf_counter()
+            run = train_net.main(
+                ["--config-file", str(ROOT / "configs" / "vid_Swin_B_DiffusionVID.yaml"),
+                 "--data-dir", str(data), "--seed", str(seed), *opts, "OUTPUT_DIR", str(out_dir)])
+            run_s = time.perf_counter() - t0
+    finally:
+        VIDDataset.load_image = load_image
+    launches = read_launches()
+    model = probe.pop("model")
+    want = train_launches(model, iters)
+    require(launches == {k: want.get(k, 0) for k in launches},
+            f"flagship_train_swin_l_cli: launches {launches}, expected {want}")
+    require(all(np.isfinite(v) for v in run["metrics"].values()),
+            f"flagship_train_swin_l_cli: non-finite loss {run['metrics']}")
+    require(run["checkpoint"] == str(out_dir / f"model_{iters:07d}.pth"),
+            f"flagship_train_swin_l_cli: last checkpoint {run['checkpoint']}")
+    res = {"config": "configs/vid_Swin_B_DiffusionVID.yaml", "opts": list(SWIN_L_OPTS),
+           "dtype": str(model.compute_dtype).split(".")[1], "iterations": iters,
+           "window": model.backbone.bottom_up.window, "launches": launches,
+           "expected_launches": want, "run_s": run_s, "micro_step_ms": probe["step_ms"],
+           "sample_ms": [smp[0] for smp in probe["samples"]],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": run["metrics"], "card": torch.cuda.get_device_name(0)}
+    shutil.rmtree(out_dir)   # the weights and optimizer state of Swin-L
+    del model
+    torch.cuda.empty_cache()
+    emit("flagship_train_swin_l_cli", **res)
+    return launches
 
 
 # ---------------------------------------------------------------- the MEGA family's training
@@ -5064,7 +5238,8 @@ def main(argv=None) -> int:
     phase_tiny(args.seed, "resnet", sample_step=4)
     phase_tiny(args.seed, "swin", "v3", sample_step=4)
     register_tiny_w12()
-    phase_tiny(args.seed, "swin", "v3", swin_size="w12-tiny")
+    for mode in SWIN_MODE_KERNELS:
+        phase_tiny(args.seed, "swin", mode, swin_size="w12-tiny")
     k1_inputs = []
     launches = phase_flagship(args.seed, "vid_R_101_DiffusionVID.yaml", 3, "flagship",
                               keep_k1=k1_inputs)["launches"]
@@ -5082,6 +5257,9 @@ def main(argv=None) -> int:
     x4_launches = {k: x4[k] for k in ("roi_align_fwd", "dynamic_conv")}
     x4_launches.update({k: swin_x4[k] for k in ("swin_block_attn", "swin_block_mlp")})
     swin_l = phase_flagship_swin_l(args.seed)["launches"]
+    swin_l_modes = {mode: phase_flagship(args.seed, "vid_Swin_B_DiffusionVID.yaml", 2,
+                                         f"flagship_swin_l_{mode}", mode, opts=SWIN_L_OPTS)
+                    for mode in ("v2", "v1")}
     eval_counts = phase_flagship_eval(args.seed)["launches"]
     phase_mega_family_tiny(args.seed)
     dafa_counts = phase_mega_family(args.seed)["launches"]
@@ -5095,6 +5273,7 @@ def main(argv=None) -> int:
     phase_mega_family_train_cli(args.seed)
     phase_tiny_train(args.seed)
     phase_tiny_train(args.seed, "swin")
+    phase_tiny_train(args.seed, "swin", "w12-tiny")
     k3_inputs = []
     launches["roi_align_bwd"] = phase_flagship_train(
         args.seed, "vid_R_101_DiffusionVID.yaml", "flagship_train", 5,
@@ -5104,7 +5283,11 @@ def main(argv=None) -> int:
     launches["window_attn_qkv"] = phase_flagship_train(
         args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin",
         3)["launches"]["window_attn_qkv"]
+    swin_l_train = phase_flagship_train(
+        args.seed, "vid_Swin_B_DiffusionVID.yaml", "flagship_train_swin_l", 2, opts=SWIN_L_OPTS,
+        warmup_steps=1)
     train_cli = phase_flagship_train_cli(args.seed)
+    swin_l_cli = phase_flagship_train_swin_l_cli(args.seed)
     local_attn = phase_flagship_local_attn(args.seed)
     ddp = phase_flagship_train_ddp(args.seed)
     phase_still_image_tiny(args.seed)
@@ -5125,9 +5308,22 @@ def main(argv=None) -> int:
             line[-1]["train_ms"] = k3_train["ms"]
         if name == "window_attn_qkv":
             line[-1].update(kernel_ms=bf["kernel_ms"], library_full_ms=bf["library_full_ms"])
+            # the Swin-L-22k-384 train step (phase 8), its v2 stream (phase 6)
+            # and its train CLI run (after phase 11)
+            line[-1].update(swin_l_launches=swin_l_train["launches"][name],
+                            swin_l_v2_launches=swin_l_modes["v2"]["launches"][name],
+                            swin_l_cli_launches=swin_l_cli[name],
+                            swin_l_bwd_ms=bf["swin_l"]["bwd_ms"],
+                            swin_l_bwd_peak_gib=bf["swin_l"]["bwd_peak_gib"],
+                            swin_l_library_full_ms=bf["swin_l"]["library_full_ms"])
         if name == "window_attn":
             line[-1].update(kernel_ms=bf["kernel_ms"], host_ms=bf["host_ms"],
-                            v1_chunk_kernel_ms=v1_k7_ms, ptxas=k7_ptxas)
+                            v1_chunk_kernel_ms=v1_k7_ms, ptxas=k7_ptxas,
+                            swin_l_launches=swin_l_modes["v1"]["launches"][name])
+        if name in ("window_attn_qkv", "window_attn"):   # over one Swin-L-22k-384 pass
+            line[-1].update({f"swin_l_{k}": bf["swin_l"][k] for k in
+                             ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")})
         if name in ("dynamic_conv", "swin_block_mlp"):
             line[-1].update(kernel_ms=bf["kernel_ms"], unfused_ms=bf["unfused_ms"])
         if name in x4_launches:   # on the R-101 (K1, K2) and Swin-B (K4, K5) x4 streams

@@ -109,13 +109,13 @@
 //   1. attn_ln_kernel: y = round(LN1(x)), zero in the padding (rolled
 //      coordinates), into a bf16 map [M, C], M = B Hp Wp, in map order;
 //   2. attn_gemm_kernel<BN, QKV>: qkv = round(y wqkv^T + bqkv) [M, 3C];
-//   3. attn_win_kernel<w>: a block a (window, head), its q, k, v rows
-//      gathered into shared memory, the attention core of the design above
-//      (swin_hopper.cuh: attend_head<w>, mma.sync in registers, query rows
-//      16 a warp, all keys; at window 12 nine warps, 72 score registers a
-//      thread), the bias and the
-//      mask read from device memory (L2) instead of staged, o into the map
-//      of step 1, whose y the product has read;
+//   3. attn_win_kernel<w>: swin_hopper.cuh's window_core, which K6's and
+//      K7's staged designs run too: a block a (window, head), its q, k, v
+//      rows gathered into shared memory, the attention core of the design
+//      above (attend_head<w>, mma.sync in registers, query rows 16 a warp,
+//      all keys; at window 12 nine warps, 72 score registers a thread),
+//      the bias and the mask read from device memory (L2) instead of
+//      staged, o into the map of step 1, whose y the product has read;
 //   4. attn_gemm_kernel<BN, FC2>: out = x + round(o wproj^T + bproj).
 //   The products are K5's TMA-fed wgmma product (swin_gemm.cuh), with its
 //   plan (ops/swin_attention.py: mlp_gemm_plans).  Every token's row is in
@@ -465,10 +465,6 @@ cudaError_t run_bf16(const Params& p, int windows, int wpb, int cluster, int sme
 
 // ------------------------------------------------------------------ fp32
 
-// shared bytes of the fp32 kernel at window W: q, k, v [W^2 x FLD] and the
-// scores [W^2 x (W^2 + 1)], fp32
-constexpr int f32_smem(int w) { return 4 * (3 * w * w * FLD + w * w * (w * w + 1)); }
-
 template <int W>
 __global__ void __launch_bounds__(THREADS)
 attn_f32_kernel(Params p) {
@@ -550,45 +546,14 @@ attn_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
   gemm_tile<BN, EPI>(&tm_a, &tm_w, bias, res, gelu_tbl, out, M, N, K, stages);
 }
 
-// The window attention: block (window, head) copies the head's q, k and v
-// rows of its W^2 tokens from the qkv map [M, 3C] into shared memory (rows
-// past W^2 zero), and warp i takes query rows 16i .. 16i + 15 against every
-// key (attend_head), the bias and the mask read from device memory (L2);
-// the head's o goes to the o map [M, C].
+// The window attention (swin_hopper.cuh: window_core) over the qkv map
+// [M, 3C]: q, k and v are its column blocks, row stride 3C.
 template <int W>
-__global__ void __launch_bounds__(32 * ((W * W + 15) / 16))
-attn_win_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+__global__ void __launch_bounds__(WIN_THREADS<W>)
+attn_win_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, int ld, const float* __restrict__ bias,
                 const float* __restrict__ mask, bf16* __restrict__ o, int Hp, int Wp, int C) {
-  constexpr int NN = W * W, MT = (NN + 15) / 16, NP = 16 * MT;
-  __shared__ __align__(16) bf16 s_qkv[3][NP * LDQ];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, head = blockIdx.y;
-  const WindowOf<W> w(blockIdx.x, Hp, Wp);
-  for (int i = tid; i < NP * 12; i += 32 * MT) {
-    const int r = i / 12, part = i % 12 / 4, piece = i % 4;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < NN)
-      v = __ldg(reinterpret_cast<const uint4*>(qkv + w.offset(Hp, Wp, 3 * C, r) + part * C +
-                                               head * DH) + piece);
-    *reinterpret_cast<uint4*>(s_qkv[part] + r * LDQ + 8 * piece) = v;
-  }
-  __syncthreads();
-
-  uint32_t a[2][4];  // q's rows, the A fragments of the score product's two k-steps
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-    ldsm_x4(a[ks], s_qkv[0] + (16 * warp + (lane & 15)) * LDQ + 8 * (lane >> 4) + 16 * ks);
-  attend_head<W, true>(a, RowKV{s_qkv[1], s_qkv[2]}, warp,
-                       bias + static_cast<size_t>(head) * NN * NN,
-                       mask ? mask + static_cast<size_t>(w.wmap) * NN * NN : nullptr,
-                       [&](const float (&acc)[4][4], int qa, int qb) {
-                         const int t = lane & 3;
-#pragma unroll
-                         for (int n = 0; n < 4; ++n) {
-                           const int c = head * DH + 8 * n + 2 * t;
-                           if (qa < NN) st2(o + w.offset(Hp, Wp, C, qa) + c, acc[n][0], acc[n][1]);
-                           if (qb < NN) st2(o + w.offset(Hp, Wp, C, qb) + c, acc[n][2], acc[n][3]);
-                         }
-                       });
+  window_core<W>(q, k, v, ld, bias, mask, o, Hp, Wp, C);
 }
 
 template <int C>
@@ -614,11 +579,9 @@ cudaError_t launch_gemm(const void* a, const void* w, const void* bias, const vo
 template <int W>
 cudaError_t launch_win(const void* qkv, const void* bias, const void* mask, void* o, int B,
                        int Hp, int Wp, int C, int heads, cudaStream_t st) {
-  const dim3 grid(B * (Hp / W) * (Wp / W), heads);
-  attn_win_kernel<W><<<grid, 32 * ((W * W + 15) / 16), 0, st>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const float*>(mask), static_cast<bf16*>(o), Hp, Wp, C);
-  return cudaGetLastError();
+  const bf16* m = static_cast<const bf16*>(qkv);
+  return launch_window_core<W>(attn_win_kernel<W>, m, m + C, m + 2 * C, 3 * C, bias, mask, o,
+                               B, Hp, Wp, C, heads, st);
 }
 
 }  // namespace

@@ -11,7 +11,9 @@
 // (split_qkv) and run its attention in registers (attend_head_wg).  The
 // design and its reasons are in swin_block_attn.cu's header.  K7's bf16
 // path (window_attn_qkv.cu) runs the same attention core (attend_head)
-// over q, k and v tiles that TMA wrote row-major (SwizzledKV).
+// over q, k and v tiles that TMA wrote row-major (SwizzledKV), and the
+// staged designs of K4, K6 and K7 (window 12, C = 1536) over rows gathered
+// from device memory (window_core).
 // ops/_build.py hashes this header into every library.
 
 #pragma once
@@ -506,6 +508,75 @@ __device__ __forceinline__ void attend_head_wg(const uint32_t (&a)[2][4], const 
                   if (qb < N) st2(row(qb) + c, acc[n][2], acc[n][3]);
                 }
               });
+}
+
+// The staged designs' window attention: K4's at window 12 and C = 1536
+// (swin_block_attn.cu), K6's and K7's there too (window_attn_qkv.cu).
+// Block (blockIdx.x, blockIdx.y) = (window, head) copies the head's q, k
+// and v rows of its W^2 tokens into shared memory (rows past W^2 zero) from
+// three maps of row stride ld, token m's head channels at q + m ld + 32
+// head (likewise k, v): the [M, 3C] qkv map of K4's and K6's product is
+// (qkv, qkv + C, qkv + 2C, 3C), K7's three [M, C] maps (q, k, v, C).  Warp
+// i takes query rows 16i .. 16i + 15 against every key (attend_head), the
+// bias and the mask read from device memory (L2); the head's o goes to the
+// output map [M, C].  Each source wraps it in a kernel of its own name
+// (launch_window_core), so that a profile tells K4's time from K6's and
+// K7's.  q, k, v 16-byte aligned, ld a multiple of 8.
+template <int W>
+constexpr int WIN_THREADS = 32 * ((W * W + 15) / 16);
+
+template <int W>
+__device__ __forceinline__ void window_core(const bf16* __restrict__ q,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, int ld,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ mask,
+                                            bf16* __restrict__ o, int Hp, int Wp, int C) {
+  constexpr int NN = W * W, MT = (NN + 15) / 16, NP = 16 * MT;
+  __shared__ __align__(16) bf16 s_qkv[3][NP * LDQ];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, head = blockIdx.y;
+  const WindowOf<W> w(blockIdx.x, Hp, Wp);
+  for (int i = tid; i < NP * 12; i += 32 * MT) {
+    const int r = i / 12, part = i % 12 / 4, piece = i % 4;
+    const bf16* src = part == 0 ? q : part == 1 ? k : v;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < NN)
+      val = __ldg(reinterpret_cast<const uint4*>(src + w.offset(Hp, Wp, ld, r) + head * DH) +
+                  piece);
+    *reinterpret_cast<uint4*>(s_qkv[part] + r * LDQ + 8 * piece) = val;
+  }
+  __syncthreads();
+
+  uint32_t a[2][4];  // q's rows, the A fragments of the score product's two k-steps
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(a[ks], s_qkv[0] + (16 * warp + (lane & 15)) * LDQ + 8 * (lane >> 4) + 16 * ks);
+  attend_head<W, true>(a, RowKV{s_qkv[1], s_qkv[2]}, warp,
+                       bias + static_cast<size_t>(head) * NN * NN,
+                       mask ? mask + static_cast<size_t>(w.wmap) * NN * NN : nullptr,
+                       [&](const float (&acc)[4][4], int qa, int qb) {
+                         const int t = lane & 3;
+#pragma unroll
+                         for (int n = 0; n < 4; ++n) {
+                           const int c = head * DH + 8 * n + 2 * t;
+                           if (qa < NN) st2(o + w.offset(Hp, Wp, C, qa) + c, acc[n][0], acc[n][1]);
+                           if (qb < NN) st2(o + w.offset(Hp, Wp, C, qb) + c, acc[n][2], acc[n][3]);
+                         }
+                       });
+}
+
+// One launch of window_core<W> by `kernel`, a __global__ wrapper of it
+// taking (q, k, v, ld, bias, mask, o, Hp, Wp, C): a block a (window, head)
+// over B maps of Hp x Wp
+template <int W, class Kernel>
+cudaError_t launch_window_core(Kernel kernel, const bf16* q, const bf16* k, const bf16* v,
+                               int ld, const void* bias, const void* mask, void* o, int B,
+                               int Hp, int Wp, int C, int heads, cudaStream_t st) {
+  const dim3 grid(B * (Hp / W) * (Wp / W), heads);
+  kernel<<<grid, WIN_THREADS<W>, 0, st>>>(q, k, v, ld, static_cast<const float*>(bias),
+                                          static_cast<const float*>(mask),
+                                          static_cast<bf16*>(o), Hp, Wp, C);
+  return cudaGetLastError();
 }
 
 template <int R>

@@ -1,8 +1,8 @@
 // The Swin window-attention core shared by K4 (swin_block_attn.cu) and by
 // K6 and K7 (window_attn_qkv.cu): the fp32 qkv projection of one head of
-// one window, 7x7 (the fp32 paths of K4 and K6) or 12x12 (K4's), then its
-// fp32 attention (the fp32 paths of all three; their bf16 paths attend in
-// swin_hopper.cuh, K4's staged design in swin_block_attn.cu),
+// one window, 7x7 or 12x12 (the fp32 paths of K4 and K6), then its fp32
+// attention (the fp32 paths of all three; their bf16 paths attend in
+// swin_hopper.cuh),
 //   s = round(q k^T * 32^-0.5) + bias[head] (+ mask[window])   fp32
 //   p = softmax(s) in fp32 (max, exp, divide), rounded
 //   o = p v                                                  fp32 sum
@@ -30,7 +30,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int LDQ = DH + 8;   // q, k rows (bf16)
 constexpr int LDV = 64 + 8;   // v^T rows: 64 keys (bf16)
 constexpr int FLD = DH + 1;   // fp32 q/k/v rows
-constexpr int SLD = N + 1;    // fp32 score rows
 constexpr float SCALE = 0.17677669529663687f;  // 32^-0.5
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -72,23 +71,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The window (b, wr, wc) of block blockIdx.x over B maps of Hp x Wp, and
-// its index wmap within its map (the mask's [window row, window col]).
-struct Window {
-  int b, wr, wc, wmap;
-  __device__ Window(int Hp, int Wp) {
-    const int nww = Wp / WIN, nwin_map = (Hp / WIN) * nww;
-    b = blockIdx.x / nwin_map;
-    wmap = blockIdx.x % nwin_map;
-    wr = wmap / nww;
-    wc = wmap % nww;
-  }
-  // token i of the window -> its element offset in a [B, Hp, Wp, C] map
-  __device__ __forceinline__ size_t offset(int Hp, int Wp, int C, int i) const {
-    const int row = wr * WIN + i / WIN, col = wc * WIN + i % WIN;
-    return ((static_cast<size_t>(b) * Hp + row) * Wp + col) * C;
-  }
-};
+// shared bytes of the fp32 kernels at window w: q, k, v [w^2 x FLD] and
+// the scores [w^2 x (w^2 + 1)], fp32 (29,204 at window 7, 140,544 at 12:
+// dynamic shared memory, above 48 KB by the opt-in attribute)
+constexpr int f32_smem(int w) { return 4 * (3 * w * w * FLD + w * w * (w * w + 1)); }
 
 // fp32 on the CUDA cores: q | k | v of head j of a W x W window into s_q,
 // s_k, s_v [W^2 x FLD]; row(r) points at token r's C channels.  Each dot

@@ -7,16 +7,16 @@
 //      fused_window_attention_qkv_trainable;
 //   K7 fused_window_attention (the Pallas kernels _kernel / _kernel_masked).
 //
-// Contract, per 7x7 window of a window-padded, pre-rolled map [B, Hp, Wp, C],
-// C = 32 * heads, in the compute dtype T:
+// Contract, per w x w window (w = 7 or 12) of a window-padded, pre-rolled
+// map [B, Hp, Wp, C], C = 32 * heads, in the compute dtype T:
 //   K6: q | k | v = x @ wqkv^T + bqkv      fp32 sum, fp32 bias, rounded to T
 //   K7: q, k, v read from three maps in T
 //   s = round(q k^T * 32^-0.5) + bias[head] (+ mask[window row, window col])  fp32
 //   p = softmax(s) in fp32 (max, exp, divide), rounded
 //   o = p v                                 fp32 sum, rounded, stored at the
 //                                           window's tokens in map layout
-// bias [heads, 49, 49] and mask [Hp/7, Wp/7, 49, 49] (0 or -100) are fp32,
-// bqkv is fp32.  These are the rounding points of the Pallas kernels.
+// bias [heads, w^2, w^2] and mask [Hp/w, Wp/w, w^2, w^2] (0 or -100) are
+// fp32, bqkv is fp32.  These are the rounding points of the Pallas kernels.
 //
 // What bounds them on an H100.  K6: operations at the low-res stages, bytes
 //   at stage 0.  For Swin-B at 608x1024 over 5 frames (the train step's
@@ -24,10 +24,15 @@
 //   stage-2 launch is 24.6 GFLOP (25 us at the bf16 tensor-core rate)
 //   against 31 MB of traffic (9 us); at stage 0 the 102 MB of x and out
 //   (30 us) outweigh the 24.6 GFLOP.  K7 does only the attention, 24.5
-//   flops per byte of q, k, v and out: bytes bound at every stage.
+//   flops per byte of q, k, v and out at window 7: bytes bound at every
+//   Swin-B stage.  Swin-L-22k-384 (window 12, maps [5,156,264,192],
+//   [5,84,132,384], [5,48,72,768], [5,24,36,1536]): K6 6 M C^2 + 4 M 144 C
+//   FLOP, operations at every stage; K7's 4 M 144 C FLOP against 8 M C
+//   bytes of q, k, v and out, 72 flops a byte: bytes at every stage.
 //
-// Design (bf16), K6: K4's Hopper kernel (csrc/swin_block_attn.cu, its
-//   pieces shared through swin_hopper.cuh) without LN1, the pad mask, the
+// Design (bf16, window 7, C <= 1024), K6: K4's Hopper kernel
+//   (csrc/swin_block_attn.cu, its pieces shared through swin_hopper.cuh)
+//   without LN1, the pad mask, the
 //   out-projection and the residual.  A block is two consumer warpgroups
 //   and one producer warp (288 threads).
 //   - The prologue copies the block's windows' [49, C] tiles of x (rows
@@ -65,8 +70,9 @@
 //   The numbers' source: chip_smoke.py (the K6 rows and the ptxas phase)
 //   and diffusionvid_torch/utils/k6_bench.py.
 //
-// Design (bf16), K7: bytes bound (24.5 flops a byte of q, k, v and out),
-//   so the design keeps device memory busy at every stage.
+// Design (bf16, window 7, C <= 1024), K7: bytes bound (24.5 flops a byte
+//   of q, k, v and out), so the design keeps device memory busy at every
+//   stage.
 //   - Work: a block takes a head group (`group` heads, dividing the heads)
 //     and a run of `wpb` consecutive windows, and walks the run's
 //     (window, head) items window by window, heads inner.  Heads write
@@ -103,14 +109,35 @@
 //   The numbers' source: chip_smoke.py (the K7 rows and the ptxas phase)
 //   and diffusionvid_torch/utils/k7_bench.py.
 //
+// Design (bf16, staged: window 12 at every width, and C = 1536 at window
+//   7), which the designs above cannot take: a window's [144, C] tile and
+//   its fp32 bias [144, 144] (82,944 B) a head, or a [49, 1536] tile beside
+//   the ring, exceed a block's shared memory.  K4's staged design
+//   (swin_block_attn.cu) without the LN pass and the out-projection:
+//   K6 two launches on the caller's stream, the product qkv_gemm_kernel
+//   (swin_gemm.cuh: gemm_tile, the QKV epilogue: qkv = round(x wqkv^T +
+//   bqkv) into a bf16 scratch map [M, 3C], M = B Hp Wp, its plan
+//   ops/swin_attention.py: staged_plan's "qkv") and qkv_win_kernel; K7 one,
+//   win_attn_kernel over its three maps.  Both attention kernels are
+//   swin_hopper.cuh's window_core, K4's attn_win_kernel: a block a
+//   (window, head), its q, k, v rows gathered into shared memory, attend_
+//   head<w> in registers, the bias and mask from L2, o into the output map.
+//   Every token's row is in one window, so the product runs in map order.
+//   What it costs over a fused kernel: K6 writes and reads the qkv map, 12 C
+//   bytes a token more (at Swin-L's stage 0 over 5 frames 474 MB, 142 us at
+//   3.35 TB/s); each (window, head) block reads its head's bias, and when
+//   shifted its window's mask, from L2.
+//   The numbers' source: chip_smoke.py (the K6 and K7 rows).
+//
 // Design (fp32, for the checks): the same phases on the CUDA cores, one
-//   block per window; x is read from device memory (each dot product over C
-//   is one warp, coalesced, with a shuffle sum), q/k/v and the scores live
-//   in shared memory (29,204 B).
+//   block per window, at window 7 or 12; x is read from device memory
+//   (each dot product over C is one warp, coalesced, with a shuffle sum),
+//   q/k/v and the scores live in dynamic shared memory (f32_smem: 29,204 B
+//   at window 7, 140,544 B at 12).
 
 #include <mutex>
 
-#include "swin_hopper.cuh"
+#include "swin_gemm.cuh"
 
 namespace {
 
@@ -128,13 +155,6 @@ struct Params {
   int B, Hp, Wp, C, heads;
   int hsplit, kc, stages;  // K6 bf16: the launch plan's head split and ring
 };
-
-__device__ __forceinline__ const float* head_bias(const Params& p, int j) {
-  return p.bias + static_cast<size_t>(j) * N * N;
-}
-__device__ __forceinline__ const float* window_mask(const Params& p, const Window& w) {
-  return p.mask ? p.mask + static_cast<size_t>(w.wmap) * N * N : nullptr;
-}
 
 // ------------------------------------------------------------------ bf16
 
@@ -487,41 +507,58 @@ cudaError_t run_window_bf16(const void* q, const void* k, const void* v, void* o
 
 // ------------------------------------------------------------------ fp32
 
-// head j's attention into columns 32j.. of the output map; ends in a barrier
-__device__ void attend_f32(const Params& p, const Window& w, const float* s_q,
+// head j's attention over the W x W window w from q/k/v [W^2 x FLD] in
+// shared memory into columns 32j.. of the output map; ends in a barrier
+template <int W>
+__device__ void attend_f32(const Params& p, const WindowOf<W>& w, const float* s_q,
                            const float* s_k, const float* s_v, float* s_s, int j) {
+  constexpr int NN = W * W;
   float* out = static_cast<float*>(p.out);
-  attend_head_f32(s_q, s_k, s_v, s_s, head_bias(p, j), window_mask(p, w),
-                  [&](int r, int d, float o) {
-                    out[w.offset(p.Hp, p.Wp, p.C, r) + j * DH + d] = o;
-                  });
+  attend_head_f32<W>(s_q, s_k, s_v, s_s, p.bias + static_cast<size_t>(j) * NN * NN,
+                     p.mask ? p.mask + static_cast<size_t>(w.wmap) * NN * NN : nullptr,
+                     [&](int r, int d, float o) {
+                       out[w.offset(p.Hp, p.Wp, p.C, r) + j * DH + d] = o;
+                     });
 }
 
-// K6, fp32
+// K6, fp32: one block a W x W window, every head in turn; q, k, v and the
+// scores in dynamic shared memory (f32_smem)
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 attn_qkv_f32_kernel(Params p) {
-  __shared__ float s_q[N * FLD], s_k[N * FLD], s_v[N * FLD], s_s[N * SLD];
-  const Window w(p.Hp, p.Wp);
+  constexpr int NN = W * W;
+  extern __shared__ __align__(16) float s_f32[];
+  float* s_q = s_f32;
+  float* s_k = s_q + NN * FLD;
+  float* s_v = s_k + NN * FLD;
+  float* s_s = s_v + NN * FLD;
+  const WindowOf<W> w(blockIdx.x, p.Hp, p.Wp);
   const int C = p.C;
   const float* x = static_cast<const float*>(p.x);
   const float* wqkv = static_cast<const float*>(p.wqkv);
   for (int j = 0; j < p.heads; ++j) {
-    project_head_f32([&](int r) { return x + w.offset(p.Hp, p.Wp, C, r); }, wqkv, p.bqkv, C,
-                     j, s_q, s_k, s_v);
-    attend_f32(p, w, s_q, s_k, s_v, s_s, j);
+    project_head_f32<W>([&](int r) { return x + w.offset(p.Hp, p.Wp, C, r); }, wqkv, p.bqkv,
+                        C, j, s_q, s_k, s_v);
+    attend_f32<W>(p, w, s_q, s_k, s_v, s_s, j);
   }
 }
 
-// K7, fp32
+// K7, fp32: as K6's, q, k and v read from their maps
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 attn_f32_kernel(Params p) {
-  __shared__ float s_q[N * FLD], s_k[N * FLD], s_v[N * FLD], s_s[N * SLD];
-  const Window w(p.Hp, p.Wp);
+  constexpr int NN = W * W;
+  extern __shared__ __align__(16) float s_f32[];
+  float* s_q = s_f32;
+  float* s_k = s_q + NN * FLD;
+  float* s_v = s_k + NN * FLD;
+  float* s_s = s_v + NN * FLD;
+  const WindowOf<W> w(blockIdx.x, p.Hp, p.Wp);
   const float* q = static_cast<const float*>(p.x);
   const float* k = static_cast<const float*>(p.k);
   const float* v = static_cast<const float*>(p.v);
   for (int j = 0; j < p.heads; ++j) {
-    for (int e = threadIdx.x; e < N * DH; e += THREADS) {
+    for (int e = threadIdx.x; e < NN * DH; e += THREADS) {
       const int r = e / DH, d = e % DH;
       const size_t off = w.offset(p.Hp, p.Wp, p.C, r) + j * DH + d;
       s_q[r * FLD + d] = q[off];
@@ -529,8 +566,49 @@ attn_f32_kernel(Params p) {
       s_v[r * FLD + d] = v[off];
     }
     __syncthreads();
-    attend_f32(p, w, s_q, s_k, s_v, s_s, j);
+    attend_f32<W>(p, w, s_q, s_k, s_v, s_s, j);
   }
+}
+
+// an fp32 kernel (attn_qkv_f32_kernel<W> or attn_f32_kernel<W>) over every
+// window, with its shared memory
+template <int W, class Kernel>
+cudaError_t launch_f32(Kernel kernel, const Params& p, cudaStream_t st) {
+  constexpr int bytes = f32_smem(W);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.B * (p.Hp / W) * (p.Wp / W), THREADS, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ bf16, staged
+
+// K6's qkv product (swin::gemm_tile): qkv = round(x wqkv^T + bqkv) [M, 3C]
+template <int BN>
+__global__ void __launch_bounds__(RING_THREADS, BN <= 128 ? 2 : 1)
+qkv_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bias,
+                const bf16* __restrict__ res, const bf16* __restrict__ gelu_tbl,
+                bf16* __restrict__ out, int M, int N, int K, int stages) {
+  gemm_tile<BN, QKV>(&tm_a, &tm_w, bias, res, gelu_tbl, out, M, N, K, stages);
+}
+
+// K6's window attention over its qkv map, and K7's over its three maps
+// (swin_hopper.cuh: window_core)
+template <int W>
+__global__ void __launch_bounds__(WIN_THREADS<W>)
+qkv_win_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, int ld, const float* __restrict__ bias,
+               const float* __restrict__ mask, bf16* __restrict__ o, int Hp, int Wp, int C) {
+  window_core<W>(q, k, v, ld, bias, mask, o, Hp, Wp, C);
+}
+template <int W>
+__global__ void __launch_bounds__(WIN_THREADS<W>)
+win_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, int ld, const float* __restrict__ bias,
+                const float* __restrict__ mask, bf16* __restrict__ o, int Hp, int Wp, int C) {
+  window_core<W>(q, k, v, ld, bias, mask, o, Hp, Wp, C);
 }
 
 }  // namespace
@@ -570,8 +648,7 @@ extern "C" int window_attn_qkv_fwd(const void* x, const void* wqkv, const void* 
     }
     return static_cast<int>(err);
   }
-  attn_qkv_f32_kernel<<<windows, THREADS, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_f32<WIN>(attn_qkv_f32_kernel<WIN>, p, st));
 }
 
 // K7.  dtype: 0 = float32 (the first design, one block a window; the plan
@@ -593,6 +670,73 @@ extern "C" int window_attn_fwd(const void* q, const void* k, const void* v, cons
   }
   Params p{q, k, v, nullptr, nullptr, static_cast<const float*>(bias),
            static_cast<const float*>(mask), out, B, Hp, Wp, C, heads, 0, 0, 0};
-  attn_f32_kernel<<<windows, THREADS, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_f32<WIN>(attn_f32_kernel<WIN>, p, st));
+}
+
+// The staged designs of K6 and K7, at window 7 or 12 over a map padded to
+// its multiples, C = 32 heads up to 1536 (ops/window_attention.py:
+// window_path takes them at window 12 and at C = 1536; the fused designs
+// above elsewhere); dtype 0 = float32 (the fp32 kernel at this window, no
+// plan or scratch read), 1 = bfloat16.  Launches on `stream`; returns the
+// first error; cudaErrorInvalidValue on a shape or plan they do not take.
+//
+// K6: qkv [M, 3C] bf16 scratch, M = B Hp Wp; (bn, stages, smem_bytes) the
+// qkv product's plan (ops/swin_attention.py: staged_plan's "qkv", checked
+// against gemm_smem); C a multiple of 64 (the product's k-chunk).  Two
+// launches: the product, then the window attention over qkv into out.
+extern "C" int window_attn_qkv_staged(const void* x, const void* wqkv, const void* bqkv,
+                                      const void* bias, const void* mask, void* out, void* qkv,
+                                      int B, int Hp, int Wp, int C, int heads, int window,
+                                      int dtype, int bn, int stages, int smem_bytes,
+                                      void* stream) {
+  if (C != heads * DH || C > 1536 || (window != WIN && window != 12) || Hp % window ||
+      Wp % window)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const Params p{x, nullptr, nullptr, wqkv, static_cast<const float*>(bqkv),
+                   static_cast<const float*>(bias), static_cast<const float*>(mask), out,
+                   B, Hp, Wp, C, heads, 0, 0, 0};
+    return static_cast<int>(window == 12 ? launch_f32<12>(attn_qkv_f32_kernel<12>, p, st)
+                                         : launch_f32<WIN>(attn_qkv_f32_kernel<WIN>, p, st));
+  }
+  if (!gemm_plan_ok<QKV>(3 * C, C, bn, stages, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto gemm = bn == 256 ? qkv_gemm_kernel<256> : bn == 128 ? qkv_gemm_kernel<128>
+                                                            : qkv_gemm_kernel<64>;
+  bf16* m = static_cast<bf16*>(qkv);
+  cudaError_t err = launch_gemm_kernel(gemm, x, wqkv, static_cast<const float*>(bqkv), nullptr,
+                                       nullptr, m, B * Hp * Wp, 3 * C, C, bn, smem_bytes,
+                                       stages, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = window == 12
+            ? launch_window_core<12>(qkv_win_kernel<12>, m, m + C, m + 2 * C, 3 * C, bias, mask,
+                                     out, B, Hp, Wp, C, heads, st)
+            : launch_window_core<WIN>(qkv_win_kernel<WIN>, m, m + C, m + 2 * C, 3 * C, bias,
+                                      mask, out, B, Hp, Wp, C, heads, st);
+  return static_cast<int>(err);
+}
+
+// K7: one launch of the window attention over the three maps q, k, v
+// [M, C] (16-byte aligned) into out.
+extern "C" int window_attn_staged(const void* q, const void* k, const void* v, const void* bias,
+                                  const void* mask, void* out, int B, int Hp, int Wp, int C,
+                                  int heads, int window, int dtype, void* stream) {
+  if (C != heads * DH || C > 1536 || (window != WIN && window != 12) || Hp % window ||
+      Wp % window)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const Params p{q, k, v, nullptr, nullptr, static_cast<const float*>(bias),
+                   static_cast<const float*>(mask), out, B, Hp, Wp, C, heads, 0, 0, 0};
+    return static_cast<int>(window == 12 ? launch_f32<12>(attn_f32_kernel<12>, p, st)
+                                         : launch_f32<WIN>(attn_f32_kernel<WIN>, p, st));
+  }
+  const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
+             *bv = static_cast<const bf16*>(v);
+  return static_cast<int>(
+      window == 12 ? launch_window_core<12>(win_attn_kernel<12>, bq, bk, bv, C, bias, mask, out,
+                                            B, Hp, Wp, C, heads, st)
+                   : launch_window_core<WIN>(win_attn_kernel<WIN>, bq, bk, bv, C, bias, mask,
+                                             out, B, Hp, Wp, C, heads, st));
 }

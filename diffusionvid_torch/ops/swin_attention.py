@@ -29,11 +29,11 @@ from . import _build
 
 _EPS = 1e-5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-WINDOW = 7          # the window of K4's fused design and of K6 and K7
-ATTN_WINDOWS = (7, 12)   # K4's windows: every Swin size's
+WINDOW = 7          # the window of the fused designs of K4, K6 and K7
+ATTN_WINDOWS = (7, 12)   # K4's, K6's and K7's windows: every Swin size's
 HEAD_DIM = 32       # channels per head, shared by Swin-T/S/B/L
-MAX_ATTN_C = 1024   # K4's fused design, K6, K7: a window's [49, C] bf16 tile in shared memory
-MAX_C = 1536        # K4 and K5: Swin-L's stage 3
+MAX_ATTN_C = 1024   # fused K4, K6, K7: a window's [49, C] bf16 tile in shared memory
+MAX_C = 1536        # K4 to K7: Swin-L's stage 3
 MLP_C = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)   # K5 is compiled per width
 
 

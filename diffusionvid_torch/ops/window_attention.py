@@ -21,8 +21,12 @@ mask and softmax; P rounded before P·V).  The twin
 dtype, as ``_einsum_window_attention_qkv`` does; in fp32 the three agree.
 
 On CPU tensors a wrapper runs the plain version; on CUDA tensors it launches
-``csrc/window_attn_qkv.cu`` or raises; K6's launch plan is ``qkv_plan``,
-K7's (bf16) ``window_plan``.
+``csrc/window_attn_qkv.cu`` or raises, in the design of ``window_path``:
+at window 7 up to C = 1024 the fused designs (K6's launch plan
+``qkv_plan``, K7's in bf16 ``window_plan``), at window 12 and at C = 1536
+the staged designs (K6: the qkv product into a scratch map, with
+``staged_plan``'s "qkv" plan, then the window attention; K7: the window
+attention alone).
 The wrappers compute no gradient: a CUDA input that needs one raises, and
 training goes through ``WindowAttentionQKVFn``.
 """
@@ -36,9 +40,9 @@ import torch
 
 from . import _build
 from .swin_attention import (
-    H100_SMS, HEAD_DIM, MAX_ATTN_C, SMEM_BLOCK_LIMIT, SMEM_SM, WINDOW, _DTYPE_CODE, _attend,
-    _check_no_grad, _check_shape, _check_x, _f32, _mm, _partition, _reverse, _sm_count,
-    ring_plan)
+    ATTN_WINDOWS, H100_SMS, HEAD_DIM, MAX_ATTN_C, MAX_C, SMEM_BLOCK_LIMIT, SMEM_SM, WINDOW,
+    _DTYPE_CODE, _attend, _check_no_grad, _check_shape, _check_x, _f32, _f32_a16, _mm,
+    _partition, _reverse, _sm_count, ring_plan, staged_plan)
 
 
 def window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window: int, num_heads: int):
@@ -89,26 +93,41 @@ def window_attention_qkv_einsum(x, wqkv, bqkv, bias, mask, window: int, num_head
 
 # ---------------------------------------------------------------- kernels
 
-def _check_map(x, window: int, num_heads: int, what: str):
+def window_path(c: int, window: int = WINDOW) -> str:
+    """K6's and K7's design for C channels at ``window``: ``"fused"`` at
+    window 7 up to C = 1024, where a window's [49, C] bf16 tile fits a
+    block beside K6's weight ring (K7's TMA ring is sized for window 7);
+    else ``"staged"`` (window 12 at every width, C = 1536 at window 7)."""
+    return "fused" if window == WINDOW and c <= MAX_ATTN_C else "staged"
+
+
+def _check_map(x, window: int, num_heads: int, what: str, k_chunk: bool = False):
+    """x a contiguous [B, Hp, Wp, C] map padded to ``window``'s multiples,
+    ``window`` in ATTN_WINDOWS, C = 32 ``num_heads`` up to MAX_C; with
+    ``k_chunk`` (K6) a multiple of 64 on the staged design, its product's
+    k-chunk."""
     _check_x(x, what)
     _, hp, wp, c = x.shape
-    if window != WINDOW or hp % WINDOW or wp % WINDOW:
-        raise ValueError(f"the {what} kernel takes window {WINDOW} over a map padded to "
-                         f"its multiples, got window {window}, map {hp}x{wp}")
-    if num_heads * HEAD_DIM != c or c > MAX_ATTN_C:
+    if window not in ATTN_WINDOWS or hp % window or wp % window:
+        raise ValueError(f"the {what} kernel takes a window in {ATTN_WINDOWS} over a map "
+                         f"padded to its multiples, got window {window}, map {hp}x{wp}")
+    if num_heads * HEAD_DIM != c or c > MAX_C:
         raise ValueError(f"the {what} kernel takes {HEAD_DIM} channels per head and "
-                         f"C <= {MAX_ATTN_C}, got C={c}, {num_heads} heads")
+                         f"C <= {MAX_C}, got C={c}, {num_heads} heads")
+    if k_chunk and c % 64 and window_path(c, window) == "staged":
+        raise ValueError(f"the {what} kernel's staged design (window {window}, C={c}) takes "
+                         "C a multiple of 64, its product's k-chunk")
     if x.data_ptr() % 16:
         raise ValueError(f"the {what} kernel copies 16-byte pieces: the map must be "
                          "16-byte aligned")
 
 
-def _check_bias_mask(x, bias, mask, num_heads: int):
+def _check_bias_mask(x, bias, mask, num_heads: int, window: int):
     _, hp, wp, _ = x.shape
-    n = WINDOW * WINDOW
+    n = window * window
     _check_shape(bias, (num_heads, n, n), "bias", x.device)
     if mask is not None:
-        _check_shape(mask, (hp // WINDOW, wp // WINDOW, n, n), "mask", x.device)
+        _check_shape(mask, (hp // window, wp // window, n, n), "mask", x.device)
 
 
 # K6's launch plan (csrc/window_attn_qkv.cu, bf16).  A block's fixed cost
@@ -163,16 +182,17 @@ def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int)
     attention output before the out-projection.
 
     x ``[B, Hp, Wp, C]`` the post-LN1, pad-zeroed, pre-rolled map; wqkv
-    ``[3C, C]``, bqkv ``[3C]``; bias ``[h, 49, 49]`` fp32; mask ``[Hp/7,
-    Wp/7, 49, 49]`` fp32 or None.  CPU tensors: the plain version.  CUDA
-    tensors: kernel K6, launched with ``qkv_plan``."""
+    ``[3C, C]``, bqkv ``[3C]``; bias ``[h, w², w²]`` fp32; mask ``[Hp/w,
+    Wp/w, w², w²]`` fp32 or None; ``window`` w 7 or 12.  CPU tensors: the
+    plain version.  CUDA tensors: kernel K6, in the design of
+    ``window_path`` (fused: launched with ``qkv_plan``)."""
     if x.device.type == "cpu":
         return window_attention_qkv_ref(x, wqkv, bqkv, bias, mask, window, num_heads)
-    _check_map(x, window, num_heads, "window attention qkv")
+    _check_map(x, window, num_heads, "window attention qkv", k_chunk=True)
     b, hp, wp, c = x.shape
     _check_shape(wqkv, (3 * c, c), "wqkv", x.device)
     _check_shape(bqkv, (3 * c,), "bqkv", x.device)
-    _check_bias_mask(x, bias, mask, num_heads)
+    _check_bias_mask(x, bias, mask, num_heads, window)
     _check_no_grad((x, wqkv, bqkv, bias), "window attention qkv")
     wqkv = wqkv.to(x.dtype).contiguous()
     if wqkv.data_ptr() % 16:
@@ -180,7 +200,10 @@ def window_attention_qkv(x, wqkv, bqkv, bias, mask, window: int, num_heads: int)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads)
+    if window_path(c, window) == "staged":
+        launch_qkv_staged(x, wqkv, bqkv, bias, mask, out, window, num_heads)
+    else:
+        launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads)
     window_attention_qkv.launches += 1
     return out
 
@@ -204,6 +227,32 @@ def launch_qkv(x, wqkv, bqkv, bias, mask, out, num_heads: int, plan=None):
              _DTYPE_CODE[x.dtype], plan["wpb"], plan["hsplit"], plan["kc"], plan["stages"],
              plan["smem_bytes"], _build.stream_ptr(x.device))
     _build.check(lib, err, "window_attn_qkv_fwd")
+
+
+def launch_qkv_staged(x, wqkv, bqkv, bias, mask, out, window: int, num_heads: int):
+    """Launch K6's staged design on checked CUDA inputs
+    (``window_attention_qkv``; wqkv already in x's dtype) into ``out``,
+    whatever ``window_path`` takes at its shape: in bf16 the qkv product
+    with ``staged_plan``'s "qkv" plan for this device's SMs, then the
+    window attention; in fp32 the fp32 kernel at ``window``.  Counts no
+    launch.  Returns the bf16 scratch map qkv ``[B, Hp, Wp, 3C]`` (None in
+    fp32)."""
+    b, hp, wp, c = x.shape
+    lib = _build.load("window_attn_qkv")
+    qkv, plan = None, [0, 0, 0]
+    if x.dtype == torch.bfloat16:
+        p = staged_plan(c, b, hp, wp, window, _sm_count(x.device.index))["qkv"]
+        plan = [p["bn"], p["stages"], p["smem_bytes"]]
+        qkv = torch.empty((b, hp, wp, 3 * c), dtype=x.dtype, device=x.device)
+    args = [x, wqkv, _f32(bqkv), _f32_a16(bias), None if mask is None else _f32_a16(mask), out,
+            qkv]
+    fn = lib.window_attn_qkv_staged
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c, num_heads,
+             window, _DTYPE_CODE[x.dtype], *plan, _build.stream_ptr(x.device))
+    _build.check(lib, err, "window_attn_qkv_staged")
+    return qkv
 
 
 # K7's launch plan (csrc/window_attn_qkv.cu, bf16).  A block's fixed cost
@@ -276,9 +325,9 @@ def window_plan(c: int, b: int, hp: int, wp: int, sms: int = H100_SMS) -> dict:
 
 def window_attention(q, k, v, bias, mask, window: int):
     """Windowed MHA over pre-projected q/k/v maps ``[B, Hp, Wp, C]`` →
-    ``[B, Hp, Wp, C]``; ``h = bias.shape[0]``.  CPU tensors: the plain
-    version.  CUDA tensors: kernel K7, in bf16 launched with
-    ``window_plan``."""
+    ``[B, Hp, Wp, C]``; ``h = bias.shape[0]``; ``window`` w 7 or 12.  CPU
+    tensors: the plain version.  CUDA tensors: kernel K7, in the design of
+    ``window_path`` (fused: in bf16 launched with ``window_plan``)."""
     if q.device.type == "cpu":
         return window_attention_ref(q, k, v, bias, mask, window)
     h = bias.shape[0] if bias.dim() == 3 else 0
@@ -289,12 +338,15 @@ def window_attention(q, k, v, bias, mask, window: int):
         raise ValueError(f"q, k and v must share shape, dtype and device, got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}, "
                          f"{[t.dtype for t in (q, k, v)]}")
-    _check_bias_mask(q, bias, mask, h)
+    _check_bias_mask(q, bias, mask, h, window)
     _check_no_grad((q, k, v, bias), "window attention")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    launch_window(q, k, v, bias, mask, out)
+    if window_path(q.shape[-1], window) == "staged":
+        launch_window_staged(q, k, v, bias, mask, out, window)
+    else:
+        launch_window(q, k, v, bias, mask, out)
     window_attention.launches += 1
     return out
 
@@ -319,6 +371,22 @@ def launch_window(q, k, v, bias, mask, out, plan=None):
     err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c,
              bias.shape[0], _DTYPE_CODE[q.dtype], *ring, _build.stream_ptr(q.device))
     _build.check(lib, err, "window_attn_fwd")
+
+
+def launch_window_staged(q, k, v, bias, mask, out, window: int):
+    """Launch K7's staged design on checked CUDA inputs
+    (``window_attention``) into ``out``, whatever ``window_path`` takes at
+    its shape: one launch of the window attention over q, k and v (bf16),
+    or the fp32 kernel at ``window``; counts no launch."""
+    b, hp, wp, c = q.shape
+    lib = _build.load("window_attn_qkv")
+    args = [q, k, v, _f32_a16(bias), None if mask is None else _f32_a16(mask), out]
+    fn = lib.window_attn_staged
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    err = fn(*[None if t is None else t.data_ptr() for t in args], b, hp, wp, c, bias.shape[0],
+             window, _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
+    _build.check(lib, err, "window_attn_staged")
 
 
 class WindowAttentionQKVFn(torch.autograd.Function):

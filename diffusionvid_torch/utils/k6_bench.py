@@ -75,7 +75,7 @@ def main(argv=None) -> int:
                    "kernel_ms": cs.device_ms(lambda: wa.window_attention_qkv(*call),
                                              cs.K6_KERNELS, args.iters, 1),
                    "library_full_ms": cs.cuda_time_ms(
-                       cs.k6_library(x, wqkv, bqkv, bias, mask, heads), args.iters)}
+                       cs.k6_library(x, wqkv, bqkv, bias, mask, heads, 7), args.iters)}
             if args.candidates:
                 want = wa.window_attention_qkv_ref(*call).float()
                 picked = wa.qkv_plan(c, frames, hp, wp, sms)

@@ -77,7 +77,7 @@ def main(argv=None) -> int:
                    "kernel_ms": cs.device_ms(lambda: wa.window_attention(*call),
                                              cs.K7_KERNELS, args.iters, 1),
                    "host_ms": cs.host_ms(lambda: wa.window_attention(*call), args.iters),
-                   "library_ms": cs._sdpa_ms(q, k, v, bias, mask, heads),
+                   "library_ms": cs._sdpa_ms(q, k, v, bias, mask, heads, 7),
                    "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
             if args.candidates:
                 want = wa.window_attention_ref(*call).float()

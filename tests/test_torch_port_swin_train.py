@@ -11,6 +11,9 @@
 - The kernel modes ``v3``, ``v2`` and ``v1`` give the same trunk output in
   float32 to 1e-5; under grad the trunk takes ``v2`` whatever its mode and
   never reaches K4 or K5.
+- The same two at window 12: the narrow window-12 trunk of that file
+  (embed 48, heads 1/2/4/8) on 96x160 frames (every stage padded, stage 0
+  shifted by 6 and masked).
 - A tiny Swin ``DiffusionDetArch`` through ``make_loss_fn`` against the JAX
   package's, with the JAX draws of tests/test_torch_port_train.py: the
   losses to 1e-4 relative and every parameter's gradient to 1e-3 relative in
@@ -33,12 +36,13 @@ from diffusionvid_torch.engine import train as tt
 from diffusionvid_torch.models import swin as tswin
 from diffusionvid_torch.utils.convert import state_dict_from_jax
 from chip_smoke import conditioned_train_model
-from test_torch_port_swin_model import NARROW, PREFIX, _perturb
+from test_torch_port_swin_model import NARROW, NARROW_W12, PREFIX, _perturb
 from test_torch_port_train import (
     ARCH, NUM_GLOBAL, _batch, _jax_draws, _jax_params, _port_batch)
 from test_torch_port_weights import rel_err
 
 HW = (64, 96)
+HW_W12 = (96, 160)
 TINY_SIZE = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8), window=7)
 SWIN_ARCH = {**ARCH, "backbone_type": "swin", "swin_size": "tiny-test",
              "fpn_in": ("swin1", "swin2", "swin3")}
@@ -50,19 +54,28 @@ def norm_err(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
 
 
-@pytest.fixture(scope="module")
-def trunk_pair():
-    """The narrow trunk's JAX parameters and the port's trunk carrying them."""
-    x = np.random.RandomState(3).normal(0, 1, (2, *HW, 3)).astype(np.float32)
-    jmodel = jswin.SwinTransformer(**NARROW, dtype=jnp.float32)
+def _trunk_pair(arch, hw):
+    """A narrow trunk's JAX parameters and the port's trunk carrying them."""
+    x = np.random.RandomState(3).normal(0, 1, (2, *hw, 3)).astype(np.float32)
+    jmodel = jswin.SwinTransformer(**arch, dtype=jnp.float32)
     params = _perturb(jax.jit(jmodel.init)(jax.random.PRNGKey(1), jnp.asarray(x))["params"], 4)
-    model = tswin.SwinTransformer(**NARROW)
+    model = tswin.SwinTransformer(**arch)
     state = {k[len(PREFIX):]: v for k, v in state_dict_from_jax({"backbone": params}).items()}
     model.load_state_dict(state, strict=True)
     return jmodel, params, model, x
 
 
-def test_swin_trunk_grads_vs_jax(trunk_pair):
+@pytest.fixture(scope="module")
+def trunk_pair():
+    return _trunk_pair(NARROW, HW)
+
+
+@pytest.fixture(scope="module")
+def trunk_pair_w12():
+    return _trunk_pair(NARROW_W12, HW_W12)
+
+
+def _grads_vs_jax(trunk_pair):
     jmodel, params, model, x = trunk_pair
     r = np.random.RandomState(5)
     want_out = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x))
@@ -93,7 +106,15 @@ def test_swin_trunk_grads_vs_jax(trunk_pair):
     assert float(named["layers.0.blocks.1.attn.relative_position_bias_table"].grad.abs().sum()) > 0
 
 
-def test_kernel_modes_agree_and_grad_takes_v2(trunk_pair, monkeypatch):
+def test_swin_trunk_grads_vs_jax(trunk_pair):
+    _grads_vs_jax(trunk_pair)
+
+
+def test_swin_w12_trunk_grads_vs_jax(trunk_pair_w12):
+    _grads_vs_jax(trunk_pair_w12)
+
+
+def _modes_agree_and_grad_takes_v2(trunk_pair, monkeypatch, arch):
     _, _, model, x = trunk_pair
     xt = torch.from_numpy(x)
     outs = {}
@@ -119,7 +140,15 @@ def test_kernel_modes_agree_and_grad_takes_v2(trunk_pair, monkeypatch):
                                    rtol=1e-5)
     model.kernel_mode = "v3"
     with pytest.raises(ValueError):
-        tswin.SwinTransformer(**NARROW, kernel_mode="off")
+        tswin.SwinTransformer(**arch, kernel_mode="off")
+
+
+def test_kernel_modes_agree_and_grad_takes_v2(trunk_pair, monkeypatch):
+    _modes_agree_and_grad_takes_v2(trunk_pair, monkeypatch, NARROW)
+
+
+def test_swin_w12_kernel_modes_agree_and_grad_takes_v2(trunk_pair_w12, monkeypatch):
+    _modes_agree_and_grad_takes_v2(trunk_pair_w12, monkeypatch, NARROW_W12)
 
 
 @pytest.fixture(scope="module")
